@@ -3,14 +3,19 @@
 NVIDIA GPU:
 
   1. prints the card's name and power limit, builds the CUDA kernels
-     from ``src/repro_torch/csrc/`` with ``nvcc`` and prints the build
-     time;
-  2. kernel phase: calls each kernel's wrapper on the card at the
-     shapes the rail sweep gives it (lanes of real rail-subset
+     from ``src/repro_torch/csrc/`` (one ``nvcc`` per source, all
+     started together) and prints each build's time;
+  2. kernel phase: calls each rail-sweep kernel's wrapper on the card
+     at the shapes the rail sweep gives it (lanes of real rail-subset
      problems) and holds the result against its plain PyTorch version
      on the same inputs, exactly (integer paths equal, gathered floats
-     bit-equal); prints each kernel's time (CUDA events, median of 25),
-     its plain version's time and its bound;
+     bit-equal); then holds the two attention kernels against their
+     plain versions at the serving shapes of tinyllama-1.1b and the
+     sweep of ``tests/test_kernels.py`` (3e-5 abs in float32, 2e-2 in
+     bfloat16); prints each kernel's time (CUDA events, median of 25),
+     its plain version's time, its bound and, for attention, the time
+     of ``scaled_dot_product_attention`` on the same inputs (a
+     yardstick the port never calls);
   3. path phase: compiles the ``pfdnn`` schedule of all four edge
      networks at full width (0.9 x each network's max rate, default
      config) through ``repro_torch.core.compile`` on the card, with the
@@ -21,7 +26,16 @@ NVIDIA GPU:
      periods (ledger = prediction, no deadline miss);
   4. profiles one more mobilevit-xxs compile (device busy time against
      the wall clock);
-  5. prints the ``kernels`` JSON line and, last, the result line.
+  5. serve phase, tinyllama-1.1b at full width on the card: runs the
+     entry point ``repro_torch.launch.serve`` as users run it (8
+     requests, 16 new tokens, the ``pfdnn`` schedule at 30 Hz, bf16)
+     with the launch counts set to 0 just before and read just after;
+     holds the kernel path against the plain path (same float32
+     weights and prompts, prefill + 8 decode steps, logits within
+     1e-3 x max |logits|); serves 16 requests of 512-1024 prompt
+     tokens at batch 16 and prints prefill and decode rates and the
+     decode loop's device busy share;
+  6. prints the ``kernels`` JSON line and, last, the result line.
 
 Run from the repository root with no arguments: ``python3
 chip_smoke.py``.  It needs one CUDA card and exits non-zero, printing
@@ -30,6 +44,8 @@ no result, without one or without the repository beside it.
 
 from __future__ import annotations
 
+import concurrent.futures
+import contextlib
 import dataclasses
 import json
 import pathlib
@@ -43,9 +59,12 @@ sys.path.insert(0, str(ROOT / "src"))
 
 # H100 SXM peaks (NVIDIA's data sheet): HBM3 bandwidth, and float64
 # outside the tensor cores — the DP's min-plus recurrences have no
-# tensor-core form
+# tensor-core form; dense bf16 on the tensor cores, and float32 outside
+# them (the attention reference computes float32 without TF32)
 HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
+BF16_OPS_PER_S = 989e12
+FP32_OPS_PER_S = 67e12
 
 DEVICE = "cuda"
 RATE_FRACTION = 0.9
@@ -53,10 +72,16 @@ N_PERIODS = 100
 REPS = 25
 GOLDEN_KEYS = ("squeezenet1.1|0.9|2|pfdnn", "squeezenet1.1|0.5|3|pfdnn",
                "mobilenetv3-small|0.85|2|pfdnn")
-SOURCE = "src/repro_torch/csrc/dp_sweep.cu"
+SOURCES = {"dp_multi_stacked": "src/repro_torch/csrc/dp_sweep.cu",
+           "kbest_multi_stacked": "src/repro_torch/csrc/dp_sweep.cu",
+           "path_components": "src/repro_torch/csrc/dp_sweep.cu",
+           "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+           "flash_decode": "src/repro_torch/csrc/flash_decode.cu"}
 REPLACES = {"dp_multi_stacked": "src/repro/kernels/dp_sweep.py:81",
             "kbest_multi_stacked": "src/repro/kernels/dp_sweep.py:148",
-            "path_components": "src/repro/kernels/dp_sweep.py:205"}
+            "path_components": "src/repro/kernels/dp_sweep.py:205",
+            "flash_attention": "src/repro/kernels/flash_attention.py:81",
+            "flash_decode": "src/repro/kernels/flash_decode.py:68"}
 # (network, lanes in one call) of the kernel phase: the widest bucket
 # of each network's 3-rail sweep
 KERNEL_SHAPES = (("mobilevit-xxs", 3), ("mobilenetv3-small", 3),
@@ -281,17 +306,182 @@ def kernel_phase(k_best: int) -> list[dict]:
 
 
 def _kernel_row(rows, name, shape, ms, plain_ms, bound_ms, bound_by,
-                err) -> None:
+                err, library_ms=None) -> None:
+    lib = "" if library_ms is None else f"  library {library_ms:9.4f} ms"
     print(f"kernel {name:20s} {shape:28s} {ms:9.4f} ms  plain "
-          f"{plain_ms:9.4f} ms  bound {bound_ms:9.5f} ms ({bound_by})  "
-          f"max_abs_err {err}", flush=True)
-    # the JSON line carries the widest shape of each kernel (measured
-    # first); every shape is printed above
+          f"{plain_ms:9.4f} ms  bound {bound_ms:9.5f} ms ({bound_by})"
+          f"{lib}  max_abs_err {err}", flush=True)
+    # the JSON line carries the first shape of each kernel (the widest,
+    # or for attention the serving shape); every shape is printed above
     rows.setdefault(name, {
-        "name": name, "route": "cuda", "source": SOURCE,
+        "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": None, "shape": shape})
+        "bound_by": bound_by, "library_ms": library_ms, "shape": shape})
+
+
+# ---------------------------------------------------- attention kernels
+
+# (b, h, kh, sq, sk, d, causal, dtype): tinyllama-1.1b's serving shape
+# (GQA 32 over 4 heads, D = 64) in bf16 and float32, a ragged prefill,
+# then the sweep of tests/test_kernels.py (Sq < Sk with q_offset in the
+# second)
+ATTENTION_SHAPES = (
+    (16, 32, 4, 1024, 1024, 64, True, "bfloat16"),
+    (16, 32, 4, 1024, 1024, 64, True, "float32"),
+    (1, 32, 4, 13, 13, 64, True, "bfloat16"),
+    (2, 4, 4, 128, 128, 64, True, "float32"),
+    (1, 8, 2, 64, 128, 32, True, "float32"),
+    (2, 4, 1, 128, 256, 32, False, "float32"),
+    (1, 2, 2, 256, 256, 128, True, "bfloat16"),
+    (1, 4, 2, 64, 64, 16, True, "float32"),
+)
+# (b, s, kh, h, d, dtype): tinyllama-1.1b decoding at batch 16 over a
+# 2048-token cache, the launcher's cache (B = 4, S = 96), then the
+# sweep of tests/test_kernels.py; lengths drawn from [1, S], the first
+# sequence's cache full
+DECODE_SHAPES = (
+    (16, 2048, 4, 32, 64, "bfloat16"),
+    (16, 2048, 4, 32, 64, "float32"),
+    (4, 96, 4, 32, 64, "bfloat16"),
+    (2, 256, 4, 4, 64, "float32"),
+    (3, 128, 2, 8, 32, "float32"),
+    (1, 512, 1, 4, 128, "bfloat16"),
+)
+ATTN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
+
+
+def _dtype(name: str):
+    import torch
+
+    return {"float32": torch.float32, "bfloat16": torch.bfloat16}[name]
+
+
+def _bound_typed(nbytes: int, ops: int, dtype: str
+                 ) -> tuple[float, str, int, int]:
+    """(bound ms, what bounds it, bytes, operations)."""
+    peak = BF16_OPS_PER_S if dtype == "bfloat16" else FP32_OPS_PER_S
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = ops / peak * 1e3
+    if t_bytes >= t_ops:
+        return t_bytes, "bytes", nbytes, ops
+    return t_ops, "operations", nbytes, ops
+
+
+def attention_bound(b, h, kh, sq, sk, d, causal, q_offset, dtype
+                    ) -> tuple[float, str, int, int]:
+    """q, k, v read once and the output written once; 4·D operations
+    (two multiply-adds, QK and PV) per (query, key) pair the mask
+    keeps."""
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = (2 * b * h * sq * d + 2 * b * kh * sk * d) * elt
+    if causal:
+        pairs = sum(min(sk, max(0, q_offset + i + 1)) for i in range(sq))
+    else:
+        pairs = sq * sk
+    return _bound_typed(nbytes, 4 * d * b * h * pairs, dtype)
+
+
+def decode_bound(h, kh, d, lengths, dtype
+                 ) -> tuple[float, str, int, int]:
+    """q read and out written once, the valid K/V rows read once (the
+    kernel reads nothing past ``length``), the lengths; 4·D operations
+    per (query head, valid position)."""
+    elt = 2 if dtype == "bfloat16" else 4
+    b = len(lengths)
+    valid = sum(lengths)
+    nbytes = 2 * b * h * d * elt + 2 * valid * kh * d * elt + 4 * b
+    return _bound_typed(nbytes, 4 * d * h * valid, dtype)
+
+
+def attention_phase() -> list[dict]:
+    """The two attention kernels against their plain versions and the
+    library yardstick, at ATTENTION_SHAPES and DECODE_SHAPES."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    rows: dict[str, dict] = {}
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+
+    def randn(*shape, dtype):
+        return torch.randn(shape, generator=gen, device=DEVICE,
+                           dtype=torch.float32).to(_dtype(dtype))
+
+    for b, h, kh, sq, sk, d, causal, dtype in ATTENTION_SHAPES:
+        q = randn(b, h, sq, d, dtype=dtype)
+        k = randn(b, kh, sk, d, dtype=dtype)
+        v = randn(b, kh, sk, d, dtype=dtype)
+        q_offset = sk - sq if causal else 0
+        args = dict(causal=causal, q_offset=q_offset)
+        got = fa.flash_attention(q, k, v, **args)
+        want = fa.flash_attention_plain(q, k, v, **args)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        label = (f"[{b},{h},{sq},{d}]x[{kh},{sk}] "
+                 f"{'causal' if causal else 'full'} {dtype}")
+        check(err <= ATTN_TOL[dtype], f"flash_attention != plain at "
+              f"{label}: max abs err {err}")
+        mask = None
+        if causal and sq != sk:
+            qpos = q_offset + torch.arange(sq, device=DEVICE)
+            mask = qpos[:, None] >= torch.arange(sk, device=DEVICE)[None]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                q, k, v, attn_mask=mask,
+                is_causal=causal and mask is None, enable_gqa=True)
+
+        lib_err = _max_abs_err(library(), want)
+        bound, by, nbytes, ops = attention_bound(b, h, kh, sq, sk, d,
+                                                 causal, q_offset, dtype)
+        _kernel_row(rows, "flash_attention", label,
+                    time_ms(lambda: fa.flash_attention(q, k, v, **args)),
+                    time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                             **args)),
+                    bound, by, err, time_ms(library))
+        print(f"  bytes {nbytes}  operations {ops}  library max abs err "
+              f"vs plain {lib_err}", flush=True)
+        del q, k, v, got, want
+
+    lrng = np.random.default_rng(0)
+    for b, s, kh, h, d, dtype in DECODE_SHAPES:
+        q = randn(b, h, d, dtype=dtype)
+        k = randn(b, s, kh, d, dtype=dtype)
+        v = randn(b, s, kh, d, dtype=dtype)
+        lens_np = lrng.integers(1, s + 1, size=b).astype(np.int32)
+        lens_np[0] = s                      # one full cache
+        lens = torch.from_numpy(lens_np).to(DEVICE)
+        got = fd.flash_decode(q, k, v, lens)
+        want = fd.flash_decode_plain(q, k, v, lens)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        label = f"B={b} S={s} {h}/{kh} heads D={d} {dtype}"
+        check(err <= ATTN_TOL[dtype], f"flash_decode != plain at {label}: "
+              f"max abs err {err}")
+        qs = q[:, :, None, :]
+        ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        mask = (torch.arange(s, device=DEVICE)[None, :]
+                < lens[:, None])[:, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+        lib_err = _max_abs_err(library(), want)
+        bound, by, nbytes, ops = decode_bound(
+            h, kh, d, [int(x) for x in lens_np], dtype)
+        _kernel_row(rows, "flash_decode", label,
+                    time_ms(lambda: fd.flash_decode(q, k, v, lens)),
+                    time_ms(lambda: fd.flash_decode_plain(q, k, v, lens)),
+                    bound, by, err, time_ms(library))
+        print(f"  bytes {nbytes}  operations {ops}  library max abs err "
+              f"vs plain {lib_err}", flush=True)
+        del q, k, v, got, want
+    return list(rows.values())
 
 
 # --------------------------------------------------------- path phase
@@ -394,6 +584,46 @@ def path_phase() -> tuple[dict, dict]:
     return counts, walls
 
 
+def device_busy(prof) -> tuple[float, list] | None:
+    """The card's busy time in a profile (union of its kernel and copy
+    intervals, µs) and the device time by operation, largest first;
+    None when the profiler recorded no device events."""
+    import torch
+
+    dev = [e for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    if not dev:
+        return None
+    busy = 0.0
+    end = float("-inf")
+    for s, e in sorted((ev.time_range.start, ev.time_range.end)
+                       for ev in dev):
+        if e > end:
+            busy += e - max(s, end)
+            end = e
+    by_name: dict[str, list] = {}
+    for ev in dev:
+        acc = by_name.setdefault(ev.name, [0, 0.0])
+        acc[0] += 1
+        acc[1] += ev.time_range.elapsed_us()
+    return busy, sorted(by_name.items(), key=lambda kv: -kv[1][1])
+
+
+def _print_busy(label: str, prof, wall_us: float) -> None:
+    found = device_busy(prof)
+    if found is None:
+        print(f"{label}: device time not measured (the profiler "
+              "recorded no device events)", flush=True)
+        return
+    busy, by_name = found
+    print(f"{label}: wall {wall_us / 1e3:.3f} ms (profiled)  device "
+          f"busy {busy / 1e3:.3f} ms  idle share "
+          f"{1.0 - busy / wall_us:.4f}", flush=True)
+    for name, (n, us) in by_name[:8]:
+        print(f"  device {n:6d} x {us / 1e3:10.3f} ms  {name[:90]}",
+              flush=True)
+
+
 def profile_phase(net: str) -> None:
     """One more compile of ``net`` under ``torch.profiler``: the card's
     busy time (union of its kernel and copy intervals) against the
@@ -412,31 +642,255 @@ def profile_phase(net: str) -> None:
                 cfg=OrchestratorConfig(device=DEVICE), network=net)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - tic) * 1e6
-    dev = [e for e in prof.events()
-           if e.device_type == torch.autograd.DeviceType.CUDA]
-    if not dev:
-        print(f"profile {net}: device time not measured (the profiler "
-              "recorded no device events)", flush=True)
-        return
-    busy = 0.0
-    end = float("-inf")
-    for s, e in sorted((ev.time_range.start, ev.time_range.end)
-                       for ev in dev):
-        if e > end:
-            busy += e - max(s, end)
-            end = e
-    by_name: dict[str, list] = {}
-    for ev in dev:
-        acc = by_name.setdefault(ev.name, [0, 0.0])
-        acc[0] += 1
-        acc[1] += ev.time_range.elapsed_us()
-    top = sorted(by_name.items(), key=lambda kv: -kv[1][1])[:8]
-    print(f"profile {net}: wall {wall_us / 1e3:.3f} ms (profiled)  device "
-          f"busy {busy / 1e3:.3f} ms  idle share "
-          f"{1.0 - busy / wall_us:.4f}", flush=True)
-    for name, (n, us) in top:
-        print(f"  device {n:6d} x {us / 1e3:10.3f} ms  {name[:90]}",
-              flush=True)
+    _print_busy(f"profile {net}", prof, wall_us)
+
+
+# -------------------------------------------------------- serve phase
+
+ARCH = "tinyllama-1.1b"
+CLI_ARGS = ["--arch", ARCH, "--requests", "8", "--max-new", "16",
+            "--rate", "30", "--policy", "pfdnn"]
+PARITY_PROMPTS, PARITY_LEN, PARITY_STEPS = 4, 200, 8
+BATCH, BATCH_CACHE, BATCH_NEW = 16, 2048, 32
+PROFILED_STEPS = (8, 16)              # decode steps run under the profiler
+
+
+def _reset_counts() -> None:
+    from repro_torch.kernels import dp_sweep, flash_attention, flash_decode
+
+    for mod in (dp_sweep, flash_attention, flash_decode):
+        mod.reset_launch_counts()
+
+
+def _counts() -> dict:
+    from repro_torch.kernels import dp_sweep, flash_attention, flash_decode
+
+    return {**dp_sweep.LAUNCHES, **flash_attention.LAUNCHES,
+            **flash_decode.LAUNCHES}
+
+
+def cli_run() -> dict:
+    """The entry point as users run it, in-process, with the launch
+    counts set to 0 just before and read just after."""
+    from repro_torch.launch import serve as launch
+
+    _reset_counts()
+    tic = time.perf_counter()
+    out = launch.main(list(CLI_ARGS))
+    wall = time.perf_counter() - tic
+    counts = _counts()
+    print(f"serve cli: {' '.join(CLI_ARGS)}: wall {wall:.3f} s  launches "
+          f"{json.dumps(counts)}", flush=True)
+    done = out["done"]
+    check(len(done) == 8 and all(len(r.generated) == 16 and not
+                                 r.truncated for r in done),
+          "the launcher did not serve 8 requests of 16 tokens")
+    for name in ("flash_attention", "flash_decode"):
+        check(counts[name] > 0, f"kernel {name} was not launched by the "
+              "launcher")
+    for name in ("dp_multi_stacked", "kbest_multi_stacked",
+                 "path_components"):
+        check(counts[name] > 0, f"the launcher's power compile did not "
+              f"launch {name} on the card")
+    check(out["schedule"] is not None, "no power schedule at 30 Hz")
+    check(out["replay"]["deadline_misses"] == 0
+          and len(out["replay"]["ledgers"]) == 10,
+          "the launcher's 10 replayed periods missed a deadline")
+    return counts
+
+
+@contextlib.contextmanager
+def plain_attention():
+    """Route the transformer's attention through the kernels' plain
+    versions (on the same card tensors) for the duration."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+    from repro_torch.kernels import ops
+
+    saved = ops.flash_attention, ops.flash_decode
+    ops.flash_attention = fa.flash_attention_plain
+    ops.flash_decode = fd.flash_decode_plain
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.flash_decode = saved
+
+
+def parity_run() -> None:
+    """Kernel path against plain path: the same seeded weights in
+    float32, the same prompts, prefill + PARITY_STEPS decode steps, the
+    kernel path's greedy tokens fed to both."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import (
+        decode_step,
+        init_params,
+        prefill,
+    )
+
+    cfg = dataclasses.replace(get_config(ARCH), dtype="float32")
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                         DEVICE)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (PARITY_PROMPTS, PARITY_LEN))).to(DEVICE)
+    cache = PARITY_LEN + PARITY_STEPS
+    tic = time.perf_counter()
+    lk, sk = prefill(params, cfg, {"tokens": toks}, cache)
+    with plain_attention():
+        lp, sp = prefill(params, cfg, {"tokens": toks}, cache)
+    worst, same, total = 0.0, 0, 0
+    for step in range(PARITY_STEPS + 1):
+        diff = float((lk - lp).abs().max())
+        scale = float(lk.abs().max())
+        worst = max(worst, diff / scale)
+        check(diff <= 1e-3 * scale, f"kernel vs plain logits at step "
+              f"{step}: max |diff| {diff} > 1e-3 x {scale}")
+        tk, tp = lk.argmax(-1), lp.argmax(-1)
+        same += int((tk == tp).sum())
+        total += tk.numel()
+        if step == PARITY_STEPS:
+            break
+        lk, sk = decode_step(params, cfg, sk, tk)
+        with plain_attention():
+            lp, sp = decode_step(params, cfg, sp, tk)
+    torch.cuda.synchronize()
+    print(f"serve parity: {ARCH} float32, {PARITY_PROMPTS} prompts of "
+          f"{PARITY_LEN} tokens, prefill + {PARITY_STEPS} decode steps: "
+          f"max |dlogits| / max |logits| {worst!r} (limit 1e-3); "
+          f"identical greedy tokens {same}/{total}; wall "
+          f"{time.perf_counter() - tic:.3f} s", flush=True)
+
+
+def batch_run() -> None:
+    """Serving at a real batch: BATCH requests of 512-1024 prompt
+    tokens, BATCH_NEW new tokens each, bf16, through ServingEngine."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+    from repro_torch.serve import EngineConfig, ServingEngine
+
+    cfg = get_config(ARCH)
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                         DEVICE)
+    engine = ServingEngine(cfg, params, EngineConfig(
+        max_batch=BATCH, cache_len=BATCH_CACHE, max_new_tokens=BATCH_NEW,
+        eos_token=-1))
+    rng = np.random.default_rng(0)
+    lengths = rng.integers(512, 1025, size=BATCH)
+    for n in lengths:
+        engine.submit(list(rng.integers(1, cfg.vocab_size, int(n))))
+    prefill_walls = []
+    inner = engine._prefill_batch
+
+    def timed_prefill(requests):
+        torch.cuda.synchronize()
+        tic = time.perf_counter()
+        inner(requests)
+        torch.cuda.synchronize()
+        prefill_walls.append(time.perf_counter() - tic)
+
+    engine._prefill_batch = timed_prefill
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    steps, prof, prof_tic, prof_wall = [], None, 0.0, 0.0
+    tic_all = time.perf_counter()
+    while engine.queue or engine.active:
+        i = len(steps)
+        torch.cuda.synchronize()
+        if i == PROFILED_STEPS[0]:
+            prof = profile(activities=[ProfilerActivity.CPU,
+                                       ProfilerActivity.CUDA])
+            prof.__enter__()
+            prof_tic = time.perf_counter()
+        # this step decodes unless every live request emits its last
+        # token in it
+        decodes = any(len(r.generated) < BATCH_NEW - 1
+                      for r in engine.active.values())
+        tic = time.perf_counter()
+        engine.step()
+        torch.cuda.synchronize()
+        steps.append((time.perf_counter() - tic, decodes))
+        if i + 1 == PROFILED_STEPS[1]:
+            prof_wall = time.perf_counter() - prof_tic
+            prof.__exit__(None, None, None)
+    total = time.perf_counter() - tic_all
+    counts = _counts()
+    padded = BATCH * int(lengths.max())
+    decode_walls = [w for j, (w, dec) in enumerate(steps)
+                    if dec and not PROFILED_STEPS[0] <= j < PROFILED_STEPS[1]]
+    med = statistics.median(decode_walls)
+    print(f"serve batch: {ARCH} bf16, {BATCH} requests, prompts "
+          f"{int(lengths.min())}-{int(lengths.max())} tokens "
+          f"({int(lengths.sum())} real, {padded} padded), cache "
+          f"{BATCH_CACHE}, {BATCH_NEW} new tokens; {len(steps)} engine "
+          f"steps in {total:.3f} s; peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB",
+          flush=True)
+    print(f"  prefill wall {prefill_walls[0] * 1e3:.3f} ms: "
+          f"{padded / prefill_walls[0]:.1f} padded tokens/s "
+          f"({int(lengths.sum()) / prefill_walls[0]:.1f} real)", flush=True)
+    print(f"  decode step (emit + decode_step + logits to host) median "
+          f"{med * 1e3:.3f} ms over {len(decode_walls)} unprofiled steps "
+          f"(min {min(decode_walls) * 1e3:.3f}, max "
+          f"{max(decode_walls) * 1e3:.3f}): {BATCH / med:.1f} decode "
+          f"tokens/s", flush=True)
+    print(f"  launches {json.dumps(counts)}", flush=True)
+    check(counts["flash_attention"] == cfg.n_layers
+          and counts["flash_decode"] == cfg.n_layers * (BATCH_NEW - 1),
+          f"batch serve launches {counts}")
+    label = (f"  profile decode steps {PROFILED_STEPS[0]}-"
+             f"{PROFILED_STEPS[1] - 1}")
+    _print_busy(label, prof, prof_wall * 1e6)
+    found = device_busy(prof)
+    if found is not None:
+        n_steps = PROFILED_STEPS[1] - PROFILED_STEPS[0]
+        n_ops = sum(n for _, (n, _) in found[1])
+        print(f"{label}: {n_ops / n_steps:.1f} device operations "
+              f"(kernels and copies) a step, {found[0] / n_steps / 1e3:.3f} "
+              f"ms device busy a step, {prof_wall / n_steps * 1e3:.3f} ms "
+              "wall a step", flush=True)
+
+
+def serve_phase() -> dict:
+    tic = time.perf_counter()
+    counts = cli_run()
+    print(f"phase serve cli: {time.perf_counter() - tic:.3f} s", flush=True)
+    tic = time.perf_counter()
+    parity_run()
+    print(f"phase serve parity: {time.perf_counter() - tic:.3f} s",
+          flush=True)
+    tic = time.perf_counter()
+    batch_run()
+    print(f"phase serve batch: {time.perf_counter() - tic:.3f} s",
+          flush=True)
+    return counts
+
+
+def build_all() -> None:
+    """Build every kernel library, one ``nvcc`` per source, all started
+    together, then load each."""
+    from repro_torch.kernels import dp_sweep, flash_attention, flash_decode
+
+    libs = [m.LIBRARY for m in (dp_sweep, flash_attention, flash_decode)]
+
+    def build(lib):
+        tic = time.perf_counter()
+        path = lib.build()
+        return path.name, time.perf_counter() - tic
+
+    tic = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        for name, secs in pool.map(build, libs):
+            print(f"build: {name} in {secs:.2f} s", flush=True)
+    for lib in libs:
+        lib.load()
+    print(f"build: all in {time.perf_counter() - tic:.2f} s", flush=True)
 
 
 def main() -> int:
@@ -450,7 +904,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     try:
-        from repro_torch.kernels import dp_sweep as ks
+        from repro_torch.kernels import dp_sweep  # noqa: F401
     except ImportError as exc:
         print(f"chip_smoke: the port is not beside this script ({exc})",
               file=sys.stderr)
@@ -462,18 +916,26 @@ def main() -> int:
     print(smi, flush=True)
     print(f"torch {torch.__version__} cuda {torch.version.cuda} "
           f"device {torch.cuda.get_device_name(0)}", flush=True)
+    # float32 products in full float32, as the reference computes them
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    print("tf32: matmul off, cudnn off", flush=True)
 
-    tic = time.perf_counter()
-    ks.load_library()
-    print(f"build: {ks.build_library().name} in "
-          f"{time.perf_counter() - tic:.2f} s", flush=True)
+    build_all()
 
     from repro_torch.core.policies import OrchestratorConfig
+    tic = time.perf_counter()
     rows = kernel_phase(OrchestratorConfig().k_candidates)
+    rows += attention_phase()
+    print(f"phase kernels: {time.perf_counter() - tic:.3f} s", flush=True)
+    tic = time.perf_counter()
     counts, walls = path_phase()
     profile_phase(KERNEL_SHAPES[0][0])
+    print(f"phase path: {time.perf_counter() - tic:.3f} s", flush=True)
+    serve_counts = serve_phase()
     for row in rows:
-        row["launches"] = counts[row["name"]]
+        row["launches"] = (serve_counts if row["name"].startswith("flash")
+                           else counts)[row["name"]]
     print(f"compile walls (s): {json.dumps(walls)}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -1,0 +1,37 @@
+"""Config registry: ``--arch <id>`` → ModelConfig.
+
+The 10 assigned architectures (exact published configurations), the
+same data as the JAX package's registry.  The port's transformer runs
+the dense ones (see :mod:`repro_torch.models.transformer`).
+"""
+
+from __future__ import annotations
+
+import importlib
+
+from repro_torch.configs.base import FAMILIES, ModelConfig
+
+_MODULES = {
+    "phi3-mini-3.8b": "phi3_mini_3_8b",
+    "qwen2-7b": "qwen2_7b",
+    "tinyllama-1.1b": "tinyllama_1_1b",
+    "deepseek-7b": "deepseek_7b",
+    "kimi-k2-1t-a32b": "kimi_k2_1t_a32b",
+    "deepseek-v2-lite-16b": "deepseek_v2_lite_16b",
+    "whisper-large-v3": "whisper_large_v3",
+    "xlstm-350m": "xlstm_350m",
+    "hymba-1.5b": "hymba_1_5b",
+    "qwen2-vl-72b": "qwen2_vl_72b",
+}
+
+ARCH_IDS = tuple(_MODULES)
+
+
+def get_config(arch: str) -> ModelConfig:
+    if arch not in _MODULES:
+        raise KeyError(f"unknown arch {arch!r}; one of {sorted(_MODULES)}")
+    mod = importlib.import_module(f"repro_torch.configs.{_MODULES[arch]}")
+    return mod.CONFIG
+
+
+__all__ = ["ModelConfig", "FAMILIES", "ARCH_IDS", "get_config"]

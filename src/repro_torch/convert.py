@@ -7,7 +7,10 @@ the port reads what the reference writes without importing it:
     reference ``LayerSpec`` fields → the port's
     :class:`~repro_torch.perfmodel.layer_costs.LayerSpec`;
   - :func:`padded_from_numpy` — the arrays of a reference
-    ``PaddedArrays`` → one-lane tensors in the layout the kernels take.
+    ``PaddedArrays`` → one-lane tensors in the layout the kernels take;
+  - :func:`lm_params_from_numpy` — a reference LM parameter tree (from
+    ``repro.models.transformer.init_params``, as numpy) → the port's
+    parameters, so both packages compute with the same weights.
 
 A reference ``PowerSchedule.to_json`` payload is read by the port's own
 :meth:`~repro_torch.core.schedule.PowerSchedule.from_json` (same schema,
@@ -22,6 +25,8 @@ from typing import Iterable, Mapping
 import numpy as np
 import torch
 
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import param_shapes
 from repro_torch.perfmodel.layer_costs import LayerSpec
 
 #: the padded-tensor names, in the order the kernels take them
@@ -68,3 +73,37 @@ def padded_from_numpy(arrays: Mapping[str, np.ndarray],
                              f"[L-1, S, S] with L={L}, S={S}")
     return tuple(out)
 
+
+def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
+                         device: str | torch.device = "cuda") -> dict:
+    """The port's LM parameters from a reference parameter tree of
+    numpy arrays (any float dtype, bfloat16 included): same names,
+    per-layer leaves stacked on axis 0 (a list of per-layer dicts, the
+    reference's unscanned layout, is stacked here), cast to
+    ``cfg.dtype`` on ``device``.  Every name and shape must be the one
+    :func:`repro_torch.models.transformer.init_params` makes."""
+    tree = dict(tree)
+    layers = tree.get("layers")
+    if isinstance(layers, (list, tuple)):
+        tree["layers"] = {key: np.stack([np.asarray(lp[key], np.float32)
+                                         for lp in layers])
+                          for key in layers[0]}
+
+    def convert(node, want, path):
+        if set(node) != set(want):
+            raise ValueError(f"LM parameters{path}: names "
+                             f"{sorted(node)} != expected {sorted(want)}")
+        out = {}
+        for key, shape in want.items():
+            if isinstance(shape, dict):
+                out[key] = convert(node[key], shape, f"{path}.{key}")
+                continue
+            arr = np.array(node[key], np.float32)          # a copy
+            if arr.shape != tuple(shape):
+                raise ValueError(f"LM parameter {path}.{key} has shape "
+                                 f"{arr.shape}, expected {tuple(shape)}")
+            out[key] = torch.from_numpy(arr).to(device=device,
+                                                dtype=cfg.torch_dtype)
+        return out
+
+    return convert(tree, param_shapes(cfg), "")

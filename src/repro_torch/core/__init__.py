@@ -11,6 +11,7 @@ Public API:
   - prune_problem                            — §4.3 structure pruning
   - run_stacked_sweeps / select_rails_stacked — §6.3 rail selection
   - compile / MinEnergy / InfeasibleGoal     — goal-driven entry
+  - compile_power_schedule                   — rate → schedule or None
   - PowerSchedule                            — §3.3 compiled artifact
 """
 
@@ -34,6 +35,7 @@ from repro_torch.core.lambda_dp import (
 from repro_torch.core.orchestrator import (
     OrchestratorConfig,
     compile,
+    compile_power_schedule,
     get_policy,
     policy_names,
     register_policy,
@@ -62,5 +64,5 @@ __all__ = [
     "build_edge_problem", "build_idle_model",
     # ``compile`` is importable explicitly but left out of __all__ so
     # ``from repro_torch.core import *`` never shadows the builtin
-    "OrchestratorConfig", "PowerSchedule",
+    "OrchestratorConfig", "PowerSchedule", "compile_power_schedule",
 ]

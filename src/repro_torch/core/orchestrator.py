@@ -77,6 +77,22 @@ def compile(
     return sched
 
 
+def compile_power_schedule(
+    specs: Sequence[LayerSpec],
+    target_rate_hz: float,
+    *,
+    cfg: OrchestratorConfig | None = None,
+    acc: Edge40nmAccelerator = EDGE40NM_DEFAULT,
+    network: str | None = None,
+) -> PowerSchedule | None:
+    """Back-compat wrapper: compile the paper's scenario — min energy at
+    a periodic inference rate (``MinEnergy(rate_hz=...)``, §3.3) — and
+    keep the legacy ``None`` for an infeasible deadline."""
+    result = compile(specs, MinEnergy(rate_hz=target_rate_hz), cfg=cfg,
+                     acc=acc, network=network)
+    return None if isinstance(result, InfeasibleGoal) else result
+
+
 def infeasible_result(goal: MinEnergy, ctx: CompilationContext
                       ) -> InfeasibleGoal:
     """Structured infeasible result.  :data:`REASON_DEADLINE` is claimed

@@ -27,20 +27,19 @@ The kernels are built at first use with ``nvcc`` for ``sm_90a`` into
 from __future__ import annotations
 
 import ctypes
-import hashlib
-import os
-import shutil
-import subprocess
-import threading
-from pathlib import Path
 
 import torch
 
-_PKG = Path(__file__).resolve().parent.parent
-SOURCE = _PKG / "csrc" / "dp_sweep.cu"
-BUILD_DIR = _PKG / "_build"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "--fmad=false", "-shared", "-Xcompiler", "-fPIC")
+from repro_torch.kernels._nvcc import (
+    BASE_FLAGS,
+    CSRC,
+    CudaLibrary,
+    raise_on as _raise_on,
+    stream_of as _stream,
+)
+
+SOURCE = CSRC / "dp_sweep.cu"
+NVCC_FLAGS = BASE_FLAGS + ("--fmad=false",)
 
 # widest state bucket a CTA can take: one thread per next state
 MAX_STATES = 1024
@@ -51,9 +50,6 @@ _MAX_SMEM = 232_448
 LAUNCHES = {"dp_multi_stacked": 0, "kbest_multi_stacked": 0,
             "path_components": 0}
 
-_LIB: ctypes.CDLL | None = None
-_LIB_LOCK = threading.Lock()
-
 
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
@@ -62,58 +58,29 @@ def reset_launch_counts() -> None:
 
 # ------------------------------------------------------------- build
 
-def _nvcc() -> str:
-    found = shutil.which("nvcc")
-    if found:
-        return found
-    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
-    cand = Path(home) / "bin" / "nvcc"
-    if cand.exists():
-        return str(cand)
-    raise RuntimeError("nvcc not found: the CUDA kernels of repro_torch "
-                       "are built from source at first use")
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pfdnn_dp_multi.argtypes = [p] * 10 + [i] * 4 + [p]
+    lib.pfdnn_kbest_multi.argtypes = [p] * 10 + [i] * 5 + [p]
+    lib.pfdnn_path_components.argtypes = [p] * 12 + [i] * 3 + [p]
+    for fn in (lib.pfdnn_dp_multi, lib.pfdnn_kbest_multi,
+               lib.pfdnn_path_components):
+        fn.restype = ctypes.c_int
 
 
-def build_library() -> Path:
+LIBRARY = CudaLibrary(SOURCE, NVCC_FLAGS, _declare)
+
+
+def build_library():
     """Compile ``dp_sweep.cu`` into a shared library (once per source
-    content) and return its path.  The library is written under a
-    temporary name and moved into place, so a reader never sees a
-    half-written file."""
-    digest = hashlib.blake2b(
-        SOURCE.read_bytes() + " ".join(NVCC_FLAGS).encode(),
-        digest_size=8).hexdigest()
-    lib = BUILD_DIR / f"dp_sweep_{digest}.so"
-    if lib.exists():
-        return lib
-    nvcc = _nvcc()
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = BUILD_DIR / f".{lib.name}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
-    proc = subprocess.run(cmd, capture_output=True, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed ({proc.returncode}):\n"
-                           f"{proc.stdout}{proc.stderr}")
-    os.replace(tmp, lib)
-    return lib
+    content) and return its path."""
+    return LIBRARY.build()
 
 
 def load_library() -> ctypes.CDLL:
     """Build (if needed) and load the kernels; declares every entry
     point's argument and return types."""
-    global _LIB
-    with _LIB_LOCK:
-        if _LIB is not None:
-            return _LIB
-        lib = ctypes.CDLL(str(build_library()))
-        p, i = ctypes.c_void_p, ctypes.c_int
-        lib.pfdnn_dp_multi.argtypes = [p] * 10 + [i] * 4 + [p]
-        lib.pfdnn_kbest_multi.argtypes = [p] * 10 + [i] * 5 + [p]
-        lib.pfdnn_path_components.argtypes = [p] * 12 + [i] * 3 + [p]
-        for fn in (lib.pfdnn_dp_multi, lib.pfdnn_kbest_multi,
-                   lib.pfdnn_path_components):
-            fn.restype = ctypes.c_int
-        _LIB = lib
-        return lib
+    return LIBRARY.load()
 
 
 # ------------------------------------------------------ validation
@@ -149,15 +116,6 @@ def _check_lane_shapes(name, t_op, e_op, valid, t_trans, e_trans) -> None:
         raise ValueError(f"{name}: {S} padded states exceed the "
                          f"kernel's {MAX_STATES}-thread CTA")
 
-
-def _stream(dev: torch.device) -> int:
-    return torch.cuda.current_stream(dev).cuda_stream
-
-
-def _raise_on(name: str, err: int) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA kernel launch failed "
-                           f"(cudaError {err})")
 
 
 _F64, _I64, _I32 = torch.float64, torch.int64, torch.int32

@@ -1,0 +1,167 @@
+"""Prefill attention: wrapper, plain version and launch count of the
+hand-written CUDA kernel ``repro_torch/csrc/flash_attention.cu``.
+
+:func:`flash_attention` replaces the Pallas TPU kernel
+``repro.kernels.flash_attention.flash_attention``: causal or
+non-causal GQA attention of ``q [B, H, Sq, D]`` over ``k/v [B, KH, Sk,
+D]``, queries at absolute positions ``q_offset + i``, with the
+reference's online-softmax semantics (``NEG_INF`` masks, the
+``0.5·NEG_INF`` clamp, ``p`` rounded to V's dtype before ``P·V``,
+``acc / max(l, 1e-30)`` in q's dtype).  ``Sq`` and ``Sk`` need not
+divide any block size.
+
+On a tensor that lies on the CPU the wrapper computes
+:func:`flash_attention_plain`; on a CUDA tensor it launches the kernel
+or raises.  Every launch adds one to :data:`LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import numpy as np
+import torch
+
+from repro_torch.kernels._nvcc import (
+    BASE_FLAGS,
+    CSRC,
+    CudaLibrary,
+    raise_on,
+    stream_of,
+)
+
+NEG_INF = -1e30
+#: head dims the kernel is built for
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+#: element types the kernel takes (q, k, v and the output share one)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+
+SOURCE = CSRC / "flash_attention.cu"
+# held by tolerance, so FMA contraction stays on
+NVCC_FLAGS = BASE_FLAGS
+
+#: kernel launches since the last :func:`reset_launch_counts`
+LAUNCHES = {"flash_attention": 0}
+
+
+def reset_launch_counts() -> None:
+    LAUNCHES["flash_attention"] = 0
+
+
+def _declare(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pfdnn_flash_attention.argtypes = ([p] * 4 + [i] * 9
+                                          + [ctypes.c_float, p])
+    lib.pfdnn_flash_attention.restype = ctypes.c_int
+
+
+LIBRARY = CudaLibrary(SOURCE, NVCC_FLAGS, _declare)
+
+
+def softmax_scale(d: int) -> float:
+    """``1/sqrt(D)`` rounded to float32, as the reference's kernel
+    multiplies float32 scores by it."""
+    return float(np.float32(1.0 / math.sqrt(d)))
+
+
+def check_attention_args(name: str, q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor, q_layout: str,
+                         kv_layout: str) -> None:
+    """Types, devices, head counts and head dim shared by the two
+    attention kernels (``q_layout``/``kv_layout`` name the dims for the
+    error messages)."""
+    for key, t in (("q", q), ("k", k), ("v", v)):
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {key} must be a torch.Tensor")
+        if t.device != q.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, "
+                             f"expected {q.device}")
+        if t.dtype not in DTYPES:
+            raise TypeError(f"{name}: {key} has dtype {t.dtype}; the "
+                            f"kernel takes {sorted(map(str, DTYPES))}")
+        if t.dtype != q.dtype:
+            raise TypeError(f"{name}: q, k and v must share a dtype "
+                            f"({q.dtype} vs {t.dtype})")
+    if k.shape != v.shape:
+        raise ValueError(f"{name}: k and v must share {kv_layout}, got "
+                         f"{tuple(k.shape)} and {tuple(v.shape)}")
+    d = q.shape[-1]
+    if k.shape[-1] != d:
+        raise ValueError(f"{name}: q {q_layout} and k/v {kv_layout} "
+                         f"disagree on D ({d} vs {k.shape[-1]})")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"{name}: head dim {d} not supported; the "
+                         f"kernel takes {HEAD_DIMS}")
+
+
+def check_cuda_operands(name: str, tensors: dict[str, torch.Tensor]
+                        ) -> None:
+    """What a kernel launch needs beyond the shapes: contiguous tensors
+    on 16-byte-aligned addresses."""
+    for key, t in tensors.items():
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: {key} must be contiguous")
+        if t.data_ptr() % 16:
+            raise ValueError(f"{name}: {key} must start on a 16-byte "
+                             "boundary")
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, q_offset: int = 0
+                    ) -> torch.Tensor:
+    """``q [B, H, Sq, D]`` × ``k/v [B, KH, Sk, D]`` → ``[B, H, Sq, D]``
+    in q's dtype; ``H`` a multiple of ``KH``; ``q_offset`` only matters
+    when ``causal``."""
+    name = "flash_attention"
+    check_attention_args(name, q, k, v, "[B, H, Sq, D]", "[B, KH, Sk, D]")
+    if q.dim() != 4 or k.dim() != 4:
+        raise ValueError(f"{name}: q [B, H, Sq, D] and k/v [B, KH, Sk, D]")
+    B, H, Sq, D = q.shape
+    _, KH, Sk, _ = k.shape
+    if k.shape[0] != B or KH == 0 or H % KH:
+        raise ValueError(f"{name}: batch or head counts disagree: q "
+                         f"{tuple(q.shape)}, k {tuple(k.shape)}")
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, causal=causal,
+                                     q_offset=q_offset)
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    check_cuda_operands(name, dict(q=q, k=k, v=v))
+    out = torch.empty_like(q)
+    if out.numel() == 0:
+        return out
+    lib = LIBRARY.load()
+    with torch.cuda.device(q.device):
+        err = lib.pfdnn_flash_attention(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            B, H, KH, Sq, Sk, D, int(q_offset), int(bool(causal)),
+            DTYPES[q.dtype], softmax_scale(D), stream_of(q.device))
+    raise_on(name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
+                          v: torch.Tensor, *, causal: bool = True,
+                          q_offset: int = 0) -> torch.Tensor:
+    """Plain PyTorch version of :func:`flash_attention`: the full
+    masked softmax in float32, with the kernel's ``NEG_INF`` masks and
+    clamp and its cast points (``p`` rounded to V's dtype before
+    ``P·V``, the division by ``max(l, 1e-30)`` after it)."""
+    B, H, Sq, D = q.shape
+    g = H // k.shape[1]
+    Sk = k.shape[2]
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.repeat_interleave(g, dim=1)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * softmax_scale(D)
+    if causal:
+        qpos = q_offset + torch.arange(Sq, device=q.device)
+        kpos = torch.arange(Sk, device=q.device)
+        s = torch.where(qpos[:, None] >= kpos[None, :], s,
+                        torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True).clamp_min(0.5 * NEG_INF)
+    p = torch.exp(s - m)
+    l = p.sum(dim=-1, keepdim=True)
+    out = torch.matmul(p.to(v.dtype).float(), vf.float())
+    return (out / l.clamp_min(1e-30)).to(q.dtype)

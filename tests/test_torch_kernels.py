@@ -212,9 +212,11 @@ def test_wrappers_reject_malformed_inputs():
 def test_build_without_nvcc_raises(monkeypatch, tmp_path):
     """No compiler: the loader raises; nothing falls back to a plain
     version behind the caller's back."""
-    monkeypatch.setattr(ks.shutil, "which", lambda name: None)
+    from repro_torch.kernels import _nvcc
+
+    monkeypatch.setattr(_nvcc.shutil, "which", lambda name: None)
     monkeypatch.setenv("CUDA_HOME", str(tmp_path))
-    monkeypatch.setattr(ks, "BUILD_DIR", tmp_path / "build")
+    monkeypatch.setattr(_nvcc, "BUILD_DIR", tmp_path / "build")
     with pytest.raises(RuntimeError, match="nvcc"):
         ks.build_library()
     assert not os.path.exists(tmp_path / "build")
