@@ -35,7 +35,23 @@ NVIDIA GPU:
      1e-3 x max |logits|); serves 16 requests of 512-1024 prompt
      tokens at batch 16 and prints prefill and decode rates and the
      decode loop's device busy share;
-  6. prints the ``kernels`` JSON line and, last, the result line.
+  6. int8 phase: holds the int8 matmul kernel exactly (bit for bit)
+     against its plain version at the shapes of ``tests/test_kernels.py``,
+     a ragged shape and tinyllama-1.1b's four projection widths at
+     M = 16 (a decode batch) and M = 16384 (16 x 1024 prefill tokens),
+     with its time, its plain version's, its bound and the time of
+     ``torch._int_mm`` plus the same epilogue (a yardstick the port
+     never calls); then drives the int8 entry point
+     ``repro_torch.kernels.int8_linear`` on bf16 activations and weights
+     at those widths (launch count set to 0 just before, read just
+     after; error against ``x @ w`` in float32 below 0.05);
+  7. policy phase: compiles all 23 schedules of
+     ``tests/golden/pipeline.json`` (all eight policies) on the card and
+     holds each against its golden, compares every policy's schedule of
+     ``squeezenet1.1|0.5|3`` with the CPU compile byte for byte, compiles
+     ``MinLatency`` and ``ParetoFront`` goals on the card against the
+     CPU, and prints each compile's wall and DP-kernel launches;
+  8. prints the ``kernels`` JSON line and, last, the result line.
 
 Run from the repository root with no arguments: ``python3
 chip_smoke.py``.  It needs one CUDA card and exits non-zero, printing
@@ -65,6 +81,7 @@ HBM_BYTES_PER_S = 3.35e12
 FP64_OPS_PER_S = 34e12
 BF16_OPS_PER_S = 989e12
 FP32_OPS_PER_S = 67e12
+INT8_OPS_PER_S = 1979e12
 
 DEVICE = "cuda"
 RATE_FRACTION = 0.9
@@ -76,12 +93,14 @@ SOURCES = {"dp_multi_stacked": "src/repro_torch/csrc/dp_sweep.cu",
            "kbest_multi_stacked": "src/repro_torch/csrc/dp_sweep.cu",
            "path_components": "src/repro_torch/csrc/dp_sweep.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
-           "flash_decode": "src/repro_torch/csrc/flash_decode.cu"}
+           "flash_decode": "src/repro_torch/csrc/flash_decode.cu",
+           "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu"}
 REPLACES = {"dp_multi_stacked": "src/repro/kernels/dp_sweep.py:81",
             "kbest_multi_stacked": "src/repro/kernels/dp_sweep.py:148",
             "path_components": "src/repro/kernels/dp_sweep.py:205",
             "flash_attention": "src/repro/kernels/flash_attention.py:81",
-            "flash_decode": "src/repro/kernels/flash_decode.py:68"}
+            "flash_decode": "src/repro/kernels/flash_decode.py:68",
+            "int8_matmul": "src/repro/kernels/int8_matmul.py:47"}
 # (network, lanes in one call) of the kernel phase: the widest bucket
 # of each network's 3-rail sweep
 KERNEL_SHAPES = (("mobilevit-xxs", 3), ("mobilenetv3-small", 3),
@@ -655,18 +674,25 @@ BATCH, BATCH_CACHE, BATCH_NEW = 16, 2048, 32
 PROFILED_STEPS = (8, 16)              # decode steps run under the profiler
 
 
-def _reset_counts() -> None:
-    from repro_torch.kernels import dp_sweep, flash_attention, flash_decode
+def _kernel_modules() -> tuple:
+    from repro_torch.kernels import (
+        dp_sweep,
+        flash_attention,
+        flash_decode,
+        int8_matmul,
+    )
 
-    for mod in (dp_sweep, flash_attention, flash_decode):
+    return dp_sweep, flash_attention, flash_decode, int8_matmul
+
+
+def _reset_counts() -> None:
+    for mod in _kernel_modules():
         mod.reset_launch_counts()
 
 
 def _counts() -> dict:
-    from repro_torch.kernels import dp_sweep, flash_attention, flash_decode
-
-    return {**dp_sweep.LAUNCHES, **flash_attention.LAUNCHES,
-            **flash_decode.LAUNCHES}
+    return {name: n for mod in _kernel_modules()
+            for name, n in mod.LAUNCHES.items()}
 
 
 def cli_run() -> dict:
@@ -872,12 +898,231 @@ def serve_phase() -> dict:
     return counts
 
 
+# ------------------------------------------------------- int8 phase
+
+# (M, K, N): tinyllama-1.1b's projections (q/o 2048 -> 2048, k/v 2048 ->
+# 256 = 4 KV heads x 64, gate/up 2048 -> 5632, down 5632 -> 2048) at a
+# 16 x 1024-token prefill and at a decode batch of 16, the four shapes
+# of tests/test_kernels.py, and a ragged shape (no dim tiles, K % 4 != 0)
+LM_WIDTHS = ((2048, 2048), (2048, 256), (2048, 5632), (5632, 2048))
+INT8_SHAPES = (tuple((16384, k, n) for k, n in LM_WIDTHS)
+               + tuple((16, k, n) for k, n in LM_WIDTHS)
+               + ((128, 128, 128), (256, 512, 128), (64, 64, 192),
+                  (32, 96, 32), (13, 70, 33)))
+INT8_LINEAR_SHAPES = INT8_SHAPES[:8]
+INT8_LINEAR_TOL = 0.05      # tests/test_kernels.py's quantization budget
+
+
+def int8_bound(m: int, k: int, n: int) -> tuple[float, str]:
+    """x, w and both scales read once, the float32 output written once;
+    2·M·N·K operations over the dense int8 tensor-core rate."""
+    nbytes = m * k + k * n + 4 * m + 4 * n + 4 * m * n
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = 2 * m * n * k / INT8_OPS_PER_S * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+def int8_phase() -> list[dict]:
+    """The int8 kernel against its plain version (bit for bit) and the
+    library yardstick at INT8_SHAPES."""
+    import torch
+
+    from repro_torch.kernels import int8_matmul as im
+
+    rows: dict[str, dict] = {}
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    for m, k, n in INT8_SHAPES:
+        x = torch.randint(-128, 128, (m, k), generator=gen, device=DEVICE,
+                          dtype=torch.int8)
+        w = torch.randint(-128, 128, (k, n), generator=gen, device=DEVICE,
+                          dtype=torch.int8)
+        xs = torch.rand(m, generator=gen, device=DEVICE) * 1.5 + 0.5
+        ws = torch.rand(n, generator=gen, device=DEVICE) * 1.5 + 0.5
+        got = im.int8_matmul(x, w, xs, ws)
+        want = im.int8_matmul_plain(x, w, xs, ws)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        label = f"M={m} K={k} N={n}"
+        check(err == 0.0 and torch.equal(got.view(torch.int32),
+                                          want.view(torch.int32)),
+              f"int8_matmul != plain at {label}: max abs err {err}")
+        lib_ms, lib_note = None, "none"
+        # torch._int_mm takes M > 16 and K, N multiples of 8
+        if m > 16 and k % 8 == 0 and n % 8 == 0:
+            def library():
+                acc = torch._int_mm(x, w)
+                return acc.float() * (xs[:, None] * ws[None, :])
+
+            lib_note = f"max abs err vs plain {_max_abs_err(library(), want)}"
+            lib_ms = time_ms(library)
+        bound, by = int8_bound(m, k, n)
+        _kernel_row(rows, "int8_matmul", label,
+                    time_ms(lambda: im.int8_matmul(x, w, xs, ws)),
+                    time_ms(lambda: im.int8_matmul_plain(x, w, xs, ws)),
+                    bound, by, err, lib_ms)
+        print(f"  library (torch._int_mm + epilogue): {lib_note}",
+              flush=True)
+        del x, w, got, want
+    return list(rows.values())
+
+
+def int8_path_phase() -> dict:
+    """The int8 entry point as users call it: ``int8_linear`` on bf16
+    activations and weights at tinyllama-1.1b's widths, with the launch
+    counts set to 0 just before and read just after."""
+    import torch
+
+    from repro_torch.kernels import int8_linear
+
+    gen = torch.Generator(device=DEVICE).manual_seed(1)
+    _reset_counts()
+    for m, k, n in INT8_LINEAR_SHAPES:
+        x = torch.randn((m, k), generator=gen, device=DEVICE
+                        ).to(torch.bfloat16)
+        w = (torch.randn((k, n), generator=gen, device=DEVICE)
+             * k ** -0.5).to(torch.bfloat16)
+        tic = time.perf_counter()
+        out = int8_linear(x, w)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - tic
+        ref = x.float() @ w.float()
+        rel = float((out - ref).abs().max() / ref.abs().max())
+        check(out.shape == (m, n) and out.dtype == torch.float32
+              and bool(torch.isfinite(out).all()),
+              f"int8_linear at M={m} K={k} N={n}: bad output")
+        check(rel < INT8_LINEAR_TOL, f"int8_linear at M={m} K={k} N={n}: "
+              f"rel err {rel} >= {INT8_LINEAR_TOL}")
+        print(f"int8_linear M={m} K={k} N={n} bf16: rel err vs x @ w "
+              f"(float32) {rel!r}  wall {wall * 1e3:.3f} ms", flush=True)
+        del x, w, out, ref
+    counts = _counts()
+    print(f"int8 path launches: {json.dumps(counts)}", flush=True)
+    check(counts["int8_matmul"] == len(INT8_LINEAR_SHAPES),
+          f"int8_linear launched int8_matmul {counts['int8_matmul']} "
+          f"times, expected {len(INT8_LINEAR_SHAPES)}")
+    return counts
+
+
+# ----------------------------------------------------- policy phase
+
+POLICY_CASE = "squeezenet1.1|0.5|3"       # every policy vs the CPU
+DP_KERNELS = ("dp_multi_stacked", "kbest_multi_stacked", "path_components")
+# must launch the DP kernels on the card
+DEVICE_POLICIES = ("pfdnn", "pfdnn_even", "pfdnn_nopp", "ilp")
+
+
+def _policy_free_json(result) -> str:
+    """``to_json`` of a schedule without its host stats, or of an
+    InfeasibleGoal as it is."""
+    if not hasattr(result, "solver_stats"):
+        return result.to_json()
+    stats = {k: v for k, v in result.solver_stats.items()
+             if k not in ("wall_time_s", "backend", "ilp_wall_time_s")}
+    return dataclasses.replace(result, solver_stats=stats).to_json()
+
+
+def _compile_counted(specs, goal, cfg, net):
+    """One compile with its wall and the DP-kernel launches it made."""
+    from repro_torch.core import compile
+
+    before = _counts()
+    tic = time.perf_counter()
+    out = compile(specs, goal, cfg=cfg, network=net)
+    wall = time.perf_counter() - tic
+    after = _counts()
+    return out, wall, sum(after[k] - before[k] for k in DP_KERNELS)
+
+
+def policy_phase() -> None:
+    """Every golden schedule compiled on the card (all eight policies),
+    one case's schedules and the MinLatency / ParetoFront goals against
+    the CPU, with walls and DP launches (counts set to 0 at the start)."""
+    from repro_torch.core import (
+        MinEnergy,
+        MinLatency,
+        OrchestratorConfig,
+        ParetoFront,
+        ParetoFrontier,
+        PowerSchedule,
+        compile,
+    )
+    from repro_torch.models.edge_cnn import edge_network
+
+    golden = json.loads((ROOT / "tests" / "golden" / "pipeline.json")
+                        .read_text())
+    _reset_counts()
+    per_policy: dict[str, int] = {}
+    case_scheds = {}
+    for key, g in golden.items():
+        net, frac, n_rails, policy = key.split("|")
+        cfg = OrchestratorConfig(policy=policy, n_max_rails=int(n_rails),
+                                 device=DEVICE)
+        sched, wall, dp = _compile_counted(
+            edge_network(net), MinEnergy(rate_hz=float(frac) * max_rate(net)),
+            cfg, net)
+        per_policy[policy] = per_policy.get(policy, 0) + dp
+        check(isinstance(sched, PowerSchedule), f"{key}: no schedule")
+        check(abs(sched.e_total - g["e_total"]) <= 1e-9 * abs(g["e_total"])
+              and abs(sched.t_infer - g["t_infer"])
+              <= 1e-9 * abs(g["t_infer"])
+              and list(sched.rails) == g["rails"]
+              and [list(v) for v in sched.layer_voltages]
+              == g["layer_voltages"], f"golden {key} not reproduced")
+        print(f"policy {key:38s} golden reproduced  wall {wall:8.3f} s  "
+              f"DP launches {dp}", flush=True)
+        if key.rsplit("|", 1)[0] == POLICY_CASE:
+            case_scheds[policy] = sched
+    for policy, sched in case_scheds.items():
+        net, frac, n_rails = POLICY_CASE.split("|")
+        cfg = OrchestratorConfig(policy=policy, n_max_rails=int(n_rails),
+                                 device="cpu")
+        cpu = compile(edge_network(net),
+                      MinEnergy(rate_hz=float(frac) * max_rate(net)),
+                      cfg=cfg, network=net)
+        check(_policy_free_json(cpu) == _policy_free_json(sched),
+              f"{POLICY_CASE}|{policy}: card schedule differs from the CPU's")
+    print(f"policy {POLICY_CASE}: all {len(case_scheds)} policies identical "
+          "to the CPU compile", flush=True)
+
+    net = "squeezenet1.1"
+    pf = case_scheds["pfdnn"]
+    budget = (pf.e_op + pf.e_trans) * 1.25
+    goals = {"MinLatency": MinLatency(energy_budget_j=budget),
+             "ParetoFront": ParetoFront(n_points=4)}
+    for name, goal in goals.items():
+        card, wall, dp = _compile_counted(
+            edge_network(net), goal, OrchestratorConfig(device=DEVICE), net)
+        cpu = compile(edge_network(net), goal,
+                      cfg=OrchestratorConfig(device="cpu"), network=net)
+        per_policy[name] = dp
+        if name == "ParetoFront":
+            check(isinstance(card, ParetoFrontier)
+                  and len(card.points) == len(cpu.points)
+                  and all(_policy_free_json(a.schedule)
+                          == _policy_free_json(b.schedule)
+                          for a, b in zip(card.points, cpu.points)),
+                  "ParetoFront on the card differs from the CPU's")
+            desc = (f"{len(card.feasible_points())}/{len(card.points)} "
+                    "points feasible")
+        else:
+            check(isinstance(card, PowerSchedule)
+                  and card.e_op + card.e_trans <= budget
+                  and _policy_free_json(card) == _policy_free_json(cpu),
+                  "MinLatency on the card differs from the CPU's")
+            desc = (f"budget {budget!r} J: T={card.t_infer!r} s "
+                    f"rails={card.rails}")
+        print(f"goal {name} {net}: {desc}; identical to the CPU compile  "
+              f"wall {wall:8.3f} s  DP launches {dp}", flush=True)
+    print(f"policy DP launches: {json.dumps(per_policy)}", flush=True)
+    for name in DEVICE_POLICIES + tuple(goals):
+        check(per_policy.get(name, 0) > 0,
+              f"{name} launched no DP kernel on the card")
+
+
 def build_all() -> None:
     """Build every kernel library, one ``nvcc`` per source, all started
     together, then load each."""
-    from repro_torch.kernels import dp_sweep, flash_attention, flash_decode
-
-    libs = [m.LIBRARY for m in (dp_sweep, flash_attention, flash_decode)]
+    libs = [m.LIBRARY for m in _kernel_modules()]
 
     def build(lib):
         tic = time.perf_counter()
@@ -933,9 +1178,18 @@ def main() -> int:
     profile_phase(KERNEL_SHAPES[0][0])
     print(f"phase path: {time.perf_counter() - tic:.3f} s", flush=True)
     serve_counts = serve_phase()
+    tic = time.perf_counter()
+    rows += int8_phase()
+    int8_counts = int8_path_phase()
+    print(f"phase int8: {time.perf_counter() - tic:.3f} s", flush=True)
+    tic = time.perf_counter()
+    policy_phase()
+    print(f"phase policy: {time.perf_counter() - tic:.3f} s", flush=True)
     for row in rows:
-        row["launches"] = (serve_counts if row["name"].startswith("flash")
-                           else counts)[row["name"]]
+        name = row["name"]
+        row["launches"] = (serve_counts if name.startswith("flash")
+                           else int8_counts if name == "int8_matmul"
+                           else counts)[name]
     print(f"compile walls (s): {json.dumps(walls)}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

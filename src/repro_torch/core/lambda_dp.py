@@ -22,6 +22,10 @@ Implementation notes:
     breakpoint λ* in a handful of DP calls.
   - ``lam_hint`` warm-starts the λ search from a previous solve (the
     rail-subset sweep passes the last subset's λ*).
+  - The dual (:class:`~repro_torch.core.goals.MinLatency`: fastest
+    schedule within an energy budget) runs the same engine on the
+    energy axis of the envelope (:func:`budget_rounds`,
+    :func:`solve_budget_dp`).
 """
 
 from __future__ import annotations
@@ -33,6 +37,7 @@ from typing import Iterable, Sequence
 import numpy as np
 
 from repro_torch.core.backend import bucket_key, get_backend, pad_bucket
+from repro_torch.core.goals import MinLatency
 from repro_torch.core.problem import ScheduleProblem
 
 
@@ -98,12 +103,21 @@ def kbest_rows_to_lists(paths: np.ndarray, counts: np.ndarray
             for q in range(paths.shape[0])]
 
 
+def min_time_path(problem: ScheduleProblem, *, backend=None) -> list[int]:
+    """Fastest possible schedule (λ → ∞ limit): minimize time only, on
+    the backend's DP kernel (``w_e = 0, w_t = 1``)."""
+    return dp_paths_multi_weighted(problem, [0.0], [1.0],
+                                   backend=backend)[0].tolist()
+
+
 # ------------------------------------------------------------- λ search
 
 def _make_consider_all(problem: ScheduleProblem, seen: dict,
                        stats: SolverStats, backend):
-    """The sequential driver's candidate pool: batch-evaluate every
-    not-yet-seen path in one vectorized shot, memoized in ``seen``."""
+    """The sequential solvers' shared candidate pool: batch-evaluate
+    every not-yet-seen path in one vectorized shot, memoized in
+    ``seen`` (one implementation, so the primal and dual pools dedup
+    and account identically)."""
 
     def consider_all(paths: Iterable[Sequence[int]]) -> list[dict]:
         if isinstance(paths, np.ndarray):
@@ -355,6 +369,135 @@ def lambda_rounds(problem: ScheduleProblem, stats: SolverStats, *,
     return True
 
 
+def budget_rounds(problem: ScheduleProblem, stats: SolverStats, *,
+                  budget: float, k_candidates: int, bisect_iters: int,
+                  bisect_rel_tol: float, lam_hint: float | None):
+    """The dual λ search as a resumable state machine: fastest schedule
+    with inference energy ``E_op + E_trans ≤ budget``.
+
+    Same engine as :func:`lambda_rounds` — one batched DP evaluates the
+    limits plus a geometric λ bracket grid, extension sweeps stretch it
+    upward, and parametric envelope cuts land on the exact breakpoint —
+    but the bracket bisects the **energy** axis of the piecewise-linear
+    envelope ``min_p E_p + λT_p`` instead of the time axis: raising λ
+    walks the envelope toward faster, *more expensive* paths, so the
+    budget crossing (not the deadline crossing) is the breakpoint.  The
+    roles of the bracket endpoints flip accordingly: ``lo`` (small λ)
+    is the within-budget side, ``hi`` the over-budget side.
+
+    The problem must be built deadline-free (``t_max=0.0``): every
+    slack is then ≤ 0, so ``e_idle == 0`` exactly and ``e_total`` *is*
+    the inference energy the budget bounds (there is no idle interval
+    to price — idle-branch probes would be meaningless and are not
+    issued).  Returns True when the budget is attainable (candidates in
+    the pool) and False when even the min-energy schedule exceeds it.
+    """
+
+    def line(r: dict) -> tuple[float, float]:
+        # the DP objective's (E, T) of a path: op+transition cost only
+        return (r["e_op"] + r["e_trans"], r["t_infer"])
+
+    # -- round A+B: min-time + min-energy limits AND the bracket grid
+    # in ONE batched DP pass (mirrors the primal's fused first round)
+    hinted = lam_hint is not None and lam_hint > 0.0
+    lam0 = lam_hint if hinted else max(problem.idle.p_idle, 1e-3)
+    grid = lam0 * (_WARM_MULTS if hinted else _COLD_MULTS)
+    stats.dp_calls += 1
+    stats.dp_lambdas += 2 + len(grid)
+    all_paths, rows = yield WorkRequest(
+        "dp", w_e=np.array([0.0, 1.0] + [1.0] * len(grid)),
+        w_t=np.array([1.0, 0.0] + list(grid)), eval_n=2)
+    if line(rows[1])[0] > budget:     # even the cheapest path overshoots
+        return False
+    if line(rows[0])[0] <= budget:
+        # budget is abundant: the fastest schedule overall is optimal;
+        # enrich with the frontier at the grid top for energy tie-breaks
+        stats.lambda_star = 0.0
+        yield WorkRequest("kbest", mus=[float(grid[-1])], k=k_candidates)
+        return True
+
+    # -- bracket the budget crossing on the grid (E(λ) non-decreasing)
+    lo, lo_pt = 0.0, line(rows[1])
+    hi: float | None = None
+    hi_pt: tuple[float, float] | None = None
+    grid_paths = all_paths[2:]
+    for round_no in range(_MAX_GRID_ROUNDS):
+        if round_no > 0:          # extension sweep: crossing above grid
+            grid = grid[-1] * 4.0 ** _EXTEND_EXPS
+            stats.dp_calls += 1
+            stats.dp_lambdas += len(grid)
+            grid_paths, grows = yield WorkRequest(
+                "dp", w_e=np.ones(len(grid)), w_t=np.asarray(grid),
+                eval_n=None)
+        else:
+            grows = yield WorkRequest("eval", paths=grid_paths)
+        for mu, r in zip(grid, grows):
+            if line(r)[0] > budget:
+                hi, hi_pt = float(mu), line(r)
+                break
+            lo, lo_pt = float(mu), line(r)
+        if hi is not None:
+            break
+    if hi is None:
+        # pathological λ scale: the (over-budget) min-time line is the
+        # over-budget endpoint; let the cuts take over
+        hi, hi_pt = float(grid[-1]), line(rows[0])
+
+    # -- parametric envelope cuts (identical crossing formula; the
+    # probe classification tests the budget instead of the deadline)
+    while stats.lambda_iterations < bisect_iters:
+        if bisect_rel_tol > 0.0 and hi - lo <= bisect_rel_tol * hi:
+            break
+        denom = lo_pt[1] - hi_pt[1]            # T_lo − T_hi > 0
+        if denom <= 0.0:
+            break
+        lam = (hi_pt[0] - lo_pt[0]) / denom
+        if lam <= lo or lam >= hi:
+            # crossing ON a bracket endpoint: no third line fits below
+            # the two known ones — the breakpoint is exact
+            break
+        stats.lambda_iterations += 1
+        stats.dp_calls += 1
+        stats.dp_lambdas += 1
+        _, probe_rows = yield WorkRequest(
+            "dp", w_e=np.ones(1), w_t=np.array([lam]), eval_n=None)
+        r = probe_rows[0]
+        pt = line(r)
+        if pt[0] <= budget:
+            if pt == lo_pt:
+                # optimum at lam is still lo's line and the hi line
+                # takes over right above it: breakpoint is exactly lam
+                lo = lam
+                break
+            lo, lo_pt = lam, pt
+        else:
+            if pt == hi_pt:
+                # tie at the crossing resolved to the over-budget line:
+                # the within-budget region ends just below lam
+                hi = lam
+                break
+            hi, hi_pt = lam, pt
+
+    stats.lambda_star = lo if lo > 0.0 else hi
+    # candidate enrichment on BOTH sides of the breakpoint: the k-best
+    # frontier at lo holds the fastest within-budget hull paths, the one
+    # at hi their just-over-budget neighbours whose k-best pools still
+    # contain budget-feasible near-ties
+    yield WorkRequest("kbest", mus=[lo, hi], k=k_candidates)
+    return True
+
+
+def budget_candidates(seen: Iterable[dict], budget: float,
+                      k_candidates: int) -> list[dict]:
+    """The dual's candidate rule: ≤k fastest distinct paths within the
+    energy budget, ties broken toward lower energy (shared by the
+    sequential and the stacked solvers so both rank identically)."""
+    feas = sorted((r for r in seen
+                   if r["e_op"] + r["e_trans"] <= budget),
+                  key=lambda r: (r["t_infer"], r["e_total"]))
+    return feas[:k_candidates]
+
+
 def _frontier_request(problem, lam: float, k_candidates: int,
                       collect_idle_branches: bool) -> WorkRequest:
     """Candidate enrichment at λ (and its sleep-priced branch), fused
@@ -393,7 +536,7 @@ def serve_request(problem: ScheduleProblem, req: WorkRequest,
 
 def _drive_machine(machine, problem, consider_all, bk) -> bool:
     """Drive a λ-search machine to completion on the (non-stacked)
-    backend kernels."""
+    backend kernels; shared by the primal and the dual solvers."""
     resp = None
     while True:
         try:
@@ -401,6 +544,48 @@ def _drive_machine(machine, problem, consider_all, bk) -> bool:
         except StopIteration as stop:
             return stop.value
         resp = serve_request(problem, req, consider_all, bk)
+
+
+def solve_budget_dp(
+    problem: ScheduleProblem,
+    budget: float,
+    *,
+    k_candidates: int = 10,
+    bisect_iters: int = 48,
+    bisect_rel_tol: float = 0.0,
+    lam_hint: float | None = None,
+    backend=None,
+) -> tuple[dict | None, list[dict], SolverStats]:
+    """Dual λ-DP search: fastest schedule with ``E_op + E_trans ≤
+    budget``; returns (best, within-budget candidates, stats) exactly
+    like :func:`solve_lambda_dp` returns its deadline counterparts.
+
+    The problem must be built deadline-free (``t_max=0.0``, see
+    :func:`budget_rounds`); ``best=None`` means the budget lies below
+    the minimum inference energy on this problem's rails.
+    """
+    stats = SolverStats()
+    tic = time.perf_counter()
+    stats.states_explored = problem.n_states()
+    stats.edges_explored = problem.n_edges()
+    bk = get_backend(backend)
+    stats.backend = bk.name
+
+    seen: dict[tuple, dict] = {}
+    consider_all = _make_consider_all(problem, seen, stats, bk)
+
+    machine = budget_rounds(
+        problem, stats, budget=budget, k_candidates=k_candidates,
+        bisect_iters=bisect_iters, bisect_rel_tol=bisect_rel_tol,
+        lam_hint=lam_hint)
+    ok = _drive_machine(machine, problem, consider_all, bk)
+    if not ok:
+        stats.wall_time_s = time.perf_counter() - tic
+        return None, [], stats
+    candidates = budget_candidates(seen.values(), budget, k_candidates)
+    best = candidates[0] if candidates else None
+    stats.wall_time_s = time.perf_counter() - tic
+    return best, candidates, stats
 
 
 # ----------------------------------------------- subset-stacked tasks
@@ -434,11 +619,14 @@ class StackedLambdaTask:
                  bisect_iters: int = 48, bisect_rel_tol: float = 0.0,
                  collect_idle_branches: bool = True,
                  lam_hint: float | None = None,
-                 lane_key=None, sig_prefix: tuple = ()):
+                 lane_key=None, sig_prefix: tuple = (), goal=None):
         self.idx = idx
         self.rails = rails
         self.problem = problem
         self.k_candidates = k_candidates
+        self.goal = goal
+        self._budget = goal.energy_budget_j \
+            if isinstance(goal, MinLatency) else None
         self.stats = SolverStats()
         self.stats.states_explored = problem.n_states()
         self.stats.edges_explored = problem.n_edges()
@@ -454,11 +642,19 @@ class StackedLambdaTask:
         self.padded = problem.padded_arrays()
         self.bucket = bucket_key(self.padded)
         self.seen: dict[tuple, dict] = {}
-        self._machine = lambda_rounds(
-            problem, self.stats, k_candidates=k_candidates,
-            bisect_iters=bisect_iters, bisect_rel_tol=bisect_rel_tol,
-            collect_idle_branches=collect_idle_branches,
-            lam_hint=lam_hint)
+        if self._budget is not None:
+            # dual goal: bisect the energy axis (no idle branches —
+            # the problem is deadline-free, see budget_rounds)
+            self._machine = budget_rounds(
+                problem, self.stats, budget=self._budget,
+                k_candidates=k_candidates, bisect_iters=bisect_iters,
+                bisect_rel_tol=bisect_rel_tol, lam_hint=lam_hint)
+        else:
+            self._machine = lambda_rounds(
+                problem, self.stats, k_candidates=k_candidates,
+                bisect_iters=bisect_iters, bisect_rel_tol=bisect_rel_tol,
+                collect_idle_branches=collect_idle_branches,
+                lam_hint=lam_hint)
         self.request: WorkRequest | None = None
         self.ok: bool | None = None
         self._phase = "lambda"
@@ -557,8 +753,12 @@ class StackedLambdaTask:
         self._advance(resp)
 
     def candidates(self) -> list[dict]:
-        """The ≤k best distinct deadline-feasible paths, exactly as
-        :func:`solve_lambda_dp` would have returned them."""
+        """The ≤k best distinct goal-feasible paths, exactly as
+        :func:`solve_lambda_dp` (or, under a budget goal,
+        :func:`solve_budget_dp`) would have returned them."""
+        if self._budget is not None:
+            return budget_candidates(self.seen.values(), self._budget,
+                                     self.k_candidates)
         feas = sorted((r for r in self.seen.values() if r["feasible"]),
                       key=lambda r: r["e_total"])
         return feas[:self.k_candidates]

@@ -6,16 +6,19 @@ all domains and layers.  PF-DNN "enumerates candidate rail subsets and
 determines the minimum-energy feasible schedule under each subset,
 selecting the overall best solution" (§3.3).
 
-The sweep runs on the subset-stacked round scheduler
+The pfdnn-family sweeps run on the subset-stacked round scheduler
 (:func:`run_stacked_sweeps`), which drives the backend through its
 device-lane API: every kernel call reads its operands from the device
-mirror of a :class:`~repro_torch.core.backend.BucketStack`.
+mirror of a :class:`~repro_torch.core.backend.BucketStack`.  The
+sequential :func:`select_rails` serves the evenly-spaced ablation,
+which solves one subset per rail count and has nothing to stack.
 """
 
 from __future__ import annotations
 
 import itertools
 from collections import deque
+import inspect
 from typing import Callable, Iterable, Sequence
 
 import numpy as np
@@ -32,8 +35,107 @@ def all_rail_subsets(levels: Sequence[float],
     return subsets
 
 
+def evenly_spaced_rails(levels: Sequence[float],
+                        k: int) -> tuple[float, ...]:
+    """The conventional designer's choice: k rails evenly spanning V
+    (always including V_max so the fastest point stays reachable).
+
+    Always returns exactly ``k`` distinct rails: when index rounding
+    (or duplicate input levels) collapses two linspace picks onto one
+    level, the gap is backfilled with the unused level nearest to a
+    linspace target.  Asking for more rails than there are distinct
+    levels is a configuration error and raises ``ValueError``.
+    """
+    uniq = sorted(set(levels))
+    if k < 1:
+        raise ValueError(f"need at least one rail, got k={k}")
+    if k > len(uniq):
+        raise ValueError(
+            f"k={k} rails requested but only {len(uniq)} distinct "
+            f"voltage levels are available")
+    if k == 1:
+        return (uniq[-1],)
+    targets = np.linspace(0, len(uniq) - 1, k)
+    picked = {int(round(t)) for t in targets}
+    while len(picked) < k:
+        unused = [i for i in range(len(uniq)) if i not in picked]
+        nearest = min(unused, key=lambda i: (
+            min(abs(i - t) for t in targets), i))
+        picked.add(nearest)
+    return tuple(uniq[i] for i in sorted(picked))
+
+
+def select_rails(
+    levels: Sequence[float],
+    n_max: int,
+    solve_fn: Callable[..., dict | None],
+    *,
+    subsets: Iterable[tuple[float, ...]] | None = None,
+    bound_fn: Callable[[tuple[float, ...]], float] | None = None,
+) -> tuple[dict | None, tuple[float, ...] | None, dict]:
+    """Enumerate rail subsets, solve each in turn, keep the best
+    feasible.
+
+    ``solve_fn(subset)`` returns an evaluation dict (with ``e_total``) or
+    None when infeasible under that subset.  A cheap dominance shortcut
+    skips subsets whose maximum rail is lower than the smallest max-rail
+    already proven infeasible (less voltage headroom ⇒ still infeasible,
+    since every per-layer latency is monotone non-increasing in voltage).
+
+    Warm-started sweep: when ``solve_fn`` declares a ``hint`` parameter
+    it is passed (by keyword) a hint dict ``{"lam_hint": λ* of the last
+    solved subset}`` so the λ search can start near the answer.  When
+    ``bound_fn(subset)`` (a *lower bound* on any schedule's ``e_total``
+    under that subset) is given, subsets whose bound cannot beat the
+    incumbent are cut without solving — since the bound is sound this
+    never changes the selected subset (ties keep the earlier incumbent,
+    exactly as the strict ``<`` comparison does).
+    """
+    subset_list = list(subsets) if subsets is not None else \
+        all_rail_subsets(levels, n_max)
+    # try high-voltage subsets first so the infeasibility ceiling is
+    # established early
+    subset_list.sort(key=lambda s: -max(s))
+    takes_hint = accepts_param(solve_fn, "hint")
+
+    best: dict | None = None
+    best_subset: tuple[float, ...] | None = None
+    infeasible_vmax_ceiling = -np.inf     # max rail of infeasible subsets
+    stats = {"subsets_total": 0, "subsets_solved": 0,
+             "subsets_skipped": 0, "subsets_cut": 0, "workers": 1}
+    hint: dict = {"lam_hint": None}
+
+    for subset in subset_list:
+        stats["subsets_total"] += 1
+        if max(subset) <= infeasible_vmax_ceiling:
+            stats["subsets_skipped"] += 1
+            continue
+        # a cut subset is never solved, so the vmax ceiling stays put
+        # and later lower-max subsets pay a bound_fn call the ceiling
+        # skip would have saved: wasted work only, never a wrong pick
+        if bound_fn is not None and best is not None and \
+                bound_fn(subset) >= best["e_total"]:
+            stats["subsets_cut"] += 1
+            continue
+        result = solve_fn(subset, hint=hint) if takes_hint \
+            else solve_fn(subset)
+        stats["subsets_solved"] += 1
+        if result is None:
+            infeasible_vmax_ceiling = max(infeasible_vmax_ceiling,
+                                          max(subset))
+            continue
+        if result.get("lambda_star"):
+            hint["lam_hint"] = result["lambda_star"]
+        if best is None or result["e_total"] < best["e_total"]:
+            best = result
+            best_subset = subset
+    return best, best_subset, stats
+
+
+# ------------------------------------------- goal-aware sweep semantics
+
 class MinEnergySelection:
-    """The (deadline) sweep semantics:
+    """The primal (deadline) sweep semantics:
 
       - incumbent = lexicographic ``(e_total, enumeration order)``
         minimum over solved subsets;
@@ -51,6 +153,9 @@ class MinEnergySelection:
     def __init__(self, bound_fn: Callable[[tuple[float, ...]], float]
                  | None = None):
         self.bound_fn = bound_fn
+
+    def init_state(self, state: dict) -> None:
+        pass
 
     def score(self, result: dict):
         return result["e_total"]
@@ -70,6 +175,65 @@ class MinEnergySelection:
     def note_infeasible(self, rails: tuple[float, ...],
                         state: dict) -> None:
         state["ceiling"] = max(state["ceiling"], max(rails))
+
+
+class MinLatencySelection:
+    """The dual (energy-budget) sweep semantics: select the fastest
+    within-budget schedule, ties broken toward lower energy then
+    enumeration order.
+
+    Goal-aware generalizations of the primal cuts:
+
+      - **infeasibility cut** (the ceiling's dual): a subset whose
+        energy lower bound (``e_bound_fn``, Σ min E_op) already exceeds
+        the budget can never fit it — skipped without solving; and a
+        solved subset found over budget proves every *sub*-subset of it
+        over budget too (fewer rails ⇒ fewer states ⇒ min energy no
+        lower), mirroring "less voltage headroom ⇒ still too slow";
+      - **incumbent cut**: a subset whose latency lower bound
+        (``t_bound_fn``, Σ min t_op) strictly exceeds the incumbent's
+        latency cannot win even on tie-breaks.
+
+    Both cuts are sound (true lower bounds, strict comparisons), so the
+    selection equals the cut-free enumeration's lexicographic
+    ``((t_infer, e_total), order)`` minimum.
+    """
+
+    binding = "energy_budget"
+    initial_incumbent = (np.inf, np.inf)
+
+    def __init__(self, budget: float,
+                 e_bound_fn: Callable[[tuple[float, ...]], float]
+                 | None = None,
+                 t_bound_fn: Callable[[tuple[float, ...]], float]
+                 | None = None):
+        self.budget = budget
+        self.e_bound_fn = e_bound_fn
+        self.t_bound_fn = t_bound_fn
+
+    def init_state(self, state: dict) -> None:
+        state["over_budget"] = []        # solved-infeasible rail sets
+
+    def score(self, result: dict):
+        return (result["t_infer"], result["e_total"])
+
+    def admit_skip(self, idx: int, subset: tuple[float, ...],
+                   state: dict) -> str | None:
+        sset = set(subset)
+        if any(over >= sset for over in state["over_budget"]):
+            return "subsets_skipped"
+        if self.e_bound_fn is not None and \
+                self.e_bound_fn(subset) > self.budget:
+            return "subsets_skipped"
+        inc_t = state["incumbent"][0]
+        if self.t_bound_fn is not None and np.isfinite(inc_t) and \
+                self.t_bound_fn(subset) > inc_t:
+            return "subsets_cut"
+        return None
+
+    def note_infeasible(self, rails: tuple[float, ...],
+                        state: dict) -> None:
+        state["over_budget"].append(set(rails))
 
 
 # ------------------------------------------------ subset-stacked sweep
@@ -105,14 +269,26 @@ class StackedSweep:
                  bound_fn: Callable[[tuple[float, ...]], float] | None
                  = None,
                  max_live: int | None = None,
-                 name: str = "net"):
+                 name: str = "net",
+                 objective=None):
         self.make_task = make_task
         self.name = name
-        self.objective = MinEnergySelection(bound_fn)
+        # sweep semantics (incumbent comparisons + admission cuts) are a
+        # pluggable objective; the default is the primal MinEnergy
+        # behaviour with ``bound_fn`` as its incumbent-cut bound
+        self.objective = objective if objective is not None \
+            else MinEnergySelection(bound_fn)
         self.subset_list = list(subsets)
-        # high-voltage subsets first, so the infeasibility ceiling is
-        # established early
+        # same enumeration order as select_rails: high-voltage subsets
+        # first, so the infeasibility ceiling is established early
         self.subset_list.sort(key=lambda s: -max(s))
+        self._subset_index = {tuple(s): i
+                              for i, s in enumerate(self.subset_list)}
+        # optional observer called with (rails, result) as feasible
+        # subsets finish — the frontier compiler uses it to re-price a
+        # tighter deadline's results into incumbent seeds for the next
+        # looser point (see seed_incumbent)
+        self.on_result = None
         if max_live is None:
             max_live = _DEFAULT_MAX_LIVE
         self.max_live = max(1, int(max_live))
@@ -121,6 +297,7 @@ class StackedSweep:
         self.state = {"ceiling": -np.inf,
                       "incumbent": self.objective.initial_incumbent,
                       "incumbent_idx": -1, "lam_hint": None}
+        self.objective.init_state(self.state)
         self.results: dict[int, dict] = {}
         self.stats = {"subsets_total": 0, "subsets_solved": 0,
                       "subsets_skipped": 0, "subsets_cut": 0,
@@ -165,10 +342,38 @@ class StackedSweep:
                                 state["incumbent_idx"]):
             state["incumbent"] = score
             state["incumbent_idx"] = task.idx
+        if self.on_result is not None:
+            self.on_result(task.rails, result)
+
+    def seed_incumbent(self, score: float,
+                       rails: tuple[float, ...]) -> None:
+        """Merge an externally-derived *achievable* score for ``rails``
+        into the incumbent, with exactly :meth:`finish`'s lexicographic
+        ``(score, enumeration index)`` order.
+
+        The caller guarantees ``score`` is attainable by this sweep's
+        own solve of ``rails`` (the frontier compiler re-prices a
+        tighter deadline's schedule, which stays feasible at any looser
+        deadline).  An achievable score can only strengthen the
+        admission bound cuts — it never beats the subset's own exact
+        result in :meth:`selection` (which reads solved results only),
+        and the lex tie order makes a seed at exactly its own lower
+        bound unable to cut its own subset.  Unknown rails (already
+        filtered subsets) are ignored."""
+        idx = self._subset_index.get(tuple(rails))
+        if idx is None:
+            return
+        state = self.state
+        if (score, idx) < (state["incumbent"],
+                           state["incumbent_idx"]):
+            state["incumbent"] = score
+            state["incumbent_idx"] = idx
 
     def selection(self) -> tuple[dict | None, tuple[float, ...] | None]:
-        """Lexicographic ``(e_total, enumeration order)`` minimum over
-        all solved subsets — exactly the sequential sweep's pick."""
+        """Lexicographic ``(objective score, enumeration order)``
+        minimum over all solved subsets — exactly the sequential
+        sweep's pick (score = ``e_total`` for the default MinEnergy
+        objective, ``(t_infer, e_total)`` for the budget dual)."""
         best: dict | None = None
         best_subset: tuple[float, ...] | None = None
         score = self.objective.score
@@ -397,3 +602,20 @@ def select_rails_stacked(
     stats["stacked_rounds"] = fleet["stacked_rounds"]
     stats["stacked_calls"] = fleet["stacked_calls"]
     return best, best_subset, stats
+
+
+def accepts_param(fn: Callable, name: str) -> bool:
+    """True when ``fn`` explicitly declares a keyword-passable ``name``
+    parameter (or accepts **kwargs).  Optional protocol arguments
+    (``hint`` here, ``goal`` in the orchestrator) are always passed by
+    keyword, so a function with an unrelated second positional
+    (``def solve(subset, retries=3)``) is never handed one by
+    accident."""
+    try:
+        sig = inspect.signature(fn)
+    except (TypeError, ValueError):
+        return False
+    if name in sig.parameters:
+        p = sig.parameters[name]
+        return p.kind in (p.POSITIONAL_OR_KEYWORD, p.KEYWORD_ONLY)
+    return any(p.kind == p.VAR_KEYWORD for p in sig.parameters.values())

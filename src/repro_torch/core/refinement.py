@@ -31,6 +31,30 @@ import numpy as np
 from repro_torch.core.problem import ScheduleProblem
 
 
+def move_deltas(problem: ScheduleProblem, path: list[int], i: int
+                ) -> tuple[np.ndarray, np.ndarray]:
+    """ΔT_infer and Δ(E_op+E_trans) for replacing layer i's state with
+    every alternative, holding the rest of the path fixed.
+
+    Shared move-scoring primitive: :func:`refine_paths` batches the same
+    computation over candidates, and
+    :func:`repro_torch.core.greedy.solve_greedy` uses it for its
+    marginal-utility ascent."""
+    ti, ei = problem.op_arrays(i)
+    cur = path[i]
+    d_t = ti - ti[cur]
+    d_e = ei - ei[cur]
+    if i > 0:
+        tt, et = problem.transition_arrays(i - 1)
+        d_t = d_t + tt[path[i - 1], :] - tt[path[i - 1], cur]
+        d_e = d_e + et[path[i - 1], :] - et[path[i - 1], cur]
+    if i + 1 < problem.n_layers:
+        tt, et = problem.transition_arrays(i)
+        d_t = d_t + tt[:, path[i + 1]] - tt[cur, path[i + 1]]
+        d_e = d_e + et[:, path[i + 1]] - et[cur, path[i + 1]]
+    return d_t, d_e
+
+
 def move_scores(stacked, lanes: np.ndarray, pa: np.ndarray,
                 t_infer: np.ndarray, e_idle: np.ndarray,
                 t_max: float, idle) -> tuple[np.ndarray, np.ndarray,
@@ -100,9 +124,10 @@ def refine_rounds(problem: ScheduleProblem,
     "moves"`` (score all replacements of the active rows, answered with
     :func:`move_scores` output) and ``kind "eval_batch"`` (plain batch
     evaluation, answered with the :meth:`evaluate_paths`-format dict) —
-    and returns ``(evaluations, moves)``.  The subset-stacked sweep
-    drives it, so refined schedules are identical however rounds are
-    batched across rail subsets.
+    and returns ``(evaluations, moves)``.  The sequential
+    :func:`refine_paths` and the subset-stacked sweep drive this one
+    implementation, so refined schedules are identical however rounds
+    are batched across rail subsets.
     """
     from repro_torch.core.lambda_dp import WorkRequest
 
@@ -137,3 +162,105 @@ def refine_rounds(problem: ScheduleProblem,
     final = yield WorkRequest("eval_batch", paths=p.copy())
     results = [ScheduleProblem.result_row(final, c) for c in range(n_cand)]
     return results, [int(m) for m in moves]
+
+
+def budget_refine_rounds(problem: ScheduleProblem, start: dict,
+                         budget: float, max_moves: int = 8):
+    """Dual-goal refinement: greedy single-layer replacements that
+    reduce ``(t_infer, e_total)`` lexicographically while keeping the
+    inference energy within ``budget``.
+
+    Yields ``eval_batch`` :class:`~repro_torch.core.lambda_dp.WorkRequest`
+    rounds (all replacements of the incumbent path, evaluated in one
+    shot) and returns ``(best_row, moves)``.  The move objective is
+    time, not energy, so the primal's analytic move scorer
+    (:func:`move_scores`) does not apply — each round is one batched
+    path evaluation instead.
+    """
+    from repro_torch.core.lambda_dp import WorkRequest
+
+    best = start
+    moves = 0
+    sizes = problem.sizes
+    while moves < max_moves:
+        path = best["path"]
+        variants = []
+        for i, n in enumerate(sizes):
+            for s in range(n):
+                if s != path[i]:
+                    v = list(path)
+                    v[i] = s
+                    variants.append(v)
+        if not variants:
+            break
+        ev = yield WorkRequest(
+            "eval_batch", paths=np.asarray(variants, dtype=np.int64))
+        e_infer = ev["e_op"] + ev["e_trans"]
+        within = e_infer <= budget
+        if not within.any():
+            break
+        t = np.where(within, ev["t_infer"], np.inf)
+        j = int(np.lexsort((ev["e_total"], t))[0])
+        cand = ScheduleProblem.result_row(ev, j)
+        if (cand["t_infer"], cand["e_total"]) < (best["t_infer"],
+                                                 best["e_total"]):
+            best = cand
+            moves += 1
+        else:
+            break
+    return best, moves
+
+
+def refine_paths(problem: ScheduleProblem,
+                 paths: Sequence[Sequence[int]],
+                 max_moves: int = 8) -> tuple[list[dict], list[int]]:
+    """Refine C candidate paths together; returns (evaluations, moves).
+
+    Each candidate independently applies its best single-layer
+    replacement per pass until no move gains energy or ``max_moves`` is
+    reached; the passes are batched so one numpy sweep scores every
+    (candidate, layer, state) replacement at once (sequential runner of
+    :func:`refine_rounds`, on the host like the stacked sweep's move
+    scoring).
+    """
+    from repro_torch.core.backend import _single_lane
+
+    gen = refine_rounds(problem, paths, max_moves)
+    resp = None
+    stacked = None
+    while True:
+        try:
+            req = gen.send(resp)
+        except StopIteration as stop:
+            return stop.value
+        if req.kind == "eval_batch":
+            resp = problem.evaluate_paths(req.paths)
+        else:
+            if stacked is None:
+                stacked = _single_lane(problem.padded_arrays())
+            lanes = np.zeros(len(req.paths), dtype=np.int64)
+            resp = move_scores(stacked, lanes, req.paths,
+                               req.aux[0], req.aux[1],
+                               problem.t_max, problem.idle)
+
+
+def refine_path(problem: ScheduleProblem, path: Sequence[int],
+                max_moves: int = 8) -> tuple[dict, int]:
+    """Greedy single-layer replacement; returns (evaluation, moves used)."""
+    results, moves = refine_paths(problem, [list(path)], max_moves)
+    return results[0], moves[0]
+
+
+def refine_candidates(problem: ScheduleProblem, candidates: Sequence[dict],
+                      max_candidates: int = 10,
+                      max_moves: int = 8) -> tuple[dict, int]:
+    """Refine each candidate path; return the best result overall."""
+    cands = list(candidates)[:max_candidates]
+    assert cands, "refine_candidates needs ≥1 candidate"
+    results, moves = refine_paths(
+        problem, [c["path"] for c in cands], max_moves)
+    best = results[0]
+    for refined in results[1:]:
+        if refined["e_total"] < best["e_total"]:
+            best = refined
+    return best, sum(moves)

@@ -7,9 +7,16 @@ PyTorch version and launch count:
     (``csrc/flash_attention.cu``);
   - :mod:`~repro_torch.kernels.flash_decode` — decode attention over
     the KV cache (``csrc/flash_decode.cu``);
+  - :mod:`~repro_torch.kernels.int8_matmul` — the int8 × int8 → int32
+    product with its float32 dequantization (``csrc/int8_matmul.cu``);
   - :mod:`~repro_torch.kernels.ops` — the model-layout wrappers the
-    transformer calls.
+    transformer calls, and the int8 linear layer
+    (:func:`quantize_int8`, :func:`int8_linear`).
 
 Each source builds into its own library at first use
 (:mod:`~repro_torch.kernels._nvcc`).
 """
+
+from repro_torch.kernels.ops import int8_linear, quantize_int8
+
+__all__ = ["int8_linear", "quantize_int8"]

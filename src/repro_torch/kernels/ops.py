@@ -1,11 +1,13 @@
-"""The model-zoo layout (``[B, S, H, D]``) wrappers around the attention
-kernels, as the transformer calls them.
+"""Public wrappers around the kernels: the model-zoo layout (``[B, S,
+H, D]``) attention wrappers the transformer calls, and the int8 linear
+layer (the paper's INT8 precision, §5.1).
 
 The CUDA kernels mask ragged edges themselves, so no block size is
-picked here and any ``Sq``, ``Sk`` and cache length ``S`` is taken.
-On CPU tensors the kernels' plain versions run (see
-:mod:`repro_torch.kernels.flash_attention` and
-:mod:`repro_torch.kernels.flash_decode`).
+picked here and any ``Sq``, ``Sk``, cache length ``S`` and ``M``,
+``K``, ``N`` is taken.  On CPU tensors the kernels' plain versions run
+(see :mod:`repro_torch.kernels.flash_attention`,
+:mod:`repro_torch.kernels.flash_decode` and
+:mod:`repro_torch.kernels.int8_matmul`).
 """
 
 from __future__ import annotations
@@ -14,6 +16,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.int8_matmul import int8_matmul
 
 
 def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
@@ -35,3 +38,26 @@ def decode_bshd(q: torch.Tensor, k_cache: torch.Tensor,
     """``q [B, 1, H, D]`` × cache ``[B, S, KH, D]`` with ``lengths [B]``
     valid entries → ``[B, 1, H, D]`` through the decode kernel."""
     return flash_decode(q[:, 0], k_cache, v_cache, lengths)[:, None]
+
+
+def quantize_int8(x: torch.Tensor, axis: int = -1
+                  ) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 quantization along ``axis`` → ``(q, scale)``:
+    ``scale = max(amax, 1e-8) / 127`` in float32, ``q =
+    clip(round(x / scale), -127, 127)`` (round half to even; a bf16
+    ``x`` divides in float32)."""
+    amax = x.float().abs().amax(dim=axis, keepdim=True)
+    scale = amax.clamp_min(1e-8) / 127.0
+    q = torch.round(x / scale).clamp(-127, 127).to(torch.int8)
+    return q, scale.squeeze(axis)
+
+
+def int8_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """Quantized linear layer: ``x [M, K]`` and ``w [K, N]`` float
+    (float32 or bf16), quantized per row of ``x`` and per column of
+    ``w``, multiplied on the int8 kernel → ``[M, N]`` float32."""
+    xq, xs = quantize_int8(x, axis=1)
+    wq, ws = quantize_int8(w, axis=0)
+    # elementwise results keep a strided input's layout; the kernel
+    # takes row-major operands
+    return int8_matmul(xq.contiguous(), wq.contiguous(), xs, ws)

@@ -1,12 +1,13 @@
-"""The port's whole slice on the CPU: ``repro_torch.core.compile``
-(``pfdnn`` and ``baseline``) against the frozen goldens and against
+"""The port's whole compiler on the CPU: ``repro_torch.core.compile``
+under all eight policies (the 23 schedules of
+``tests/golden/pipeline.json``) against the frozen goldens and against
 ``repro.core.compile`` on the numpy backend, the periodic replay of its
 schedules, and the reference certifier on its JSON.
 
 Tolerances: goldens at ``rel=1e-9`` with identical rails and layer
 voltages (as ``tests/test_pipeline_equivalence.py``); ``to_json``
-byte-identical to the reference once the two wall-clock/backend-name
-solver stats are set equal; replay ledgers at ``rel=1e-9``."""
+byte-identical to the reference once the wall-clock/backend-name
+solver stats are set aside; replay ledgers at ``rel=1e-9``."""
 
 import json
 import pathlib
@@ -41,10 +42,12 @@ GOLDEN = json.loads((pathlib.Path(__file__).parent / "golden"
                      / "pipeline.json").read_text())
 CASES = ["squeezenet1.1|0.9|2", "squeezenet1.1|0.5|3",
          "mobilenetv3-small|0.85|2"]
-POLICIES = ["pfdnn", "baseline"]
-KEYS = [f"{c}|{p}" for c in CASES for p in POLICIES]
+POLICIES = ["pfdnn", "baseline", "gating", "greedy", "greedy_gating",
+            "pfdnn_even", "pfdnn_nopp", "ilp"]
+KEYS = [f"{c}|{p}" for c in CASES for p in POLICIES
+        if f"{c}|{p}" in GOLDEN]
 # solver stats that measure the host (wall clock) or name the backend
-HOST_STATS = ("wall_time_s", "backend")
+HOST_STATS = ("wall_time_s", "backend", "ilp_wall_time_s")
 
 
 def _compile_both(key):
@@ -89,7 +92,7 @@ def _host_free_json(sched) -> str:
 def test_to_json_byte_identical_to_reference(compiled, key):
     s, ref = compiled[key]
     assert _host_free_json(s) == _host_free_json(ref)
-    if key.endswith("pfdnn"):
+    if key.split("|")[-1] in ("pfdnn", "pfdnn_even", "pfdnn_nopp"):
         assert s.solver_stats["backend"] == "torch"
     # the reference's full payload, host stats included, round-trips
     # through the port byte for byte
