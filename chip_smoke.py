@@ -4,18 +4,22 @@ NVIDIA GPU:
 
   1. prints the card's name and power limit, builds the CUDA kernels
      from ``src/repro_torch/csrc/`` (one ``nvcc`` per source, all
-     started together) and prints each build's time;
+     started together), prints each build's time and the count of
+     ``HGMMA`` instructions in the bf16 attention library's SASS
+     (``cuobjdump -sass``; must be > 0);
   2. kernel phase: calls each rail-sweep kernel's wrapper on the card
      at the shapes the rail sweep gives it (lanes of real rail-subset
      problems) and holds the result against its plain PyTorch version
      on the same inputs, exactly (integer paths equal, gathered floats
      bit-equal); then holds the two attention kernels against their
-     plain versions at the serving shapes of tinyllama-1.1b and the
-     sweep of ``tests/test_kernels.py`` (3e-5 abs in float32, 2e-2 in
-     bfloat16); prints each kernel's time (CUDA events, median of 25),
-     its plain version's time, its bound and, for attention, the time
-     of ``scaled_dot_product_attention`` on the same inputs (a
-     yardstick the port never calls);
+     plain versions at the serving shapes of tinyllama-1.1b, the sweep
+     of ``tests/test_kernels.py`` and the edges of the bf16 tensor-core
+     prefill and the split decode (3e-5 abs in float32, 2e-2 in
+     bfloat16; rows that see no key and lengths of 0 give zeros);
+     prints each kernel's time (CUDA events, median of 25), its device
+     time (``torch.profiler``), its plain version's time, its bound and,
+     for attention, the time of ``scaled_dot_product_attention`` on the
+     same inputs (a yardstick the port never calls);
   3. path phase: compiles the ``pfdnn`` schedule of all four edge
      networks at full width (0.9 x each network's max rate, default
      config) through ``repro_torch.core.compile`` on the card, with the
@@ -30,18 +34,19 @@ NVIDIA GPU:
      entry point ``repro_torch.launch.serve`` as users run it (8
      requests, 16 new tokens, the ``pfdnn`` schedule at 30 Hz, bf16)
      with the launch counts set to 0 just before and read just after;
-     holds the kernel path against the plain path (same float32
-     weights and prompts, prefill + 8 decode steps, logits within
-     1e-3 x max |logits|); serves 16 requests of 512-1024 prompt
-     tokens at batch 16 and prints prefill and decode rates and the
-     decode loop's device busy share;
+     holds the kernel path against the plain path (same weights and
+     prompts, prefill + 8 decode steps; logits within 1e-3 x max
+     |logits| in float32, 2e-2 x in bf16); serves 16 requests of
+     512-1024 prompt tokens at batch 16 and prints prefill and decode
+     rates and the decode loop's device busy share;
   6. int8 phase: holds the int8 matmul kernel exactly (bit for bit)
      against its plain version at the shapes of ``tests/test_kernels.py``,
      a ragged shape and tinyllama-1.1b's four projection widths at
      M = 16 (a decode batch) and M = 16384 (16 x 1024 prefill tokens),
-     with its time, its plain version's, its bound and the time of
-     ``torch._int_mm`` plus the same epilogue (a yardstick the port
-     never calls); then drives the int8 entry point
+     with its time, its plain version's, its bound, the time of
+     ``torch._int_mm`` plus the same epilogue and, at the projection
+     widths, of ``torch._int_mm`` alone (yardsticks the port never
+     calls); then drives the int8 entry point
      ``repro_torch.kernels.int8_linear`` on bf16 activations and weights
      at those widths (launch count set to 0 just before, read just
      after; error against ``x @ w`` in float32 below 0.05);
@@ -92,7 +97,9 @@ GOLDEN_KEYS = ("squeezenet1.1|0.9|2|pfdnn", "squeezenet1.1|0.5|3|pfdnn",
 SOURCES = {"dp_multi_stacked": "src/repro_torch/csrc/dp_sweep.cu",
            "kbest_multi_stacked": "src/repro_torch/csrc/dp_sweep.cu",
            "path_components": "src/repro_torch/csrc/dp_sweep.cu",
-           "flash_attention": "src/repro_torch/csrc/flash_attention.cu",
+           # the JSON row is the bf16 serving shape; float32 runs on
+           # csrc/flash_attention.cu
+           "flash_attention": "src/repro_torch/csrc/flash_attention_wgmma.cu",
            "flash_decode": "src/repro_torch/csrc/flash_decode.cu",
            "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu"}
 REPLACES = {"dp_multi_stacked": "src/repro/kernels/dp_sweep.py:81",
@@ -324,19 +331,39 @@ def kernel_phase(k_best: int) -> list[dict]:
     return list(rows.values())
 
 
+def device_ms(fn, reps: int = 10) -> float | None:
+    """The card's busy time per call of ``fn`` (union of its kernel and
+    copy intervals under ``torch.profiler``, over ``reps`` calls): the
+    kernel's own time where the host's launch cost sets ``time_ms``;
+    None when the profiler recorded no device events."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    found = device_busy(prof)
+    return None if found is None else found[0] / reps / 1e3
+
+
 def _kernel_row(rows, name, shape, ms, plain_ms, bound_ms, bound_by,
-                err, library_ms=None) -> None:
+                err, library_ms=None, dev_ms=None) -> None:
     lib = "" if library_ms is None else f"  library {library_ms:9.4f} ms"
+    dev = "" if dev_ms is None else f"  device {dev_ms:9.5f} ms"
     print(f"kernel {name:20s} {shape:28s} {ms:9.4f} ms  plain "
           f"{plain_ms:9.4f} ms  bound {bound_ms:9.5f} ms ({bound_by})"
-          f"{lib}  max_abs_err {err}", flush=True)
+          f"{lib}{dev}  max_abs_err {err}", flush=True)
     # the JSON line carries the first shape of each kernel (the widest,
     # or for attention the serving shape); every shape is printed above
     rows.setdefault(name, {
         "name": name, "route": "cuda", "source": SOURCES[name],
         "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
-        "bound_by": bound_by, "library_ms": library_ms, "shape": shape})
+        "bound_by": bound_by, "library_ms": library_ms, "shape": shape,
+        "device_ms": dev_ms})
 
 
 # ---------------------------------------------------- attention kernels
@@ -344,7 +371,10 @@ def _kernel_row(rows, name, shape, ms, plain_ms, bound_ms, bound_by,
 # (b, h, kh, sq, sk, d, causal, dtype): tinyllama-1.1b's serving shape
 # (GQA 32 over 4 heads, D = 64) in bf16 and float32, a ragged prefill,
 # then the sweep of tests/test_kernels.py (Sq < Sk with q_offset in the
-# second)
+# second); then the bf16 tensor-core kernel's edges: every other head
+# dim, non-causal, Sq < Sk with q_offset, Sq = Sk = 1000 (no multiple of
+# a tile), GQA group 1, and Sq > Sk (negative q_offset: rows that see no
+# key give zeros)
 ATTENTION_SHAPES = (
     (16, 32, 4, 1024, 1024, 64, True, "bfloat16"),
     (16, 32, 4, 1024, 1024, 64, True, "float32"),
@@ -354,18 +384,36 @@ ATTENTION_SHAPES = (
     (2, 4, 1, 128, 256, 32, False, "float32"),
     (1, 2, 2, 256, 256, 128, True, "bfloat16"),
     (1, 4, 2, 64, 64, 16, True, "float32"),
+    (2, 8, 2, 256, 256, 16, True, "bfloat16"),
+    (2, 8, 4, 300, 300, 32, True, "bfloat16"),
+    (2, 4, 2, 200, 333, 48, False, "bfloat16"),
+    (1, 4, 2, 130, 130, 80, True, "bfloat16"),
+    (1, 4, 4, 200, 200, 96, False, "bfloat16"),
+    (1, 8, 2, 257, 257, 112, True, "bfloat16"),
+    (2, 8, 8, 512, 512, 128, True, "bfloat16"),
+    (2, 8, 2, 300, 1000, 64, True, "bfloat16"),
+    (2, 16, 4, 1000, 1000, 64, True, "bfloat16"),
+    (2, 16, 4, 1000, 1000, 64, False, "bfloat16"),
+    (1, 4, 2, 100, 60, 64, True, "bfloat16"),
 )
-# (b, s, kh, h, d, dtype): tinyllama-1.1b decoding at batch 16 over a
-# 2048-token cache, the launcher's cache (B = 4, S = 96), then the
-# sweep of tests/test_kernels.py; lengths drawn from [1, S], the first
-# sequence's cache full
+# (b, s, kh, h, d, dtype, zero_last): tinyllama-1.1b decoding at batch
+# 16 over a 2048-token cache, the launcher's cache (B = 4, S = 96), then
+# the sweep of tests/test_kernels.py; then the split kernel's edges: B =
+# 1 with KH = 1, S on no chunk boundary, G = 1, G = 16 (two head groups)
+# and G = 12; lengths drawn from [1, S], the first sequence's cache
+# full, the last one's empty where zero_last (its output must be zeros)
 DECODE_SHAPES = (
-    (16, 2048, 4, 32, 64, "bfloat16"),
-    (16, 2048, 4, 32, 64, "float32"),
-    (4, 96, 4, 32, 64, "bfloat16"),
-    (2, 256, 4, 4, 64, "float32"),
-    (3, 128, 2, 8, 32, "float32"),
-    (1, 512, 1, 4, 128, "bfloat16"),
+    (16, 2048, 4, 32, 64, "bfloat16", False),
+    (16, 2048, 4, 32, 64, "float32", False),
+    (4, 96, 4, 32, 64, "bfloat16", False),
+    (2, 256, 4, 4, 64, "float32", False),
+    (3, 128, 2, 8, 32, "float32", False),
+    (1, 512, 1, 4, 128, "bfloat16", False),
+    (1, 2048, 1, 8, 64, "bfloat16", False),
+    (3, 1001, 2, 8, 128, "bfloat16", True),
+    (3, 777, 8, 8, 64, "bfloat16", True),
+    (2, 1500, 2, 32, 64, "bfloat16", True),
+    (3, 300, 1, 12, 48, "float32", True),
 )
 ATTN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 
@@ -454,33 +502,45 @@ def attention_phase() -> list[dict]:
                 q, k, v, attn_mask=mask,
                 is_causal=causal and mask is None, enable_gqa=True)
 
+        if q_offset < 0:
+            check(bool((got[:, :, :-q_offset] == 0).all()),
+                  f"flash_attention at {label}: rows that see no key are "
+                  "not zero")
         lib_err = _max_abs_err(library(), want)
         bound, by, nbytes, ops = attention_bound(b, h, kh, sq, sk, d,
                                                  causal, q_offset, dtype)
-        _kernel_row(rows, "flash_attention", label,
-                    time_ms(lambda: fa.flash_attention(q, k, v, **args)),
+        kernel = lambda: fa.flash_attention(q, k, v, **args)  # noqa: E731
+        _kernel_row(rows, "flash_attention", label, time_ms(kernel),
                     time_ms(lambda: fa.flash_attention_plain(q, k, v,
                                                              **args)),
-                    bound, by, err, time_ms(library))
+                    bound, by, err, time_ms(library), device_ms(kernel))
         print(f"  bytes {nbytes}  operations {ops}  library max abs err "
               f"vs plain {lib_err}", flush=True)
         del q, k, v, got, want
 
     lrng = np.random.default_rng(0)
-    for b, s, kh, h, d, dtype in DECODE_SHAPES:
+    for b, s, kh, h, d, dtype, zero_last in DECODE_SHAPES:
         q = randn(b, h, d, dtype=dtype)
         k = randn(b, s, kh, d, dtype=dtype)
         v = randn(b, s, kh, d, dtype=dtype)
         lens_np = lrng.integers(1, s + 1, size=b).astype(np.int32)
         lens_np[0] = s                      # one full cache
+        if zero_last:
+            lens_np[-1] = 0
         lens = torch.from_numpy(lens_np).to(DEVICE)
         got = fd.flash_decode(q, k, v, lens)
         want = fd.flash_decode_plain(q, k, v, lens)
         torch.cuda.synchronize()
         err = _max_abs_err(got, want)
-        label = f"B={b} S={s} {h}/{kh} heads D={d} {dtype}"
+        n_split = fd.decode_splits(
+            s, torch.cuda.get_device_properties(0).multi_processor_count)
+        label = (f"B={b} S={s} {h}/{kh} heads D={d} {dtype} "
+                 f"splits={n_split}")
         check(err <= ATTN_TOL[dtype], f"flash_decode != plain at {label}: "
               f"max abs err {err}")
+        if zero_last:
+            check(bool((got[-1] == 0).all()), f"flash_decode at {label}: a "
+                  "length of 0 does not give zeros")
         qs = q[:, :, None, :]
         ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
         mask = (torch.arange(s, device=DEVICE)[None, :]
@@ -493,10 +553,10 @@ def attention_phase() -> list[dict]:
         lib_err = _max_abs_err(library(), want)
         bound, by, nbytes, ops = decode_bound(
             h, kh, d, [int(x) for x in lens_np], dtype)
-        _kernel_row(rows, "flash_decode", label,
-                    time_ms(lambda: fd.flash_decode(q, k, v, lens)),
+        kernel = lambda: fd.flash_decode(q, k, v, lens)  # noqa: E731
+        _kernel_row(rows, "flash_decode", label, time_ms(kernel),
                     time_ms(lambda: fd.flash_decode_plain(q, k, v, lens)),
-                    bound, by, err, time_ms(library))
+                    bound, by, err, time_ms(library), device_ms(kernel))
         print(f"  bytes {nbytes}  operations {ops}  library max abs err "
               f"vs plain {lib_err}", flush=True)
         del q, k, v, got, want
@@ -670,6 +730,9 @@ ARCH = "tinyllama-1.1b"
 CLI_ARGS = ["--arch", ARCH, "--requests", "8", "--max-new", "16",
             "--rate", "30", "--policy", "pfdnn"]
 PARITY_PROMPTS, PARITY_LEN, PARITY_STEPS = 4, 200, 8
+# kernel vs plain path, max |dlogits| over max |logits|: float32 only
+# reorders sums; bf16 also rounds p and every layer's output to bf16
+PARITY_LIMIT = {"float32": 1e-3, "bfloat16": 2e-2}
 BATCH, BATCH_CACHE, BATCH_NEW = 16, 2048, 32
 PROFILED_STEPS = (8, 16)              # decode steps run under the profiler
 
@@ -726,9 +789,10 @@ def cli_run() -> dict:
 
 
 @contextlib.contextmanager
-def plain_attention():
+def plain_attention(n_split: int | None = None):
     """Route the transformer's attention through the kernels' plain
-    versions (on the same card tensors) for the duration."""
+    versions (on the same card tensors) for the duration; with
+    ``n_split``, decode through the two-pass plain version instead."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
@@ -736,44 +800,59 @@ def plain_attention():
     saved = ops.flash_attention, ops.flash_decode
     ops.flash_attention = fa.flash_attention_plain
     ops.flash_decode = fd.flash_decode_plain
+    if n_split is not None:
+        def two_pass(q, k, v, length):
+            return fd.flash_decode_split_plain(q, k, v, length, n_split)
+
+        ops.flash_decode = two_pass
     try:
         yield
     finally:
         ops.flash_attention, ops.flash_decode = saved
 
 
-def parity_run() -> None:
+def parity_run(dtype: str) -> None:
     """Kernel path against plain path: the same seeded weights in
-    float32, the same prompts, prefill + PARITY_STEPS decode steps, the
-    kernel path's greedy tokens fed to both."""
+    ``dtype``, the same prompts, prefill + PARITY_STEPS decode steps, the
+    kernel path's greedy tokens fed to all.  Beside it, and not held to
+    the limit, the floor: the plain path against the plain path with the
+    two-pass plain decode at the kernel's split count, which differ only
+    in where p is rounded."""
     import numpy as np
     import torch
 
     from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_decode as fd
     from repro_torch.models.transformer import (
         decode_step,
         init_params,
         prefill,
     )
 
-    cfg = dataclasses.replace(get_config(ARCH), dtype="float32")
+    cfg = dataclasses.replace(get_config(ARCH), dtype=dtype)
+    limit = PARITY_LIMIT[dtype]
     params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
                          DEVICE)
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(
         1, cfg.vocab_size, (PARITY_PROMPTS, PARITY_LEN))).to(DEVICE)
     cache = PARITY_LEN + PARITY_STEPS
+    n_split = fd.decode_splits(
+        cache, torch.cuda.get_device_properties(0).multi_processor_count)
     tic = time.perf_counter()
     lk, sk = prefill(params, cfg, {"tokens": toks}, cache)
     with plain_attention():
         lp, sp = prefill(params, cfg, {"tokens": toks}, cache)
-    worst, same, total = 0.0, 0, 0
+    with plain_attention(n_split):
+        lf, sf = prefill(params, cfg, {"tokens": toks}, cache)
+    worst, floor, same, total = 0.0, 0.0, 0, 0
     for step in range(PARITY_STEPS + 1):
         diff = float((lk - lp).abs().max())
         scale = float(lk.abs().max())
         worst = max(worst, diff / scale)
-        check(diff <= 1e-3 * scale, f"kernel vs plain logits at step "
-              f"{step}: max |diff| {diff} > 1e-3 x {scale}")
+        floor = max(floor, float((lf - lp).abs().max()) / scale)
+        check(diff <= limit * scale, f"kernel vs plain logits ({dtype}) at "
+              f"step {step}: max |diff| {diff} > {limit} x {scale}")
         tk, tp = lk.argmax(-1), lp.argmax(-1)
         same += int((tk == tp).sum())
         total += tk.numel()
@@ -782,11 +861,14 @@ def parity_run() -> None:
         lk, sk = decode_step(params, cfg, sk, tk)
         with plain_attention():
             lp, sp = decode_step(params, cfg, sp, tk)
+        with plain_attention(n_split):
+            lf, sf = decode_step(params, cfg, sf, tk)
     torch.cuda.synchronize()
-    print(f"serve parity: {ARCH} float32, {PARITY_PROMPTS} prompts of "
+    print(f"serve parity: {ARCH} {dtype}, {PARITY_PROMPTS} prompts of "
           f"{PARITY_LEN} tokens, prefill + {PARITY_STEPS} decode steps: "
-          f"max |dlogits| / max |logits| {worst!r} (limit 1e-3); "
-          f"identical greedy tokens {same}/{total}; wall "
+          f"max |dlogits| / max |logits| {worst!r} (limit {limit}); "
+          f"floor (plain vs two-pass plain decode, {n_split} splits) "
+          f"{floor!r}; identical greedy tokens {same}/{total}; wall "
           f"{time.perf_counter() - tic:.3f} s", flush=True)
 
 
@@ -888,7 +970,8 @@ def serve_phase() -> dict:
     counts = cli_run()
     print(f"phase serve cli: {time.perf_counter() - tic:.3f} s", flush=True)
     tic = time.perf_counter()
-    parity_run()
+    for dtype in PARITY_LIMIT:
+        parity_run(dtype)
     print(f"phase serve parity: {time.perf_counter() - tic:.3f} s",
           flush=True)
     tic = time.perf_counter()
@@ -956,12 +1039,23 @@ def int8_phase() -> list[dict]:
             lib_note = f"max abs err vs plain {_max_abs_err(library(), want)}"
             lib_ms = time_ms(library)
         bound, by = int8_bound(m, k, n)
-        _kernel_row(rows, "int8_matmul", label,
-                    time_ms(lambda: im.int8_matmul(x, w, xs, ws)),
+        kernel = lambda: im.int8_matmul(x, w, xs, ws)  # noqa: E731
+        _kernel_row(rows, "int8_matmul", label, time_ms(kernel),
                     time_ms(lambda: im.int8_matmul_plain(x, w, xs, ws)),
-                    bound, by, err, lib_ms)
+                    bound, by, err, lib_ms, device_ms(kernel))
         print(f"  library (torch._int_mm + epilogue): {lib_note}",
               flush=True)
+        if (m, k, n) in INT8_LINEAR_SHAPES:
+            # the int32 product alone, no epilogue; _int_mm takes M > 16,
+            # so a 16-row x is zero-padded to 32 rows
+            xp = x
+            if m <= 16:
+                xp = torch.zeros((32, k), dtype=torch.int8, device=DEVICE)
+                xp[:m] = x
+            print(f"  torch._int_mm alone (x {tuple(xp.shape)}"
+                  f"{', rows zero-padded' if xp is not x else ''}): "
+                  f"{time_ms(lambda: torch._int_mm(xp, w)):.4f} ms",
+                  flush=True)
         del x, w, got, want
     return list(rows.values())
 
@@ -1121,8 +1215,13 @@ def policy_phase() -> None:
 
 def build_all() -> None:
     """Build every kernel library, one ``nvcc`` per source, all started
-    together, then load each."""
-    libs = [m.LIBRARY for m in _kernel_modules()]
+    together, then load each; count the tensor-core product
+    instructions (``HGMMA``, what ``wgmma`` compiles to) in the bf16
+    attention library's SASS."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels._nvcc import nvcc
+
+    libs = [m.LIBRARY for m in _kernel_modules()] + [fa.WGMMA_LIBRARY]
 
     def build(lib):
         tic = time.perf_counter()
@@ -1136,6 +1235,14 @@ def build_all() -> None:
     for lib in libs:
         lib.load()
     print(f"build: all in {time.perf_counter() - tic:.2f} s", flush=True)
+    cuobjdump = pathlib.Path(nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass",
+                           str(fa.WGMMA_LIBRARY.path())], capture_output=True,
+                          text=True, check=True).stdout
+    n_hgmma = sum("HGMMA." in line for line in sass.splitlines())
+    print(f"sass: {fa.WGMMA_LIBRARY.path().name}: {n_hgmma} HGMMA "
+          "instructions", flush=True)
+    check(n_hgmma > 0, "the bf16 attention library holds no HGMMA")
 
 
 def main() -> int:

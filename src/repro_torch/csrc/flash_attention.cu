@@ -1,4 +1,4 @@
-// Hand-written Hopper kernel of the prefill attention.
+// Hand-written Hopper kernel of the prefill attention in float32.
 //
 // Replaces the Pallas TPU kernel flash_attention
 // (src/repro/kernels/flash_attention.py:81, _kernel at :29) and computes
@@ -31,14 +31,13 @@
 // against 4 * D * elt bytes per row of q, k, v and out, so the
 // function is FLOP-bound (989 TFLOP/s dense bf16 on the tensor cores;
 // 67 TFLOP/s for float32, which the reference computes without TF32).
-// This simple design runs the products as float32 FMAs on the CUDA
-// cores from shared memory, so it leaves the tensor cores idle: the
-// fast version (wgmma on bf16 tiles fed by TMA, a producer warp and a
-// ring of K/V stages, FA3-style) is later work.
+// This design runs the products as float32 FMAs on the CUDA cores from
+// shared memory.  The tensor cores have no full-float32 product (TF32
+// keeps ~10 mantissa bits), so float32 stays here; bfloat16 runs on the
+// tensor cores in csrc/flash_attention_wgmma.cu.
 //
 // The entry point returns cudaGetLastError() of its launch.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -50,17 +49,10 @@ constexpr int BK = 64;          // keys per K/V tile
 constexpr int THREADS = 256;    // 16 x 16 thread grid
 
 __device__ __forceinline__ float to_f(float x) { return x; }
-__device__ __forceinline__ float to_f(__nv_bfloat16 x) {
-    return __bfloat162float(x);
-}
 
 template <typename T> __device__ __forceinline__ T from_f(float x);
 template <> __device__ __forceinline__ float from_f<float>(float x) {
     return x;
-}
-template <> __device__ __forceinline__ __nv_bfloat16
-from_f<__nv_bfloat16>(float x) {
-    return __float2bfloat16_rn(x);
 }
 
 template <int D>
@@ -274,20 +266,14 @@ int dispatch(const void* q, const void* k, const void* v, void* o, int B,
 
 extern "C" {
 
-// dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it);
-// scale is float32(1 / sqrt(D)), as the reference rounds it
-int pfdnn_flash_attention(const void* q, const void* k, const void* v,
-                          void* o, int B, int H, int KH, int Sq, int Sk,
-                          int D, int q_offset, int causal, int dtype,
-                          float scale, void* stream) {
-    cudaStream_t s = static_cast<cudaStream_t>(stream);
-    if (dtype == 0)
-        return dispatch<float>(q, k, v, o, B, H, KH, Sq, Sk, D, q_offset,
-                               causal, scale, s);
-    if (dtype == 1)
-        return dispatch<__nv_bfloat16>(q, k, v, o, B, H, KH, Sq, Sk, D,
-                                       q_offset, causal, scale, s);
-    return (int)cudaErrorInvalidValue;
+// q, k, v and out are float32; scale is float32(1 / sqrt(D)), as the
+// reference rounds it
+int pfdnn_flash_attention_f32(const void* q, const void* k, const void* v,
+                              void* o, int B, int H, int KH, int Sq,
+                              int Sk, int D, int q_offset, int causal,
+                              float scale, void* stream) {
+    return dispatch<float>(q, k, v, o, B, H, KH, Sq, Sk, D, q_offset,
+                           causal, scale, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

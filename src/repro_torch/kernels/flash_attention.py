@@ -1,5 +1,8 @@
 """Prefill attention: wrapper, plain version and launch count of the
-hand-written CUDA kernel ``repro_torch/csrc/flash_attention.cu``.
+hand-written CUDA kernels ``repro_torch/csrc/flash_attention_wgmma.cu``
+(bfloat16, on the tensor cores) and ``repro_torch/csrc/flash_attention.cu``
+(float32, on the CUDA cores: the tensor cores have no full-float32
+product).
 
 :func:`flash_attention` replaces the Pallas TPU kernel
 ``repro.kernels.flash_attention.flash_attention``: causal or
@@ -12,13 +15,14 @@ divide any block size.
 
 On a tensor that lies on the CPU the wrapper computes
 :func:`flash_attention_plain`; on a CUDA tensor it launches the kernel
-or raises.  Every launch adds one to :data:`LAUNCHES`.
+of its dtype or raises.  Every launch adds one to :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
 
 import ctypes
 import math
+from typing import Callable
 
 import numpy as np
 import torch
@@ -38,6 +42,7 @@ HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 SOURCE = CSRC / "flash_attention.cu"
+WGMMA_SOURCE = CSRC / "flash_attention_wgmma.cu"
 # held by tolerance, so FMA contraction stays on
 NVCC_FLAGS = BASE_FLAGS
 
@@ -49,14 +54,21 @@ def reset_launch_counts() -> None:
     LAUNCHES["flash_attention"] = 0
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pfdnn_flash_attention.argtypes = ([p] * 4 + [i] * 9
-                                          + [ctypes.c_float, p])
-    lib.pfdnn_flash_attention.restype = ctypes.c_int
+def _declare(entry: str) -> Callable[[ctypes.CDLL], None]:
+    def declare(lib: ctypes.CDLL) -> None:
+        fn = getattr(lib, entry)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        fn.argtypes = [p] * 4 + [i] * 8 + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return declare
 
 
-LIBRARY = CudaLibrary(SOURCE, NVCC_FLAGS, _declare)
+#: float32 kernel (``pfdnn_flash_attention_f32``)
+LIBRARY = CudaLibrary(SOURCE, NVCC_FLAGS,
+                      _declare("pfdnn_flash_attention_f32"))
+#: bfloat16 tensor-core kernel (``pfdnn_flash_attention_bf16``)
+WGMMA_LIBRARY = CudaLibrary(WGMMA_SOURCE, NVCC_FLAGS,
+                            _declare("pfdnn_flash_attention_bf16"))
 
 
 def softmax_scale(d: int) -> float:
@@ -131,12 +143,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     out = torch.empty_like(q)
     if out.numel() == 0:
         return out
-    lib = LIBRARY.load()
+    if q.dtype == torch.bfloat16:
+        entry = WGMMA_LIBRARY.load().pfdnn_flash_attention_bf16
+    else:
+        entry = LIBRARY.load().pfdnn_flash_attention_f32
     with torch.cuda.device(q.device):
-        err = lib.pfdnn_flash_attention(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            B, H, KH, Sq, Sk, D, int(q_offset), int(bool(causal)),
-            DTYPES[q.dtype], softmax_scale(D), stream_of(q.device))
+        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    out.data_ptr(), B, H, KH, Sq, Sk, D, int(q_offset),
+                    int(bool(causal)), softmax_scale(D),
+                    stream_of(q.device))
     raise_on(name, err)
     LAUNCHES[name] += 1
     return out

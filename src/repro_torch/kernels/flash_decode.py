@@ -8,6 +8,13 @@ which the first ``length[b]`` positions are valid, with GQA and the
 reference's online-softmax semantics.  Cache positions at or past
 ``length[b]`` are never read; any ``S`` is taken.
 
+The kernel splits each sequence's cache range into
+:func:`decode_splits` chunks, a function of the capacity ``S`` and the
+SM count only (so the wrapper never reads ``length`` on the host), and
+combines the chunks' float32 partials in a second pass;
+:func:`flash_decode_split_plain` is that two-pass algorithm in plain
+PyTorch.
+
 On a tensor that lies on the CPU the wrapper computes
 :func:`flash_decode_plain`; on a CUDA tensor it launches the kernel or
 raises.  Every launch adds one to :data:`LAUNCHES`.
@@ -16,6 +23,7 @@ raises.  Every launch adds one to :data:`LAUNCHES`.
 from __future__ import annotations
 
 import ctypes
+import functools
 
 import torch
 
@@ -37,8 +45,12 @@ from repro_torch.kernels.flash_attention import (
 SOURCE = CSRC / "flash_decode.cu"
 # held by tolerance, so FMA contraction stays on
 NVCC_FLAGS = BASE_FLAGS
-#: query heads one CTA serves (``H / KH``)
+#: query heads per KV head (``H / KH``) the kernel takes
 MAX_GROUP = 16
+#: fewest cache positions worth a chunk of their own (one kernel tile)
+MIN_CHUNK = 64
+#: SMs per split: the splits of 16 (batch, KV head) pairs fill the card
+SMS_PER_SPLIT = 16
 
 #: kernel launches since the last :func:`reset_launch_counts`
 LAUNCHES = {"flash_decode": 0}
@@ -50,12 +62,25 @@ def reset_launch_counts() -> None:
 
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pfdnn_flash_decode.argtypes = ([p] * 5 + [i] * 6
+    lib.pfdnn_flash_decode.argtypes = ([p] * 6 + [i] * 7
                                        + [ctypes.c_float, p])
     lib.pfdnn_flash_decode.restype = ctypes.c_int
 
 
 LIBRARY = CudaLibrary(SOURCE, NVCC_FLAGS, _declare)
+
+
+def decode_splits(capacity: int, n_sms: int) -> int:
+    """Chunks each sequence's cache range of ``capacity`` positions is
+    split into: at most ``n_sms // SMS_PER_SPLIT``, each at least
+    ``MIN_CHUNK`` positions.  A pure function of its two integers."""
+    most = max(1, n_sms // SMS_PER_SPLIT)
+    return max(1, min(most, capacity // MIN_CHUNK))
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -88,11 +113,18 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if out.numel() == 0:
         return out
     lib = LIBRARY.load()
+    index = q.device.index
+    n_split = decode_splits(S, _sm_count(
+        torch.cuda.current_device() if index is None else index))
+    # float32 partials (acc [B, H, n_split, D], then (m, l) [B, H,
+    # n_split, 2]); the first pass writes every slot
+    part = torch.empty(B * H * n_split * (D + 2), dtype=torch.float32,
+                       device=q.device)
     with torch.cuda.device(q.device):
         err = lib.pfdnn_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
-            out.data_ptr(), B, H, KH, S, D, DTYPES[q.dtype],
-            softmax_scale(D), stream_of(q.device))
+            part.data_ptr(), out.data_ptr(), B, H, KH, S, D, n_split,
+            DTYPES[q.dtype], softmax_scale(D), stream_of(q.device))
     raise_on(name, err)
     LAUNCHES[name] += 1
     return out
@@ -117,3 +149,37 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     out = torch.matmul(p.to(v.dtype).float(), vf.float())  # [B, KH, g, D]
     return (out / l.clamp_min(1e-30)).reshape(B, H, D).to(q.dtype)
+
+
+def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
+                             v: torch.Tensor, length: torch.Tensor,
+                             n_split: int) -> torch.Tensor:
+    """Plain PyTorch version of the kernel's two passes: the cache range
+    cut into ``n_split`` chunks of ``ceil(S / n_split)`` positions, a
+    float32 partial ``(m, l, acc)`` per chunk (``p`` rounded to V's
+    dtype before ``P·V``; a chunk wholly past ``length`` gives ``m =
+    NEG_INF, l = 0, acc = 0``), then the partials combined in chunk order
+    with the clamp and ``acc / max(l, 1e-30)``."""
+    B, H, D = q.shape
+    S, KH = k.shape[1], k.shape[2]
+    g = H // KH
+    chunk = -(-S // n_split)
+    pad = n_split * chunk - S
+    kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
+    vf = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
+    kf = kf.view(B, n_split, chunk, KH, D).permute(0, 3, 1, 4, 2)
+    vf = vf.view(B, n_split, chunk, KH, D).permute(0, 3, 1, 2, 4)
+    # s [B, KH, n_split, g, chunk]
+    s = torch.matmul(q.float().view(B, KH, 1, g, D), kf) * softmax_scale(D)
+    pos = torch.arange(n_split * chunk, device=q.device).view(n_split, chunk)
+    valid = pos[None] < length.to(q.device).clamp(0, S)[:, None, None]
+    s = torch.where(valid[:, None, :, None, :], s,
+                    torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True)                    # unclamped
+    p = torch.exp(s - m.clamp_min(0.5 * NEG_INF))
+    l = p.sum(dim=-1, keepdim=True)
+    acc = torch.matmul(p.to(v.dtype).float(), vf.float())
+    m_all = m.amax(dim=2, keepdim=True).clamp_min(0.5 * NEG_INF)
+    w = torch.exp(m.clamp_min(0.5 * NEG_INF) - m_all)
+    out = (acc * w).sum(dim=2) / (l * w).sum(dim=2).clamp_min(1e-30)
+    return out.reshape(B, H, D).to(q.dtype)
