@@ -11,7 +11,11 @@ NVIDIA GPU:
      at the shapes the rail sweep gives it (lanes of real rail-subset
      problems) and holds the result against its plain PyTorch version
      on the same inputs, exactly (integer paths equal, gathered floats
-     bit-equal); then holds the two attention kernels against their
+     bit-equal), with its device time; then the DP and k-best kernels at
+     their edges (``KERNEL_EDGES``: values on a coarse grid so ties
+     abound, lanes with fewer finite paths than k, L = 1 and 2, S = 1,
+     odd S, S = 200 whose slabs are tiled, S = 1024, 12 values of μ),
+     exactly; then holds the two attention kernels against their
      plain versions at the serving shapes of tinyllama-1.1b, the sweep
      of ``tests/test_kernels.py`` and the edges of the bf16 tensor-core
      prefill and the split decode (3e-5 abs in float32, 2e-2 in
@@ -60,7 +64,10 @@ NVIDIA GPU:
 
 Run from the repository root with no arguments: ``python3
 chip_smoke.py``.  It needs one CUDA card and exits non-zero, printing
-no result, without one or without the repository beside it.
+no result, without one or without the repository beside it.  ``python3
+chip_smoke.py --sweep-kernels`` builds the rail-sweep library alone,
+runs the kernel phase's rail-sweep rows and edges and profiles one
+mobilevit-xxs compile, and prints no result line.
 """
 
 from __future__ import annotations
@@ -251,6 +258,117 @@ def _max_abs_err(got, want) -> float:
     return float(torch.nan_to_num(diff, nan=float("inf")).max())
 
 
+def _kbest_err(got, want, k: int) -> float:
+    """Counts, and the paths of the rows below them (rows past counts
+    carry no contract)."""
+    import torch
+
+    paths, counts = got
+    wp, wc = want
+    rank = torch.arange(k, device=paths.device)[None, None, :, None]
+    below = rank < wc[:, :, None, None]
+    return max(_max_abs_err(counts, wc),
+               _max_abs_err(torch.where(below, paths, 0),
+                            torch.where(below, wp, 0)))
+
+
+def synthetic_lanes(seed: int, cap: int, L: int, S: int,
+                    sparse: bool = False):
+    """A lane store of ``cap`` problems on the card, the layout of a lane
+    mirror, with values on a coarse grid (ties in every argmin and every
+    k-best merge), invalid tails of random length and finite values in
+    the pad slots of the transition tensors; with ``sparse``, lanes 1..
+    keep one valid state a layer but for one layer of three, so they
+    have three finite paths, fewer than k."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    sizes = rng.integers(1, S + 1, size=(cap, L))
+    sizes[0, :] = S                          # one lane fills the bucket
+    if sparse:
+        sizes[1:] = 1
+        sizes[np.arange(1, cap), rng.integers(0, L, size=cap - 1)] = min(S, 3)
+    valid = np.arange(S)[None, None, :] < sizes[:, :, None]
+    t_op = np.where(valid, rng.integers(1, 5, (cap, L, S)) * 0.25, 0.0)
+    e_op = np.where(valid, rng.integers(1, 5, (cap, L, S)) * 0.5, 0.0)
+    t_trans = rng.integers(0, 3, (cap, max(L - 1, 0), S, S)) * 0.125
+    e_trans = rng.integers(0, 3, (cap, max(L - 1, 0), S, S)) * 0.25
+    return tuple(torch.from_numpy(a).to(DEVICE)
+                 for a in (t_op, e_op, valid, t_trans, e_trans))
+
+
+def tie_weights(seed: int, B: int, K: int):
+    """Weight columns with zeros, exact duplicates and negative entries
+    (as the λ search issues them) and μ values likewise, on the card."""
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    w_e = rng.choice([0.0, 1.0, 1.0, 0.5], size=(B, K))
+    w_t = rng.choice([0.0, 1.0, 2.0, -0.25, 0.75], size=(B, K))
+    w_e[:, 0], w_t[:, 0] = 0.0, 1.0          # the min-time column
+    mus = rng.choice([0.0, 0.5, 1.0, -0.125, 3.0], size=(B, K))
+    return tuple(torch.from_numpy(a).to(DEVICE) for a in (w_e, w_t, mus))
+
+
+# (seed, lanes in the store, lanes in the call, L, S, DP columns, μ
+# values, k, sparse): the edges of the staged, merged kernels — ties
+# everywhere; lanes with fewer finite paths than k; L = 1 and 2; S = 1,
+# S not a multiple of 32 (odd, so rows copy in 8-byte chunks); S = 200,
+# whose slabs do not fit in shared memory whole (tiles of columns); S
+# = 1024, the widest bucket; and more μ values than one CTA takes at S
+# = 64
+KERNEL_EDGES = (
+    (1, 4, 3, 6, 64, 20, 2, 10, False),
+    (2, 4, 3, 9, 64, 20, 2, 10, True),
+    (3, 3, 2, 2, 64, 7, 2, 10, False),
+    (4, 3, 3, 1, 16, 5, 3, 4, False),
+    (5, 3, 2, 7, 1, 4, 2, 3, False),
+    (6, 4, 3, 8, 45, 20, 2, 10, True),
+    (7, 3, 2, 5, 37, 3, 1, 7, False),
+    (8, 3, 2, 4, 200, 20, 2, 10, False),
+    (9, 2, 1, 2, 1024, 4, 1, 10, False),
+    (10, 3, 3, 5, 64, 9, 12, 10, False),
+)
+
+
+def kernel_edge_phase() -> None:
+    """The DP and k-best kernels against their plain versions at
+    KERNEL_EDGES, exactly."""
+    import torch
+
+    from repro_torch.kernels import dp_sweep as ks
+
+    for seed, cap, B, L, S, K, Km, k, sparse in KERNEL_EDGES:
+        store = synthetic_lanes(seed, cap, L, S, sparse)
+        lanes = torch.tensor([cap - 1 - i for i in range(B)],
+                             dtype=torch.int64, device=DEVICE)
+        w_e, w_t, _ = tie_weights(seed, B, K)
+        _, _, mus = tie_weights(seed + 100, B, Km)
+        args = store + (lanes,)
+        label = (f"[{B},{L},{S}] of {cap} lanes"
+                 f"{' sparse' if sparse else ''}")
+        err = _max_abs_err(ks.dp_multi_stacked(*args, w_e, w_t),
+                           ks.dp_multi_stacked_plain(*args, w_e, w_t))
+        check(err == 0.0, f"dp_multi_stacked != plain at {label} K={K}: "
+              f"max abs err {err}")
+        ms = time_ms(lambda: ks.dp_multi_stacked(*args, w_e, w_t))
+        print(f"kernel edge dp_multi_stacked    {label} K={K}: {ms:9.4f} ms"
+              f"  max_abs_err {err}", flush=True)
+        got = ks.kbest_multi_stacked(*args, mus, k)
+        want = ks.kbest_multi_stacked_plain(*args, mus, k)
+        err = _kbest_err(got, want, k)
+        check(err == 0.0, f"kbest_multi_stacked != plain at {label} K={Km} "
+              f"k={k}: max abs err {err}")
+        ms = time_ms(lambda: ks.kbest_multi_stacked(*args, mus, k))
+        short = int((want[1] < k).sum())
+        print(f"kernel edge kbest_multi_stacked {label} K={Km} k={k}: "
+              f"{ms:9.4f} ms  max_abs_err {err}  (lane, μ) rows with "
+              f"fewer finite paths than k: {short}", flush=True)
+        del store, args
+
+
 def kernel_phase(k_best: int) -> list[dict]:
     import numpy as np
     import torch
@@ -274,31 +392,27 @@ def kernel_phase(k_best: int) -> list[dict]:
         check(err == 0.0, f"dp_multi_stacked != plain at [{B},{L},{S}] "
               f"K={K}: max abs err {err}")
         bound, by = dp_bound(B, K, L, S)
+        kernel = lambda: ks.dp_multi_stacked(*args, w_e, w_t)  # noqa: E731
         _kernel_row(rows, "dp_multi_stacked", f"[{B},{L},{S}] K={K}",
-                    time_ms(lambda: ks.dp_multi_stacked(*args, w_e, w_t)),
+                    time_ms(kernel),
                     time_ms(lambda: ks.dp_multi_stacked_plain(*args, w_e,
                                                                w_t)),
-                    bound, by, err)
+                    bound, by, err, dev_ms=device_ms(kernel))
 
         Km = mus.shape[1]
-        paths, counts = ks.kbest_multi_stacked(*args, mus, k_best)
-        wp, wc = ks.kbest_multi_stacked_plain(*args, mus, k_best)
-        # rows past counts carry no contract: compare the rows below
-        rank = torch.arange(k_best, device=DEVICE)[None, None, :, None]
-        below = rank < wc[:, :, None, None]
-        err = max(_max_abs_err(counts, wc),
-                  _max_abs_err(torch.where(below, paths, 0),
-                               torch.where(below, wp, 0)))
+        err = _kbest_err(ks.kbest_multi_stacked(*args, mus, k_best),
+                         ks.kbest_multi_stacked_plain(*args, mus, k_best),
+                         k_best)
         check(err == 0.0, f"kbest_multi_stacked != plain at [{B},{L},{S}] "
               f"K={Km}: max abs err {err}")
         bound, by = kbest_bound(B, Km, L, S, k_best)
+        kernel = lambda: ks.kbest_multi_stacked(  # noqa: E731
+            *args, mus, k_best)
         _kernel_row(rows, "kbest_multi_stacked",
-                    f"[{B},{L},{S}] K={Km} k={k_best}",
-                    time_ms(lambda: ks.kbest_multi_stacked(*args, mus,
-                                                           k_best)),
+                    f"[{B},{L},{S}] K={Km} k={k_best}", time_ms(kernel),
                     time_ms(lambda: ks.kbest_multi_stacked_plain(
                         *args, mus, k_best)),
-                    bound, by, err)
+                    bound, by, err, dev_ms=device_ms(kernel))
         del args, t_trans, e_trans
 
     # the gather: P paths over a 64-lane store of mobilevit-xxs lanes
@@ -323,11 +437,13 @@ def kernel_phase(k_best: int) -> list[dict]:
     check(err == 0.0, f"path_components != plain: max abs err {err}")
     L = paths.shape[1]
     bound, by = gather_bound(GATHER_PATHS, L)
+    kernel = lambda: ks.path_components(*gargs)  # noqa: E731
     _kernel_row(rows, "path_components",
                 f"P={GATHER_PATHS} L={L} store={GATHER_STORE} lanes",
-                time_ms(lambda: ks.path_components(*gargs)),
+                time_ms(kernel),
                 time_ms(lambda: ks.path_components_plain(*gargs)),
-                bound, by, err)
+                bound, by, err, dev_ms=device_ms(kernel))
+    kernel_edge_phase()
     return list(rows.values())
 
 
@@ -1245,7 +1361,33 @@ def build_all() -> None:
     check(n_hgmma > 0, "the bf16 attention library holds no HGMMA")
 
 
-def main() -> int:
+def sweep_kernels_only(k_best: int) -> int:
+    """``--sweep-kernels``: build the rail-sweep library alone, run the
+    kernel phase's rail-sweep rows and edges, profile one mobilevit-xxs
+    compile after an unprofiled one, print the rows; no result line."""
+    from repro_torch.core import MinEnergy, OrchestratorConfig, compile
+    from repro_torch.kernels import dp_sweep as ks
+    from repro_torch.models.edge_cnn import edge_network
+
+    tic = time.perf_counter()
+    ks.LIBRARY.load()
+    print(f"build: {ks.LIBRARY.path().name} in "
+          f"{time.perf_counter() - tic:.2f} s", flush=True)
+    rows = kernel_phase(k_best)
+    net = KERNEL_SHAPES[0][0]
+    ks.reset_launch_counts()
+    tic = time.perf_counter()
+    compile(edge_network(net), MinEnergy(rate_hz=RATE_FRACTION
+                                         * max_rate(net)),
+            cfg=OrchestratorConfig(device=DEVICE), network=net)
+    print(f"compile {net}: wall {time.perf_counter() - tic:.3f} s  "
+          f"launches {json.dumps(ks.LAUNCHES)}", flush=True)
+    profile_phase(net)
+    print(json.dumps({"kernels": rows}), flush=True)
+    return 0
+
+
+def main(argv: list[str]) -> int:
     try:
         import torch
     except ImportError:
@@ -1273,9 +1415,15 @@ def main() -> int:
     torch.backends.cudnn.allow_tf32 = False
     print("tf32: matmul off, cudnn off", flush=True)
 
+    from repro_torch.core.policies import OrchestratorConfig
+    if argv == ["--sweep-kernels"]:
+        return sweep_kernels_only(OrchestratorConfig().k_candidates)
+    if argv:
+        print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
+        return 2
+
     build_all()
 
-    from repro_torch.core.policies import OrchestratorConfig
     tic = time.perf_counter()
     rows = kernel_phase(OrchestratorConfig().k_candidates)
     rows += attention_phase()
@@ -1306,4 +1454,4 @@ def main() -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(sys.argv[1:]))

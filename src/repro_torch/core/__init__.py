@@ -4,10 +4,12 @@ and goal menu.
 Public API:
   - ScheduleProblem / StateCost / IdleModel  — §4 problem formulation
   - CompilationContext                       — shared master-table stage
-  - register_policy / get_policy             — policy registry
+  - register_policy / get_policy / POLICIES  — policy registry (POLICIES
+    is a live view of the registered names)
   - solve_lambda_dp / dp_paths_multi         — §4.3 λ-DP search on the
     backend's DP kernel; min_time_path, solve_budget_dp (the dual)
-  - TorchBackend / get_backend               — the solver kernels on one
+  - TorchBackend / get_backend /
+    available_backends                       — the solver kernels on one
     torch device (CUDA kernels on the card, plain versions on the CPU)
   - refine_candidates / refine_path          — §4.3 local refinement
   - prune_problem                            — §4.3 structure pruning
@@ -25,6 +27,7 @@ from repro_torch.core.backend import (
     BucketStack,
     StackCaches,
     TorchBackend,
+    available_backends,
     get_backend,
 )
 from repro_torch.core.context import CompilationContext
@@ -78,6 +81,16 @@ from repro_torch.core.rails import (
 from repro_torch.core.refinement import refine_candidates, refine_path
 from repro_torch.core.schedule import PowerSchedule
 
+
+def __getattr__(name: str):
+    # live view of the registry: policies registered after this module's
+    # import still appear in ``repro_torch.core.POLICIES``
+    if name == "POLICIES":
+        return policy_names()
+    raise AttributeError(
+        f"module {__name__!r} has no attribute {name!r}")
+
+
 __all__ = [
     "ScheduleProblem", "StateCost", "IdleModel",
     "CompilationContext", "register_policy", "get_policy",
@@ -86,7 +99,8 @@ __all__ = [
     "solve_lambda_dp", "solve_budget_dp", "min_time_path",
     "dp_paths_multi", "dp_paths_multi_weighted",
     "kbest_paths_multi", "SolverStats", "StackedLambdaTask",
-    "TorchBackend", "get_backend", "BucketStack", "StackCaches",
+    "TorchBackend", "get_backend", "available_backends",
+    "BucketStack", "StackCaches",
     "StackedSweep", "run_stacked_sweeps", "select_rails_stacked",
     "select_rails", "evenly_spaced_rails",
     "MinEnergySelection", "MinLatencySelection", "all_rail_subsets",
@@ -97,5 +111,6 @@ __all__ = [
     "build_edge_problem", "build_idle_model",
     # ``compile`` is importable explicitly but left out of __all__ so
     # ``from repro_torch.core import *`` never shadows the builtin
-    "OrchestratorConfig", "PowerSchedule", "compile_power_schedule",
+    "OrchestratorConfig", "POLICIES", "PowerSchedule",
+    "compile_power_schedule",
 ]

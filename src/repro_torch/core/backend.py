@@ -645,3 +645,9 @@ def get_backend(device: str | torch.device | TorchBackend | None = None
         if key not in _INSTANCES:
             _INSTANCES[key] = TorchBackend(key)
         return _INSTANCES[key]
+
+
+def available_backends() -> tuple[str, ...]:
+    """Devices a :class:`TorchBackend` can run on here: ``"cpu"`` (the
+    kernels' plain versions), and ``"cuda"`` when a card is present."""
+    return ("cpu", "cuda") if torch.cuda.is_available() else ("cpu",)

@@ -102,6 +102,8 @@ class CompilationContext:
         self._master_t_op: dict[bool, list[np.ndarray]] = {}
         self._master_e_op: dict[bool, list[np.ndarray]] = {}
         self._master_vkey: dict[bool, list[bytes]] = {}
+        # gating flag -> per-layer StateCost lists (built on request only)
+        self._master: dict[bool, list[list[StateCost]]] = {}
         # (volts_a content, volts_b content) -> (T, E, switch) matrices
         self._trans_cache: dict[
             tuple[bytes, bytes],
@@ -137,6 +139,24 @@ class CompilationContext:
             self._master_vkey[gating] = [v.tobytes() for v, _, _ in cols]
             # set last: readers key "is the master built?" off this
             self._master_volts[gating] = [v for v, _, _ in cols]
+
+    def master_states(self, gating: bool) -> list[list[StateCost]]:
+        """Per-layer master :class:`StateCost` lists — the record view
+        of the master arrays, materialized lazily (the sweep hot path
+        only ever touches the arrays)."""
+        self._master_arrays(gating)
+        with self._master_lock:
+            if gating not in self._master:
+                self._master[gating] = [
+                    [StateCost(voltages=(float(v[0]), float(v[1]),
+                                         float(v[2])),
+                               t_op=float(t), e_op=float(e))
+                     for v, t, e in zip(volts, t_ops, e_ops)]
+                    for volts, t_ops, e_ops in zip(
+                        self._master_volts[gating],
+                        self._master_t_op[gating],
+                        self._master_e_op[gating])]
+            return self._master[gating]
 
     def _subset_indices(self, gating: bool, layer: int,
                         rails: tuple[float, ...]) -> np.ndarray:

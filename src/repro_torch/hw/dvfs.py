@@ -21,7 +21,9 @@ sensitivity.  Transitions do not overlap with computation (§4.1).
 from __future__ import annotations
 
 import dataclasses
+import itertools
 import math
+from typing import Sequence
 
 # Gated state sentinel: a domain "voltage" of 0.0 means power-gated.
 V_GATED = 0.0
@@ -108,3 +110,9 @@ def voltage_levels(v_min: float = 0.9, v_max: float = 1.3,
     """Discretized candidate voltage set V (paper §4.2: uniform ΔV)."""
     n = int(round((v_max - v_min) / step)) + 1
     return tuple(round(v_min + i * step, 4) for i in range(n))
+
+
+def rail_subsets(levels: Sequence[float], n_max: int):
+    """All rail subsets R ⊆ V with 1 ≤ |R| ≤ N_max (paper §4.2)."""
+    for k in range(1, n_max + 1):
+        yield from itertools.combinations(levels, k)

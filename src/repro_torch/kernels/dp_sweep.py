@@ -41,7 +41,8 @@ from repro_torch.kernels._nvcc import (
 SOURCE = CSRC / "dp_sweep.cu"
 NVCC_FLAGS = BASE_FLAGS + ("--fmad=false",)
 
-# widest state bucket a CTA can take: one thread per next state
+# widest state bucket the kernels take (their node-row prefetch is
+# sized for it)
 MAX_STATES = 1024
 # dynamic shared memory a CTA may opt into on Hopper
 _MAX_SMEM = 232_448
@@ -114,7 +115,7 @@ def _check_lane_shapes(name, t_op, e_op, valid, t_trans, e_trans) -> None:
                          f"got {tuple(t_trans.shape)}")
     if S > MAX_STATES:
         raise ValueError(f"{name}: {S} padded states exceed the "
-                         f"kernel's {MAX_STATES}-thread CTA")
+                         f"kernels' limit of {MAX_STATES}")
 
 
 
@@ -215,7 +216,7 @@ def kbest_multi_stacked(t_op, e_op, valid, t_trans, e_trans, lanes, mus,
         return kbest_multi_stacked_plain(t_op, e_op, valid, t_trans,
                                          e_trans, lanes, mus, k)
     _, L, S = t_op.shape
-    smem = S * k * (2 * 8 + 4)
+    smem = kbest_min_smem(S, k)
     if smem > _MAX_SMEM:
         raise ValueError(f"kbest_multi_stacked: S={S}, k={k} needs {smem} "
                          f"bytes of shared memory (> {_MAX_SMEM})")
@@ -234,6 +235,17 @@ def kbest_multi_stacked(t_op, e_op, valid, t_trans, e_trans, lanes, mus,
     _raise_on("kbest_multi_stacked", err)
     LAUNCHES["kbest_multi_stacked"] += 1
     return paths, counts
+
+
+def kbest_min_smem(S: int, k: int) -> int:
+    """Shared memory (bytes) the k-best kernel needs at the least: one
+    μ's two [S, k] float64 list slabs (k rounded up to even), its μ, its
+    k final indices, two mbarriers, and three stages of a one-column
+    tile (both slabs' column, its node values and valid word;
+    ``kbest_fixed`` + ``stages_bytes`` in ``csrc/dp_sweep.cu``)."""
+    stage = 2 * S + 3                   # doubles, rounded up to even
+    return (16 * S * (k + (k & 1)) + 8 + 4 * ((k + 1) & ~1) + 16
+            + 3 * 8 * (stage + (stage & 1)))
 
 
 def kbest_multi_stacked_plain(t_op, e_op, valid, t_trans, e_trans, lanes,

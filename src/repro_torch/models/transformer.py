@@ -253,46 +253,66 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict,
 
 def _decode_attn_dense(p: dict, cfg: ModelConfig, h: torch.Tensor,
                        state_k: torch.Tensor, state_v: torch.Tensor,
-                       lengths: torch.Tensor):
+                       lengths: torch.Tensor, room: torch.Tensor | None):
     """One-token attention against one layer's cache ``[B, C, KH, D]``;
     writes the new K/V rows at ``lengths`` IN PLACE and returns (out,
-    k cache, v cache)."""
+    k cache, v cache).  With ``room`` ([B] bool), a row without room
+    keeps its cache as it is (its write goes to row C - 1 unchanged)."""
     b = h.shape[0]
     positions = lengths[:, None]
     q, k, v = _qkv(p, cfg, h)
     q = _rope(cfg, q, positions)
     k = _rope(cfg, k, positions)
     ar = torch.arange(b, device=h.device)
-    idx = lengths.long()
-    state_k[ar, idx] = k[:, 0]
-    state_v[ar, idx] = v[:, 0]
+    if room is None:
+        idx = lengths.long()
+        state_k[ar, idx] = k[:, 0]
+        state_v[ar, idx] = v[:, 0]
+    else:
+        idx = lengths.long().clamp(max=state_k.shape[1] - 1)
+        keep = room[:, None, None]
+        state_k[ar, idx] = torch.where(keep, k[:, 0], state_k[ar, idx])
+        state_v[ar, idx] = torch.where(keep, v[:, 0], state_v[ar, idx])
     out = ops.decode_bshd(q, state_k, state_v, lengths + 1)
     out = out.reshape(b, 1, -1) @ p["wo"]
     return out, state_k, state_v
 
 
 def decode_step(params: dict, cfg: ModelConfig, state: dict,
-                tokens: torch.Tensor) -> tuple[torch.Tensor, dict]:
+                tokens: torch.Tensor, live=None) -> tuple[torch.Tensor, dict]:
     """One serving step: tokens ``[B]`` → (logits ``[B, V_padded]``,
     state).  The returned state holds the same (updated in place)
-    ``k``/``v`` tensors and new ``lengths``.  Raises ``ValueError``
-    when a slot's cache is full."""
+    ``k``/``v`` tensors and new ``lengths``.
+
+    ``live`` ([B] bools on the host; default: every slot) marks the
+    slots whose output the caller reads.  Without it, a slot whose cache
+    is full raises ``ValueError`` naming it, which reads ``lengths``
+    back from the device.  With it nothing is read back: the caller
+    vouches that live slots have room (``ServingEngine`` checks this
+    from the lengths it keeps on the host), and a slot outside ``live``
+    that is past its cache skips its K/V write on the device, as the
+    JAX reference drops such writes."""
     check_supported(cfg)
     lengths = state["lengths"]
     cache_len = state["k"].shape[2]
-    full = lengths >= cache_len
-    if bool(full.any()):
-        slot = int(torch.nonzero(full)[0, 0])
-        raise ValueError(
-            f"decode_step: slot {slot} holds {int(lengths[slot])} tokens "
-            f"and its cache ends at {cache_len}; the new token has no "
-            "cache row (the JAX reference drops such writes silently)")
+    room = None
+    if live is None:
+        full = lengths >= cache_len
+        if bool(full.any()):
+            slot = int(torch.nonzero(full)[0, 0])
+            raise ValueError(
+                f"decode_step: slot {slot} holds {int(lengths[slot])} "
+                f"tokens and its cache ends at {cache_len}; the new token "
+                "has no cache row (the JAX reference drops such writes "
+                "silently)")
+    elif not all(live):
+        room = lengths < cache_len
     x = embed_tokens(params, cfg, tokens.to(lengths.device)[:, None])
     for i in range(cfg.n_layers):
         lp = layer_params(params, i)
         h = _norm(lp, "ln1", x, cfg)
         attn, _, _ = _decode_attn_dense(lp, cfg, h, state["k"][i],
-                                        state["v"][i], lengths)
+                                        state["v"][i], lengths, room)
         x = x + attn
         x = x + _ffn(lp, cfg, _norm(lp, "ln2", x, cfg))
     new_state = dict(state)

@@ -35,7 +35,12 @@ import dataclasses
 import math
 from typing import Sequence
 
-from repro_torch.hw.edge40nm import Edge40nmAccelerator
+from repro_torch.hw.edge40nm import (
+    D_COMPUTE,
+    D_FEEDER,
+    D_RRAM,
+    Edge40nmAccelerator,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -195,3 +200,11 @@ def characterize_layer(spec: LayerSpec,
 def characterize_network(specs: Sequence[LayerSpec],
                          acc: Edge40nmAccelerator) -> list[LayerCost]:
     return [characterize_layer(s, acc) for s in specs]
+
+
+def nominal_latency(cost: LayerCost, acc: Edge40nmAccelerator) -> float:
+    """Layer latency with every domain at the nominal voltage [s]."""
+    fs = (acc.dvfs(D_COMPUTE).freq(acc.v_nom),
+          acc.dvfs(D_FEEDER).freq(acc.v_nom),
+          acc.dvfs(D_RRAM).freq(acc.v_nom))
+    return max(c / f for c, f in zip(cost.cycles, fs))

@@ -18,6 +18,14 @@ batch is right-aligned and zero-padded to its longest prompt.
 Finished requests retire to ``completed``; ``run_to_completion`` flags
 requests still in flight when ``max_steps`` runs out ``truncated``.
 
+The engine keeps every slot's cache length on the host.  A decode step
+passes the live slots (those whose request goes on) to ``decode_step``,
+so a retired slot past its cache skips its K/V write, as the reference
+drops it, and nothing is read back from the device for it.  A live
+request whose next token would need a cache row past ``cache_len``
+raises ``ValueError`` naming its slot (the reference drops that write
+silently).
+
 The engine runs on the device that holds the parameters.
 """
 
@@ -68,6 +76,8 @@ class ServingEngine:
         self.completed: list[Request] = []       # finished, un-consumed
         self.state: dict | None = None
         self._logits: np.ndarray | None = None   # [B, V] next-token logits
+        # every slot's cache length, as the device state holds it
+        self._lengths = np.zeros(ecfg.max_batch, np.int64)
         self._next_rid = 0
 
     # -- request intake ------------------------------------------------
@@ -95,6 +105,7 @@ class ServingEngine:
                                 cache_len=ec.cache_len)
         self.state = state
         self.active = dict(enumerate(requests))
+        self._lengths[:] = max_len
         self._logits = _host_logits(logits)
 
     def _prefill_slot(self, slot: int, r: Request) -> None:
@@ -111,6 +122,7 @@ class ServingEngine:
                 self.state[key][:, slot] = state1[key][:, 0]
             self.state["lengths"][slot] = state1["lengths"][0]
         self.active[slot] = r
+        self._lengths[slot] = len(r.prompt)
         self._logits[slot] = _host_logits(logits)[0]
 
     def _retire_finished(self) -> None:
@@ -155,10 +167,21 @@ class ServingEngine:
         # 3) advance the cache one decode step for continuing slots
         #    (skipped when every live sequence just finished — done
         #    requests never burn decode work)
-        if any(not r.done for r in self.active.values()):
+        live = [slot in self.active and not self.active[slot].done
+                 for slot in range(ec.max_batch)]
+        if any(live):
+            for slot in np.flatnonzero(live):
+                if self._lengths[slot] >= ec.cache_len:
+                    r = self.active[slot]
+                    raise ValueError(
+                        f"engine: request {r.rid} in slot {slot} needs cache "
+                        f"row {self._lengths[slot]} (a prompt of "
+                        f"{len(r.prompt)} tokens and {len(r.generated)} "
+                        f"generated), but its cache ends at {ec.cache_len}")
             logits, self.state = decode_step(
                 self.params, self.cfg, self.state,
-                torch.from_numpy(feed).to(self.device))
+                torch.from_numpy(feed).to(self.device), live=live)
+            self._lengths += 1
             self._logits = _host_logits(logits)
         return emitted
 
