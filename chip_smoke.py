@@ -5,8 +5,9 @@ NVIDIA GPU:
   1. prints the card's name and power limit, builds the CUDA kernels
      from ``src/repro_torch/csrc/`` (one ``nvcc`` per source, all
      started together), prints each build's time and the count of
-     ``HGMMA`` instructions in the bf16 attention library's SASS
-     (``cuobjdump -sass``; must be > 0);
+     ``HGMMA`` instructions in the bf16 attention library's SASS and of
+     ``IGMMA`` in the int8 library's (``cuobjdump -sass``; each must be
+     > 0);
   2. kernel phase: calls each rail-sweep kernel's wrapper on the card
      at the shapes the rail sweep gives it (lanes of real rail-subset
      problems) and holds the result against its plain PyTorch version
@@ -15,7 +16,13 @@ NVIDIA GPU:
      their edges (``KERNEL_EDGES``: values on a coarse grid so ties
      abound, lanes with fewer finite paths than k, L = 1 and 2, S = 1,
      odd S, S = 200 whose slabs are tiled, S = 1024, 12 values of μ),
-     exactly; then holds the two attention kernels against their
+     exactly; then the grouped gather over the three networks' buckets
+     in one launch, exactly, and whole evaluation passes through
+     ``TorchBackend.path_costs_grouped`` (an empty and an L = 1 group
+     beside them) against the host's sums, with their time a pass
+     (events, device, host clock), beside the same pass made one
+     ``path_costs_lanes`` call a bucket; then holds the two attention
+     kernels against their
      plain versions at the serving shapes of tinyllama-1.1b, the sweep
      of ``tests/test_kernels.py`` and the edges of the bf16 tensor-core
      prefill and the split decode (3e-5 abs in float32, 2e-2 in
@@ -27,13 +34,15 @@ NVIDIA GPU:
   3. path phase: compiles the ``pfdnn`` schedule of all four edge
      networks at full width (0.9 x each network's max rate, default
      config) through ``repro_torch.core.compile`` on the card, with the
-     launch counts set to 0 just before and read just after; checks
-     every schedule byte for byte against the same compile on the CPU
+     launch counts set to 0 just before and read just after, and prints
+     the evaluation passes and ``path_components`` launches (at most
+     one a pass); checks every schedule byte for byte against the same
+     compile on the CPU
      (plain versions), the three ``pfdnn`` goldens of
      ``tests/golden/pipeline.json``, and replays each schedule for 100
      periods (ledger = prediction, no deadline miss);
   4. profiles one more mobilevit-xxs compile (device busy time against
-     the wall clock);
+     the wall clock, every copy by kind);
   5. serve phase, tinyllama-1.1b at full width on the card: runs the
      entry point ``repro_torch.launch.serve`` as users run it (8
      requests, 16 new tokens, the ``pfdnn`` schedule at 30 Hz, bf16)
@@ -43,17 +52,23 @@ NVIDIA GPU:
      |logits| in float32, 2e-2 x in bf16); serves 16 requests of
      512-1024 prompt tokens at batch 16 and prints prefill and decode
      rates and the decode loop's device busy share;
-  6. int8 phase: holds the int8 matmul kernel exactly (bit for bit)
-     against its plain version at the shapes of ``tests/test_kernels.py``,
-     a ragged shape and tinyllama-1.1b's four projection widths at
-     M = 16 (a decode batch) and M = 16384 (16 x 1024 prefill tokens),
-     with its time, its plain version's, its bound, the time of
-     ``torch._int_mm`` plus the same epilogue and, at the projection
-     widths, of ``torch._int_mm`` alone (yardsticks the port never
-     calls); then drives the int8 entry point
+  6. int8 phase (its kernel rows run right after the attention
+     kernels' and its entry point after the serve phase): holds the
+     int8 matmul kernels exactly (bit for bit)
+     against their plain version, ``w`` row-major and K-major, at the
+     shapes of ``tests/test_kernels.py``, a ragged shape and
+     tinyllama-1.1b's four projection widths at M = 16 (a decode batch,
+     the mma.sync route) and M = 16384 (16 x 1024 prefill tokens, the
+     wgmma route), printing the route each took; with its time, its
+     plain version's, its bound, the time of ``torch._int_mm`` plus the
+     same epilogue and, at the projection widths, of ``torch._int_mm``
+     alone (yardsticks the port never calls); at M = 16384 also the
+     mma.sync route, back-to-back call times and the card's clocks;
+     then drives the int8 entry point
      ``repro_torch.kernels.int8_linear`` on bf16 activations and weights
-     at those widths (launch count set to 0 just before, read just
-     after; error against ``x @ w`` in float32 below 0.05);
+     at those widths (launch counts set to 0 just before, read just
+     after, by route: M = 16384 on wgmma, M = 16 on mma.sync, no
+     transpose pass; error against ``x @ w`` in float32 below 0.05);
   7. policy phase: compiles all 23 schedules of
      ``tests/golden/pipeline.json`` (all eight policies) on the card and
      holds each against its golden, compares every policy's schedule of
@@ -62,12 +77,22 @@ NVIDIA GPU:
      CPU, and prints each compile's wall and DP-kernel launches;
   8. prints the ``kernels`` JSON line and, last, the result line.
 
+``profiler_check`` runs at the start, in the int8 phase and at the end:
+it times a spin kernel of a fixed cycle count by CUDA events and under
+``torch.profiler`` and prints how many launches the profiler recorded.
+The profiler can drop whole launches, more often late in the run, so
+``device_ms`` measures a window again when an operation's count is not
+a multiple of the calls, and prints "not measured" when no window was
+whole; the compile and decode profiles cannot be checked that way and
+may read low late in the run.  CUDA-event times are not affected.
+
 Run from the repository root with no arguments: ``python3
 chip_smoke.py``.  It needs one CUDA card and exits non-zero, printing
 no result, without one or without the repository beside it.  ``python3
 chip_smoke.py --sweep-kernels`` builds the rail-sweep library alone,
-runs the kernel phase's rail-sweep rows and edges and profiles one
-mobilevit-xxs compile, and prints no result line.
+runs the kernel phase's rail-sweep rows, the grouped gather and the
+edges and profiles one mobilevit-xxs compile, and prints no result
+line.
 """
 
 from __future__ import annotations
@@ -161,6 +186,35 @@ def time_ms(fn) -> float:
         end.record()
         end.synchronize()
         times.append(start.elapsed_time(end))
+    return statistics.median(times)
+
+
+def time_ms_b2b(fn, n: int = 10) -> float:
+    """Device time of one call of ``fn`` within ``n`` back-to-back calls
+    (one pair of CUDA events around all of them, after a warm-up)."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(n):
+        fn()
+    end.record()
+    end.synchronize()
+    return start.elapsed_time(end) / n
+
+
+def host_ms(fn, reps: int = REPS) -> float:
+    """Median host-clock time of one call of ``fn`` that ends on the
+    host (after a warm-up); what a caller waits for."""
+    fn()
+    times = []
+    for _ in range(reps):
+        tic = time.perf_counter()
+        fn()
+        times.append((time.perf_counter() - tic) * 1e3)
     return statistics.median(times)
 
 
@@ -312,6 +366,151 @@ def tie_weights(seed: int, B: int, K: int):
     return tuple(torch.from_numpy(a).to(DEVICE) for a in (w_e, w_t, mus))
 
 
+def device_mirror(store):
+    """The store's lanes as the five tensors a gather reads (t_op, e_op,
+    t_trans, e_trans, switch) on the card."""
+    t_op, e_op, _, t_trans, e_trans, switch = device_lanes(store)
+    return t_op, e_op, t_trans, e_trans, switch
+
+
+def gather_group(store, P: int, rng):
+    """``(store, lanes [P], paths [P, L])``: P random valid paths on
+    random lanes of ``store``, host int64 arrays."""
+    import numpy as np
+
+    view = store.view()
+    lanes = rng.integers(0, store.n, size=P).astype(np.int64)
+    sizes = view.valid.sum(axis=2)                      # [n, L]
+    paths = (rng.random((P, view.n_layers)) * sizes[lanes]).astype(np.int64)
+    return store, lanes, paths
+
+
+def _ms(v: float | None) -> str:
+    return "not measured" if v is None else f"{v:9.5f} ms"
+
+
+def _gather_err(got, want) -> float:
+    """Kernel vs plain output of a grouped gather (float64 words,
+    switch bits included: compared as int64 bits, then as values)."""
+    import torch
+
+    (a, _), (b, _) = got, want
+    check(torch.equal(a.view(torch.int64), b.view(torch.int64)),
+          "grouped gather: output bits differ from the plain version")
+    return _max_abs_err(a, b)
+
+
+# (lanes a store keeps, paths a group) of the grouped-gather phase: one
+# group per bucket of KERNEL_SHAPES (mobilevit-xxs [70, 64],
+# mobilenetv3-small [54, 32], squeezenet1.1 [26, 16]), as an evaluation
+# pass of a multi-network sweep hands them over
+GROUPED_PATHS = (512, 256, 128)
+
+
+def gather_phase(buckets, full) -> None:
+    """The grouped gather over mixed buckets: the kernel against its
+    plain version (exactly), then whole evaluation passes through
+    ``TorchBackend.path_costs_grouped`` (upload, launch, download, host
+    sums) against the host's sums, with an empty group and an L = 1
+    group beside them; event ms, device ms and bound per pass."""
+    import numpy as np
+
+    from repro_torch.core.backend import (
+        BucketStack,
+        PaddedArrays,
+        _sum_components,
+        _sum_stacked,
+        get_backend,
+    )
+    from repro_torch.kernels import dp_sweep as ks
+
+    rng = np.random.default_rng(1)
+    stores = [full] + [buckets[net][0] for net, _ in KERNEL_SHAPES[1:]]
+    groups = [gather_group(st, P, rng)
+              for st, P in zip(stores, GROUPED_PATHS)]
+    mirrors = [device_mirror(st) for st, _, _ in groups]
+    gargs = (mirrors, [g[1] for g in groups], [g[2] for g in groups])
+    err = _gather_err(ks.path_components_grouped(*gargs),
+                      ks.path_components_grouped_plain(*gargs))
+    check(err == 0.0, f"grouped path_components != plain: max abs err {err}")
+    bound = sum(gather_bound(len(ln), pa.shape[1])[0]
+                for _, ln, pa in groups)
+    label = " + ".join(f"[P={len(ln)} L={pa.shape[1]} "
+                       f"S={st.view().s_pad}]" for st, ln, pa in groups)
+    kernel = lambda: ks.path_components_grouped(*gargs)  # noqa: E731
+    print(f"gather grouped kernel {label}: {time_ms(kernel):9.4f} ms  "
+          f"device {_ms(device_ms(kernel))}  bound {bound:9.5f} ms "
+          f"(bytes)  max_abs_err {err}", flush=True)
+
+    # whole passes through the backend; an empty group and an L = 1
+    # group ride along (summed on the host)
+    bk = get_backend(DEVICE)
+    one = BucketStack(1, 16)
+    one.add(0, PaddedArrays(
+        t_op=np.full((1, 16), 0.5), e_op=np.full((1, 16), 0.25),
+        valid=np.ones((1, 16), bool), t_trans=np.zeros((0, 16, 16)),
+        e_trans=np.zeros((0, 16, 16)),
+        switch=np.zeros((0, 16, 16), np.int64), sizes=(16,)))
+    passes = {
+        "one group": [groups[0]],
+        "mixed": groups + [(stores[1], np.zeros(0, np.int64),
+                            np.zeros((0, 54), np.int64)),
+                           (one, np.zeros(3, np.int64),
+                            np.arange(3, dtype=np.int64)[:, None])],
+    }
+    for name, pas in passes.items():
+        before = ks.LAUNCHES["path_components"]
+        got = bk.path_costs_grouped(pas)
+        launches = ks.LAUNCHES["path_components"] - before
+        check(launches == 1, f"a gather pass ({name}) made {launches} "
+              "launches")
+        for (st, ln, pa), costs in zip(pas, got):
+            want = _sum_stacked(st.view(), ln, pa)
+            check(all(np.array_equal(costs[k], want[k])
+                      and costs[k].dtype == want[k].dtype for k in want),
+                  f"path_costs_grouped ({name}) != host sums")
+        ms = time_ms(lambda: bk.path_costs_grouped(pas))
+        dev = device_ms(lambda: bk.path_costs_grouped(pas))
+        host = host_ms(lambda: bk.path_costs_grouped(pas))
+        bound = sum(gather_bound(len(ln), pa.shape[1])[0]
+                    for _, ln, pa in pas if len(ln) and pa.shape[1] > 1)
+        print(f"gather pass ({name}, {len(pas)} groups) through "
+              f"TorchBackend.path_costs_grouped: {ms:9.4f} ms a pass "
+              f"(events; upload, launch, download, host sums)  device "
+              f"{_ms(dev)}  host clock {host:9.4f} ms  bound {bound:9.5f} "
+              f"ms (bytes)  launches a pass {launches}  sums identical",
+              flush=True)
+    # the same mixed pass the way the evaluation ran it before: one
+    # one-bucket call each, all launched before the first result is read
+    mixed = passes["mixed"]
+
+    def per_bucket():
+        pend = [bk.path_costs_lanes(*g, defer=True) for g in mixed]
+        return [p.get() for p in pend]
+
+    before = ks.LAUNCHES["path_components"]
+    per_bucket()
+    launches = ks.LAUNCHES["path_components"] - before
+    print(f"gather pass (mixed) as one path_costs_lanes call a bucket: "
+          f"{time_ms(per_bucket):9.4f} ms a pass  device "
+          f"{_ms(device_ms(per_bucket))}  host clock "
+          f"{host_ms(per_bucket):9.4f} ms  launches a pass {launches}",
+          flush=True)
+    # where a pass's host time goes, by step (host clock, median)
+    lanes, paths = [g[1] for g in groups], [g[2] for g in groups]
+    out, layout = ks.path_components_grouped(mirrors, lanes, paths)
+    host_out = out.cpu().numpy()
+    pack = host_ms(lambda: ks.pack_gather(mirrors, lanes, paths,
+                                          pin=DEVICE == "cuda"))
+    wrapper = host_ms(lambda: ks.path_components_grouped(mirrors, lanes,
+                                                         paths))
+    sums = host_ms(lambda: [_sum_components(c) for c in
+                            ks.split_components(host_out, layout)])
+    print(f"gather pass (3 groups) host steps: pack_gather {pack:.4f} ms, "
+          f"wrapper (pack, copy up, launch) {wrapper:.4f} ms, split + "
+          f"np.sum {sums:.4f} ms", flush=True)
+
+
 # (seed, lanes in the store, lanes in the call, L, S, DP columns, μ
 # values, k, sparse): the edges of the staged, merged kernels — ties
 # everywhere; lanes with fewer finite paths than k; L = 1 and 2; S = 1,
@@ -415,54 +614,101 @@ def kernel_phase(k_best: int) -> list[dict]:
                     bound, by, err, dev_ms=device_ms(kernel))
         del args, t_trans, e_trans
 
-    # the gather: P paths over a 64-lane store of mobilevit-xxs lanes
+    # the gather: P paths over a 64-lane store of mobilevit-xxs lanes, as
+    # one group (host lanes and paths, as the backend hands them over)
     from repro_torch.core.backend import BucketStack
 
     store, _ = buckets[KERNEL_SHAPES[0][0]]
     full = BucketStack(store.view().n_layers, store.view().s_pad)
     for i in range(GATHER_STORE):
         full.add(i, store.padded(i % store.n))
-    t_op, e_op, valid, t_trans, e_trans, switch = device_lanes(full)
     rng = np.random.default_rng(0)
-    lane_np = rng.integers(0, GATHER_STORE, size=GATHER_PATHS)
-    sizes = full.view().valid.sum(axis=2)                # [n, L]
-    paths_np = (rng.random((GATHER_PATHS, sizes.shape[1]))
-                * sizes[lane_np]).astype(np.int64)
-    lanes = torch.from_numpy(lane_np).to(DEVICE)
-    paths = torch.from_numpy(paths_np).to(DEVICE)
-    gargs = (lanes, paths, t_op, e_op, t_trans, e_trans, switch)
-    err = max(_max_abs_err(a, b) for a, b in
-              zip(ks.path_components(*gargs),
-                  ks.path_components_plain(*gargs)))
+    group = gather_group(full, GATHER_PATHS, rng)
+    mirror = device_mirror(full)
+    gargs = ([mirror], [group[1]], [group[2]])
+    err = _gather_err(ks.path_components_grouped(*gargs),
+                      ks.path_components_grouped_plain(*gargs))
     check(err == 0.0, f"path_components != plain: max abs err {err}")
-    L = paths.shape[1]
+    L = group[2].shape[1]
     bound, by = gather_bound(GATHER_PATHS, L)
-    kernel = lambda: ks.path_components(*gargs)  # noqa: E731
+    kernel = lambda: ks.path_components_grouped(*gargs)  # noqa: E731
     _kernel_row(rows, "path_components",
                 f"P={GATHER_PATHS} L={L} store={GATHER_STORE} lanes",
                 time_ms(kernel),
-                time_ms(lambda: ks.path_components_plain(*gargs)),
+                time_ms(lambda: ks.path_components_grouped_plain(*gargs)),
                 bound, by, err, dev_ms=device_ms(kernel))
+    print(f"  the kernel alone: device "
+          f"{_ms(device_ms(kernel, only='gather'))} (the rest of the device "
+          "time is the packet's copy up)", flush=True)
+    gather_phase(buckets, full)
     kernel_edge_phase()
     return list(rows.values())
 
 
-def device_ms(fn, reps: int = 10) -> float | None:
+def device_ms(fn, reps: int = 10, only: str | None = None,
+              tries: int = 3) -> float | None:
     """The card's busy time per call of ``fn`` (union of its kernel and
     copy intervals under ``torch.profiler``, over ``reps`` calls): the
     kernel's own time where the host's launch cost sets ``time_ms``;
-    None when the profiler recorded no device events."""
+    with ``only``, the time of the device operations whose name holds
+    ``only`` alone.  The profiler can drop whole launches
+    (``profiler_check``): a window in which some operation was recorded
+    a number of times that is not a multiple of ``reps`` is measured
+    again, up to ``tries`` windows.  None when no window was whole or
+    the profiler recorded no device events."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        found = device_busy(prof)
+        if found is None:
+            return None
+        if all(n % reps == 0 for _, (n, _) in found[1]):
+            break
+    else:
+        return None
+    if only is None:
+        return found[0] / reps / 1e3
+    return sum(us for name, (_, us) in found[1] if only in name) / reps / 1e3
+
+
+def profiler_check(label: str, reps: int = 10) -> None:
+    """torch.profiler against CUDA events on one spin kernel of a fixed
+    cycle count (``torch.cuda._sleep``, ~1 ms): how many of ``reps``
+    launches the profiler recorded, and the factor by which its device
+    time (``device_ms``) reads at this point of the run."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    def spin():
+        torch.cuda._sleep(2_000_000)
+
+    ev = time_ms_b2b(spin, reps)
+    spin()
+    torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            fn()
+            spin()
         torch.cuda.synchronize()
     found = device_busy(prof)
-    return None if found is None else found[0] / reps / 1e3
+    if found is None:
+        print(f"profiler check ({label}): no device events recorded",
+              flush=True)
+        return
+    busy, by_name = found
+    seen = sum(n for _, (n, _) in by_name)
+    mean = sum(us for _, (_, us) in by_name) / seen / 1e3
+    print(f"profiler check ({label}): a spin kernel takes {ev:.4f} ms by "
+          f"CUDA events (back-to-back); torch.profiler recorded {seen} of "
+          f"{reps} launches of {mean:.5f} ms on average, a busy time of "
+          f"{busy / reps / 1e3:.5f} ms a call (ratio "
+          f"{busy / reps / 1e3 / ev:.4f})", flush=True)
 
 
 def _kernel_row(rows, name, shape, ms, plain_ms, bound_ms, bound_by,
@@ -698,6 +944,7 @@ def path_phase() -> tuple[dict, dict]:
         PowerSchedule,
         compile,
     )
+    from repro_torch.core.backend import get_backend
     from repro_torch.hw.edge40nm import EDGE40NM_DEFAULT as acc
     from repro_torch.kernels import dp_sweep as ks
     from repro_torch.models.edge_cnn import EDGE_NETWORKS, edge_network
@@ -711,10 +958,13 @@ def path_phase() -> tuple[dict, dict]:
         net, frac, n_rails, _ = key.split("|")
         jobs.append((net, float(frac), int(n_rails)))
 
+    io = get_backend(DEVICE).io_stats
+    io_before = dict(io)
     ks.reset_launch_counts()
     per_job = []
     for net, frac, n_rails in jobs:
         before = dict(ks.LAUNCHES)
+        passes = io["gather_calls"]
         tic = time.perf_counter()
         sched = compile(edge_network(net),
                         MinEnergy(rate_hz=frac * max_rate(net)),
@@ -723,11 +973,20 @@ def path_phase() -> tuple[dict, dict]:
                         network=net)
         wall = time.perf_counter() - tic
         launches = {k: ks.LAUNCHES[k] - before[k] for k in ks.LAUNCHES}
+        launches["gather passes"] = io["gather_calls"] - passes
         per_job.append((net, frac, n_rails, sched, wall, launches))
     counts = dict(ks.LAUNCHES)
     print(f"path launches: {json.dumps(counts)}", flush=True)
     for name, n in counts.items():
         check(n > 0, f"kernel {name} was not launched on the main path")
+    passes = io["gather_calls"] - io_before["gather_calls"]
+    groups = io["gather_groups"] - io_before["gather_groups"]
+    print(f"path gather: {passes} evaluation passes with fresh paths, "
+          f"{counts['path_components']} path_components launches "
+          f"({counts['path_components'] / passes:.3f} a pass), {groups} "
+          "groups (one launch each in the per-bucket design)", flush=True)
+    check(counts["path_components"] <= passes,
+          "path_components launched more than once in an evaluation pass")
 
     for net, frac, n_rails, sched, wall, launches in per_job:
         check(isinstance(sched, PowerSchedule),
@@ -817,6 +1076,11 @@ def _print_busy(label: str, prof, wall_us: float) -> None:
     for name, (n, us) in by_name[:8]:
         print(f"  device {n:6d} x {us / 1e3:10.3f} ms  {name[:90]}",
               flush=True)
+    # every copy, however small its share
+    for name, (n, us) in by_name:
+        if name.startswith("Memcpy"):
+            print(f"  copies {n:6d} x {us / 1e3:10.3f} ms  {name[:90]}",
+                  flush=True)
 
 
 def profile_phase(net: str) -> None:
@@ -956,7 +1220,9 @@ def parity_run(dtype: str) -> None:
     n_split = fd.decode_splits(
         cache, torch.cuda.get_device_properties(0).multi_processor_count)
     tic = time.perf_counter()
+    _reset_counts()
     lk, sk = prefill(params, cfg, {"tokens": toks}, cache)
+    prefill_counts = _counts()
     with plain_attention():
         lp, sp = prefill(params, cfg, {"tokens": toks}, cache)
     with plain_attention(n_split):
@@ -985,7 +1251,9 @@ def parity_run(dtype: str) -> None:
           f"max |dlogits| / max |logits| {worst!r} (limit {limit}); "
           f"floor (plain vs two-pass plain decode, {n_split} splits) "
           f"{floor!r}; identical greedy tokens {same}/{total}; wall "
-          f"{time.perf_counter() - tic:.3f} s", flush=True)
+          f"{time.perf_counter() - tic:.3f} s; kernel-path prefill "
+          f"launched flash_attention {prefill_counts['flash_attention']} "
+          "times", flush=True)
 
 
 def batch_run() -> None:
@@ -1121,30 +1389,52 @@ def int8_bound(m: int, k: int, n: int) -> tuple[float, str]:
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def clocks() -> str:
+    """The card's SM clock (now and max), power draw and temperature."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw,"
+         "temperature.gpu", "--format=csv,noheader"], capture_output=True,
+        text=True, check=True).stdout.strip()
+
+
 def int8_phase() -> list[dict]:
-    """The int8 kernel against its plain version (bit for bit) and the
-    library yardstick at INT8_SHAPES."""
+    """The int8 kernels against their plain version (bit for bit), w
+    row-major and K-major, with the route each took, and the library
+    yardstick at INT8_SHAPES; at M = 16384 the mma.sync route beside the
+    wgmma route, and what sets the CUDA-event time against the device
+    time (back-to-back calls, the output allocation, clocks)."""
     import torch
 
     from repro_torch.kernels import int8_matmul as im
 
     rows: dict[str, dict] = {}
     gen = torch.Generator(device=DEVICE).manual_seed(0)
+    routes_before = dict(im.ROUTE_LAUNCHES)
+    print(f"int8 clocks before (sm, max sm, power, temperature): "
+          f"{clocks()}", flush=True)
+    profiler_check("int8 phase")
     for m, k, n in INT8_SHAPES:
         x = torch.randint(-128, 128, (m, k), generator=gen, device=DEVICE,
                           dtype=torch.int8)
         w = torch.randint(-128, 128, (k, n), generator=gen, device=DEVICE,
                           dtype=torch.int8)
+        # the same w K-major (as int8_linear hands it over)
+        wk = w.t().contiguous().t()
         xs = torch.rand(m, generator=gen, device=DEVICE) * 1.5 + 0.5
         ws = torch.rand(n, generator=gen, device=DEVICE) * 1.5 + 0.5
-        got = im.int8_matmul(x, w, xs, ws)
         want = im.int8_matmul_plain(x, w, xs, ws)
-        torch.cuda.synchronize()
-        err = _max_abs_err(got, want)
         label = f"M={m} K={k} N={n}"
-        check(err == 0.0 and torch.equal(got.view(torch.int32),
-                                          want.view(torch.int32)),
-              f"int8_matmul != plain at {label}: max abs err {err}")
+        routes = {}
+        for layout, ww in (("row-major", w), ("K-major", wk)):
+            routes[layout] = im.int8_route(m, n, k, tuple(ww.stride()))
+            got = im.int8_matmul(x, ww, xs, ws)
+            torch.cuda.synchronize()
+            err = _max_abs_err(got, want)
+            check(err == 0.0 and torch.equal(got.view(torch.int32),
+                                              want.view(torch.int32)),
+                  f"int8_matmul (w {layout}, {routes[layout]}) != plain at "
+                  f"{label}: max abs err {err}")
+            del got
         lib_ms, lib_note = None, "none"
         # torch._int_mm takes M > 16 and K, N multiples of 8
         if m > 16 and k % 8 == 0 and n % 8 == 0:
@@ -1155,12 +1445,31 @@ def int8_phase() -> list[dict]:
             lib_note = f"max abs err vs plain {_max_abs_err(library(), want)}"
             lib_ms = time_ms(library)
         bound, by = int8_bound(m, k, n)
-        kernel = lambda: im.int8_matmul(x, w, xs, ws)  # noqa: E731
-        _kernel_row(rows, "int8_matmul", label, time_ms(kernel),
+        kernel = lambda: im.int8_matmul(x, wk, xs, ws)  # noqa: E731
+        row_major = lambda: im.int8_matmul(x, w, xs, ws)  # noqa: E731
+        _kernel_row(rows, "int8_matmul", f"{label} {routes['K-major']}",
+                    time_ms(kernel),
                     time_ms(lambda: im.int8_matmul_plain(x, w, xs, ws)),
                     bound, by, err, lib_ms, device_ms(kernel))
+        print(f"  w row-major -> {routes['row-major']}: "
+              f"{time_ms(row_major):9.4f} ms  device "
+              f"{_ms(device_ms(row_major))}", flush=True)
         print(f"  library (torch._int_mm + epilogue): {lib_note}",
               flush=True)
+        if m == 16384:
+            mma = lambda: im.int8_matmul_mma(x, w, xs, ws)  # noqa: E731
+            got = mma()
+            torch.cuda.synchronize()
+            check(torch.equal(got.view(torch.int32), want.view(torch.int32)),
+                  f"int8_matmul_mma != plain at {label}")
+            del got
+            print(f"  mma_sync route (w row-major): {time_ms(mma):9.4f} ms  "
+                  f"device {_ms(device_ms(mma))}  back-to-back "
+                  f"{time_ms_b2b(mma):9.4f} ms a call", flush=True)
+            print(f"  wgmma route (w K-major): back-to-back "
+                  f"{time_ms_b2b(kernel):9.4f} ms a call; the output's "
+                  f"torch.empty alone {time_ms(lambda: torch.empty((m, n), device=DEVICE)):9.4f} ms",
+                  flush=True)
         if (m, k, n) in INT8_LINEAR_SHAPES:
             # the int32 product alone, no epilogue; _int_mm takes M > 16,
             # so a 16-row x is zero-padded to 32 rows
@@ -1172,7 +1481,11 @@ def int8_phase() -> list[dict]:
                   f"{', rows zero-padded' if xp is not x else ''}): "
                   f"{time_ms(lambda: torch._int_mm(xp, w)):.4f} ms",
                   flush=True)
-        del x, w, got, want
+        del x, w, wk, want
+    print(f"int8 clocks after: {clocks()}", flush=True)
+    print(f"int8 route launches in the kernel phase: " + json.dumps(
+        {r: im.ROUTE_LAUNCHES[r] - routes_before[r]
+         for r in im.ROUTE_LAUNCHES}), flush=True)
     return list(rows.values())
 
 
@@ -1183,6 +1496,7 @@ def int8_path_phase() -> dict:
     import torch
 
     from repro_torch.kernels import int8_linear
+    from repro_torch.kernels import int8_matmul as im
 
     gen = torch.Generator(device=DEVICE).manual_seed(1)
     _reset_counts()
@@ -1206,10 +1520,18 @@ def int8_path_phase() -> dict:
               f"(float32) {rel!r}  wall {wall * 1e3:.3f} ms", flush=True)
         del x, w, out, ref
     counts = _counts()
-    print(f"int8 path launches: {json.dumps(counts)}", flush=True)
+    routes = dict(im.ROUTE_LAUNCHES)
+    print(f"int8 path launches: {json.dumps(counts)}; by route "
+          f"{json.dumps(routes)}", flush=True)
     check(counts["int8_matmul"] == len(INT8_LINEAR_SHAPES),
           f"int8_linear launched int8_matmul {counts['int8_matmul']} "
           f"times, expected {len(INT8_LINEAR_SHAPES)}")
+    # M = 16384 on wgmma, M = 16 on mma.sync, and w's codes K-major (no
+    # transpose pass)
+    want = {"wgmma": sum(m > 64 for m, _, _ in INT8_LINEAR_SHAPES),
+            "mma_sync": sum(m <= 64 for m, _, _ in INT8_LINEAR_SHAPES),
+            "w_transpose": 0}
+    check(routes == want, f"int8_linear routes {routes}, expected {want}")
     return counts
 
 
@@ -1329,13 +1651,25 @@ def policy_phase() -> None:
               f"{name} launched no DP kernel on the card")
 
 
+def sass_count(lib, op: str) -> int:
+    """Instructions of ``op`` (e.g. ``HGMMA``, ``IGMMA``: what ``wgmma``
+    compiles to for bf16 and int8) in a built library's SASS
+    (``cuobjdump -sass``)."""
+    from repro_torch.kernels._nvcc import nvcc
+
+    cuobjdump = pathlib.Path(nvcc()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(lib.path())],
+                          capture_output=True, text=True, check=True).stdout
+    return sum(f"{op}." in line for line in sass.splitlines())
+
+
 def build_all() -> None:
     """Build every kernel library, one ``nvcc`` per source, all started
     together, then load each; count the tensor-core product
-    instructions (``HGMMA``, what ``wgmma`` compiles to) in the bf16
-    attention library's SASS."""
+    instructions (``HGMMA`` and ``IGMMA``, what ``wgmma`` compiles to)
+    in the bf16 attention and the int8 libraries' SASS."""
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels._nvcc import nvcc
+    from repro_torch.kernels import int8_matmul as im
 
     libs = [m.LIBRARY for m in _kernel_modules()] + [fa.WGMMA_LIBRARY]
 
@@ -1351,14 +1685,11 @@ def build_all() -> None:
     for lib in libs:
         lib.load()
     print(f"build: all in {time.perf_counter() - tic:.2f} s", flush=True)
-    cuobjdump = pathlib.Path(nvcc()).with_name("cuobjdump")
-    sass = subprocess.run([str(cuobjdump), "-sass",
-                           str(fa.WGMMA_LIBRARY.path())], capture_output=True,
-                          text=True, check=True).stdout
-    n_hgmma = sum("HGMMA." in line for line in sass.splitlines())
-    print(f"sass: {fa.WGMMA_LIBRARY.path().name}: {n_hgmma} HGMMA "
-          "instructions", flush=True)
-    check(n_hgmma > 0, "the bf16 attention library holds no HGMMA")
+    for lib, op, what in ((fa.WGMMA_LIBRARY, "HGMMA", "bf16 attention"),
+                          (im.LIBRARY, "IGMMA", "int8")):
+        n = sass_count(lib, op)
+        print(f"sass: {lib.path().name}: {n} {op} instructions", flush=True)
+        check(n > 0, f"the {what} library holds no {op}")
 
 
 def sweep_kernels_only(k_best: int) -> int:
@@ -1366,6 +1697,7 @@ def sweep_kernels_only(k_best: int) -> int:
     kernel phase's rail-sweep rows and edges, profile one mobilevit-xxs
     compile after an unprofiled one, print the rows; no result line."""
     from repro_torch.core import MinEnergy, OrchestratorConfig, compile
+    from repro_torch.core.backend import get_backend
     from repro_torch.kernels import dp_sweep as ks
     from repro_torch.models.edge_cnn import edge_network
 
@@ -1376,12 +1708,15 @@ def sweep_kernels_only(k_best: int) -> int:
     rows = kernel_phase(k_best)
     net = KERNEL_SHAPES[0][0]
     ks.reset_launch_counts()
+    passes = get_backend(DEVICE).io_stats["gather_calls"]
     tic = time.perf_counter()
     compile(edge_network(net), MinEnergy(rate_hz=RATE_FRACTION
                                          * max_rate(net)),
             cfg=OrchestratorConfig(device=DEVICE), network=net)
     print(f"compile {net}: wall {time.perf_counter() - tic:.3f} s  "
-          f"launches {json.dumps(ks.LAUNCHES)}", flush=True)
+          f"launches {json.dumps(ks.LAUNCHES)}  gather passes "
+          f"{get_backend(DEVICE).io_stats['gather_calls'] - passes}",
+          flush=True)
     profile_phase(net)
     print(json.dumps({"kernels": rows}), flush=True)
     return 0
@@ -1423,10 +1758,14 @@ def main(argv: list[str]) -> int:
         return 2
 
     build_all()
+    profiler_check("start")
 
     tic = time.perf_counter()
     rows = kernel_phase(OrchestratorConfig().k_candidates)
     rows += attention_phase()
+    # the int8 kernel rows run here, early: late in the run torch.profiler
+    # drops more launches (profiler_check)
+    rows += int8_phase()
     print(f"phase kernels: {time.perf_counter() - tic:.3f} s", flush=True)
     tic = time.perf_counter()
     counts, walls = path_phase()
@@ -1434,7 +1773,6 @@ def main(argv: list[str]) -> int:
     print(f"phase path: {time.perf_counter() - tic:.3f} s", flush=True)
     serve_counts = serve_phase()
     tic = time.perf_counter()
-    rows += int8_phase()
     int8_counts = int8_path_phase()
     print(f"phase int8: {time.perf_counter() - tic:.3f} s", flush=True)
     tic = time.perf_counter()
@@ -1445,6 +1783,7 @@ def main(argv: list[str]) -> int:
         row["launches"] = (serve_counts if name.startswith("flash")
                            else int8_counts if name == "int8_matmul"
                            else counts)[name]
+    profiler_check("end")
     print(f"compile walls (s): {json.dumps(walls)}", flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {

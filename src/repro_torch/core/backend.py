@@ -15,16 +15,20 @@ once, when first admitted; newly admitted lanes go up as one block per
 tensor; the mirror's capacity has a floor of 64 lanes and grows by
 copying on the device.  A sweep round then moves only its weight rows
 and lane indices to the device and only paths and gathered cost
-components back.
+components back: each lane call stages its host operands as ONE pinned
+packet (one non-blocking copy up) and brings its result back in ONE
+non-blocking copy whose end a CUDA event marks, and an evaluation pass
+gathers the paths of every bucket in one launch
+(:meth:`TorchBackend.path_costs_grouped`).
 
 **The device is explicit.**  ``TorchBackend("cuda")`` raises when no
 card is present; it never carries on silently on the CPU.  On
 ``TorchBackend("cpu")`` the mirror holds CPU tensors and every kernel
 wrapper takes its plain PyTorch version; on CUDA the lane calls always
 launch the kernels.  Lane calls with ``defer=True`` return a
-:class:`PendingResult` whose :meth:`~PendingResult.get` copies the
-result to the host, so the round scheduler launches a whole round
-before its first barrier.
+:class:`PendingResult` whose :meth:`~PendingResult.get` waits for the
+result's copy to the host, so the round scheduler launches a whole
+round before its first barrier.
 
 Padding convention (:class:`PaddedArrays`): op costs are padded with 0
 and carry a ``valid`` mask; kernels mask *after* applying the λ
@@ -47,7 +51,8 @@ import torch
 from repro_torch.kernels.dp_sweep import (
     dp_multi_stacked,
     kbest_multi_stacked,
-    path_components,
+    path_components_grouped,
+    split_components,
 )
 
 
@@ -301,10 +306,10 @@ class StackCaches:
 
 
 class PendingResult:
-    """Handle to an in-flight backend result.  The kernel was already
-    launched when the handle was made; :meth:`get` copies — and
-    memoizes — the host value, and THAT is the blocking round
-    barrier."""
+    """Handle to an in-flight backend result.  The kernel and its copy
+    to the host were already issued when the handle was made; :meth:`get`
+    waits for them and memoizes the host value, and THAT is the
+    blocking round barrier."""
 
     __slots__ = ("_fn", "_value", "_done")
 
@@ -430,10 +435,10 @@ class TorchBackend:
     """The solver kernels on one torch device (see module docstring).
 
     The lane entry points (``dp_multi_lanes``, ``kbest_multi_lanes``,
-    ``path_costs_lanes``) read their operands from the device mirror of
-    a :class:`BucketStack`.  The non-stacked ``dp_multi``,
-    ``kbest_multi`` and ``path_costs`` run the same kernels on a
-    one-lane copy of a problem's padded tensors.
+    ``path_costs_lanes`` and ``path_costs_grouped``) read their operands
+    from the device mirror of a :class:`BucketStack`.  The non-stacked
+    ``dp_multi``, ``kbest_multi`` and ``path_costs`` run the same
+    kernels on a one-lane copy of a problem's padded tensors.
     """
 
     name = "torch"
@@ -463,11 +468,53 @@ class TorchBackend:
         # host→device traffic and launch accounting of the lane path
         # (stats only, so no lock)
         self.io_stats = {"h2d_lane_uploads": 0, "h2d_lane_bytes": 0,
-                         "kernel_dispatches": 0}
+                         "kernel_dispatches": 0, "gather_calls": 0,
+                         "gather_groups": 0}
 
     def _put(self, arr: np.ndarray, dtype=None) -> torch.Tensor:
         arr = np.ascontiguousarray(arr, dtype=dtype)
         return torch.from_numpy(arr).to(self.device)
+
+    def _stage(self, *arrays: np.ndarray) -> list[torch.Tensor]:
+        """Host arrays of 8-byte elements (int64 / float64) to the
+        device as ONE packet: one pinned buffer from PyTorch's caching
+        host allocator (a new one per call, so a buffer still in flight
+        is never reused) and one non-blocking copy.  Returns a device
+        view of each array, of its dtype and shape."""
+        flat = [np.ascontiguousarray(a).reshape(-1) for a in arrays]
+        cuda = self.device.type == "cuda"
+        packet = torch.empty(sum(a.size for a in flat), dtype=torch.int64,
+                             pin_memory=cuda)
+        host = packet.numpy()
+        off = 0
+        for a in flat:
+            host[off:off + a.size] = a.view(np.int64)
+            off += a.size
+        if cuda:
+            packet = packet.to(self.device, non_blocking=True)
+        views, off = [], 0
+        for a, orig in zip(flat, arrays):
+            views.append(packet[off:off + a.size]
+                         .view(TORCH_DTYPES[a.dtype]).view(orig.shape))
+            off += a.size
+        return views
+
+    def _fetch(self, dev: torch.Tensor, finish) -> PendingResult:
+        """ONE non-blocking copy of ``dev`` into pinned host memory; a
+        CUDA event marks its end, and :meth:`PendingResult.get` waits on
+        that event, then returns ``finish(host numpy array)``."""
+        if self.device.type != "cuda":
+            return PendingResult(lambda: finish(dev.numpy()))
+        host = torch.empty(dev.shape, dtype=dev.dtype, pin_memory=True)
+        host.copy_(dev, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record(torch.cuda.current_stream(self.device))
+
+        def get():
+            done.synchronize()
+            return finish(host.numpy())
+
+        return PendingResult(get)
 
     # -- the device mirror --------------------------------------------
 
@@ -507,12 +554,12 @@ class TorchBackend:
             m.n = store.n
             return m
 
-    def _lane_index(self, store: BucketStack,
-                    lanes: Sequence[int]) -> torch.Tensor:
+    @staticmethod
+    def _lanes_of(store: BucketStack, lanes: Sequence[int]) -> np.ndarray:
         idx = np.asarray(lanes, dtype=np.int64)
         if idx.size and (idx.min() < 0 or idx.max() >= store.n):
             raise IndexError(f"lane index out of range [0, {store.n})")
-        return self._put(idx)
+        return idx
 
     # -- lane entry points (the round scheduler's hot path) -----------
 
@@ -520,15 +567,17 @@ class TorchBackend:
                        w_e: np.ndarray, w_t: np.ndarray, *,
                        defer: bool = False):
         """Stacked multi-λ DP over resident lanes of ``store``: ``w_e,
-        w_t [B, K]`` → ``[B, K, L]`` int64 states.  With ``defer=True``
-        returns a :class:`PendingResult` (the kernel is launched now,
-        the host copy happens at ``get()``)."""
+        w_t [B, K]`` → ``[B, K, L]`` int64 states.  Lanes and weights go
+        up as one packet, the states come down in one copy.  With
+        ``defer=True`` returns a :class:`PendingResult` (the kernel is
+        launched now, the host waits at ``get()``)."""
+        idx = self._lanes_of(store, lanes)
         m = self._mirror(store)
-        out = dp_multi_stacked(*m.arrays[:5], self._lane_index(store, lanes),
-                               self._put(w_e, np.float64),
-                               self._put(w_t, np.float64))
+        ln, we, wt = self._stage(idx, np.asarray(w_e, np.float64),
+                                 np.asarray(w_t, np.float64))
+        out = dp_multi_stacked(*m.arrays[:5], ln, we, wt)
         self.io_stats["kernel_dispatches"] += 1
-        pend = PendingResult(lambda: out.cpu().numpy().astype(np.int64))
+        pend = self._fetch(out, lambda a: a.astype(np.int64))
         return pend if defer else pend.get()
 
     def kbest_multi_lanes(self, store: BucketStack,
@@ -536,39 +585,83 @@ class TorchBackend:
                           k: int, *, defer: bool = False):
         """Stacked multi-μ k-best frontier over resident lanes: ``mus
         [B, K]`` → ``(paths [B, K, k, L], counts [B, K])`` int64 (see
-        :meth:`dp_multi_lanes` for the defer contract)."""
+        :meth:`dp_multi_lanes` for the staging and defer contract)."""
+        idx = self._lanes_of(store, lanes)
         m = self._mirror(store)
-        paths, counts = kbest_multi_stacked(
-            *m.arrays[:5], self._lane_index(store, lanes),
-            self._put(mus, np.float64), k)
+        ln, mu = self._stage(idx, np.asarray(mus, np.float64))
+        B, K = mu.shape
+        L = m.arrays[0].shape[1]
+        n_paths = B * K * k * L
+        out = torch.empty(n_paths + B * K, dtype=torch.int32,
+                          device=self.device)
+        kbest_multi_stacked(*m.arrays[:5], ln, mu, k, out=out)
         self.io_stats["kernel_dispatches"] += 1
-        pend = PendingResult(lambda: (
-            paths.cpu().numpy().astype(np.int64),
-            counts.cpu().numpy().astype(np.int64)))
+        pend = self._fetch(out, lambda a: (
+            a[:n_paths].reshape(B, K, k, L).astype(np.int64),
+            a[n_paths:].reshape(B, K).astype(np.int64)))
         return pend if defer else pend.get()
 
     def path_costs_lanes(self, store: BucketStack, lanes: np.ndarray,
                          paths: np.ndarray, *, defer: bool = False):
         """Summed cost components of paths on resident lanes (global
-        stack slots).  The kernel gathers per-layer components; the sums
-        happen on the host with ``np.sum``, in numpy's order."""
-        lanes = np.asarray(lanes, dtype=np.int64)
-        paths = np.asarray(paths, dtype=np.int64)
-        L, S = store._t_op.shape[1], store._t_op.shape[2]
-        if L == 1:
-            # no transition components to gather: host sums only
-            out = _sum_stacked(store.view(), lanes, paths)
+        stack slots): a one-group :meth:`path_costs_grouped`."""
+        pend = self.path_costs_grouped([(store, lanes, paths)], defer=True)
+        one = PendingResult(lambda: pend.get()[0])
+        return one if defer else one.get()
+
+    def path_costs_grouped(self, groups, *, defer: bool = False):
+        """Summed cost components of the paths of several groups, each
+        ``(store, lanes [P], paths [P, L])`` on resident lanes of its own
+        store, in ONE gather launch: lanes, paths and each group's
+        descriptor go up as one packet, the five component blocks of
+        every group come down in one copy, and the sums happen on the
+        host with ``np.sum`` over C-contiguous ``[P, L]`` rows, in
+        numpy's order.  A group's costs do not depend on the groups
+        beside it.  Groups with ``L == 1`` (nothing to gather) or no
+        paths are summed on the host.  Returns one dict a group (see
+        :func:`host_path_costs` for its keys)."""
+        done: dict[int, dict] = {}
+        launch = []
+        for g, (store, lanes, paths) in enumerate(groups):
+            lanes = self._lanes_of(store, lanes)
+            paths = np.asarray(paths, dtype=np.int64)
+            L, S = store._t_op.shape[1], store._t_op.shape[2]
+            if paths.shape != (len(lanes), L):
+                raise ValueError(f"path_costs: paths must be [P, {L}] for "
+                                 f"{len(lanes)} lanes, got {paths.shape}")
+            if paths.size and (paths.min() < 0 or paths.max() >= S):
+                raise IndexError(f"path state index out of range [0, {S})")
+            if L == 1 or not len(lanes):
+                done[g] = _sum_stacked(store.view(), lanes, paths)
+            else:
+                launch.append((g, store, lanes, paths))
+        if not launch:
+            out = [done[g] for g in range(len(groups))]
             return PendingResult.ready(out) if defer else out
-        if paths.size and (paths.min() < 0 or paths.max() >= S):
-            raise IndexError(f"path state index out of range [0, {S})")
-        m = self._mirror(store)
-        t_op, e_op, _, t_trans, e_trans, switch = m.arrays
-        comps = path_components(self._lane_index(store, lanes),
-                                self._put(paths), t_op, e_op, t_trans,
-                                e_trans, switch)
+        # every store is synced before any descriptor is read
+        mirrors = [self._mirror(store).arrays for _, store, _, _ in launch]
+        pend = self._gather([((m[0], m[1], m[3], m[4], m[5]), lanes, paths)
+                             for (_, _, lanes, paths), m
+                             in zip(launch, mirrors)])
+
+        def merge() -> list[dict]:
+            for (g, *_), sums in zip(launch, pend.get()):
+                done[g] = sums
+            return [done[g] for g in range(len(groups))]
+
+        res = PendingResult(merge)
+        return res if defer else res.get()
+
+    def _gather(self, jobs) -> PendingResult:
+        """ONE grouped gather launch over ``jobs`` ``(mirror, lanes,
+        paths)``; the result is the host sums of each job."""
+        mirrors, lanes, paths = zip(*jobs)
+        out, layout = path_components_grouped(mirrors, lanes, paths)
         self.io_stats["kernel_dispatches"] += 1
-        pend = PendingResult(lambda: _sum_components(comps))
-        return pend if defer else pend.get()
+        self.io_stats["gather_calls"] += 1
+        self.io_stats["gather_groups"] += len(jobs)
+        return self._fetch(out, lambda host: [
+            _sum_components(c) for c in split_components(host, layout)])
 
     # -- non-stacked entry points: the same kernels with B = 1 --------
 
@@ -586,10 +679,11 @@ class TorchBackend:
         """Best path per weight pair ``(w_e[k], w_t[k])`` on one
         problem: ``[K, L]`` int64 states."""
         dev = self._padded_dev(padded)
-        out = dp_multi_stacked(*dev[:5], self._put(np.zeros(1, np.int64)),
-                               self._put(np.asarray(w_e, float)[None]),
-                               self._put(np.asarray(w_t, float)[None]))
-        return out[0].cpu().numpy().astype(np.int64)
+        ln, we, wt = self._stage(np.zeros(1, np.int64),
+                                 np.asarray(w_e, np.float64)[None],
+                                 np.asarray(w_t, np.float64)[None])
+        out = dp_multi_stacked(*dev[:5], ln, we, wt)
+        return self._fetch(out, lambda a: a[0].astype(np.int64)).get()
 
     def kbest_multi(self, padded: PaddedArrays, mus: np.ndarray,
                     k: int) -> tuple[np.ndarray, np.ndarray]:
@@ -597,35 +691,37 @@ class TorchBackend:
         counts [K])`` int64; rows past ``counts[q]`` carry no
         meaning."""
         dev = self._padded_dev(padded)
-        paths, counts = kbest_multi_stacked(
-            *dev[:5], self._put(np.zeros(1, np.int64)),
-            self._put(np.asarray(mus, float)[None]), k)
-        return (paths[0].cpu().numpy().astype(np.int64),
-                counts[0].cpu().numpy().astype(np.int64))
+        ln, mu = self._stage(np.zeros(1, np.int64),
+                             np.asarray(mus, np.float64)[None])
+        K, L = mu.shape[1], padded.n_layers
+        out = torch.empty(K * (k * L + 1), dtype=torch.int32,
+                          device=self.device)
+        kbest_multi_stacked(*dev[:5], ln, mu, k, out=out)
+        return self._fetch(out, lambda a: (
+            a[:K * k * L].reshape(K, k, L).astype(np.int64),
+            a[K * k * L:].astype(np.int64))).get()
 
     def path_costs(self, problem, paths: np.ndarray
                    ) -> dict[str, np.ndarray]:
         """Summed per-path cost components on one problem's padded
-        tensors (gathered by the kernel, summed on the host)."""
+        tensors: a one-group gather (summed on the host)."""
         padded = problem.padded_arrays()
         paths = np.asarray(paths, dtype=np.int64)
-        if padded.n_layers == 1:
-            return _sum_stacked(_single_lane(padded),
-                                np.zeros(len(paths), np.int64), paths)
+        lanes = np.zeros(len(paths), np.int64)
+        if padded.n_layers == 1 or not len(paths):
+            return _sum_stacked(_single_lane(padded), lanes, paths)
         t_op, e_op, _, t_trans, e_trans, switch = self._padded_dev(padded)
-        comps = path_components(self._put(np.zeros(len(paths), np.int64)),
-                                self._put(paths), t_op, e_op, t_trans,
-                                e_trans, switch)
-        return _sum_components(comps)
+        return self._gather([((t_op, e_op, t_trans, e_trans, switch),
+                              lanes, paths)]).get()[0]
 
 
 def _sum_components(comps) -> dict[str, np.ndarray]:
     """Host sums of gathered per-layer components — ``np.sum`` over
     C-contiguous [P, L] rows, the reference's exact summation."""
-    t, e, tt, et, sw = (c.cpu().numpy() for c in comps)
+    t, e, tt, et, sw = comps
     return {"t_op": t.sum(axis=1), "e_op": e.sum(axis=1),
             "t_trans": tt.sum(axis=1), "e_trans": et.sum(axis=1),
-            "n_switch": sw.sum(axis=1).astype(np.int64)}
+            "n_switch": sw.sum(axis=1)}
 
 
 # -------------------------------------------------------- registry

@@ -420,9 +420,10 @@ def run_stacked_sweeps(
          their resident lanes of one :class:`BucketStack`; refinement
          move scoring runs on the host over the store's view;
       2. **evaluation phase** — the fresh candidate paths of every task
-         in a bucket are concatenated and costed with one
-         ``path_costs_lanes`` gather; the deadline/idle finishing math
-         then runs per ``(t_max, idle)`` subgroup;
+         in a bucket are concatenated into one group, and every bucket's
+         group is costed in ONE ``path_costs_grouped`` gather per pass;
+         the deadline/idle finishing math then runs per ``(t_max,
+         idle)`` subgroup;
       3. **bookkeeping phase** — finished tasks are finalized into
          their sweep (ceiling / incumbent / λ*-hint updates), and each
          sweep admits new subsets from its enumeration-ordered queue.
@@ -514,10 +515,11 @@ def run_stacked_sweeps(
                                   mv_state[off:off + n],
                                   mv_gain[off:off + n])
                     off += n
-        # -- evaluation phase: ONE cost gather per bucket for every fresh
-        # path of the round, then advance each machine.  Machines whose
-        # next request is evaluation-only are served again within the
-        # same round, so pure-eval rounds never exist.
+        # -- evaluation phase: ONE cost gather per pass, a group per
+        # bucket, for every fresh path of the round, then advance each
+        # machine.  Machines whose next request is evaluation-only are
+        # served again within the same round, so pure-eval rounds never
+        # exist.
         todo = active
         while todo:
             fresh = {t.uid: t.take_kernel(raw.pop(t.uid, None))
@@ -528,7 +530,8 @@ def run_stacked_sweeps(
                     fin = (t.problem.t_max, t.problem.idle)
                     by_bucket.setdefault(t.bucket_sig, {}) \
                         .setdefault(fin, []).append(t)
-            evals: list[tuple[dict, np.ndarray, PendingResult]] = []
+            evals: list[tuple[dict, np.ndarray]] = []
+            gather: list[tuple] = []
             for fin_groups in by_bucket.values():
                 need = [t for sub in fin_groups.values() for t in sub]
                 lanes = np.concatenate(
@@ -536,11 +539,11 @@ def run_stacked_sweeps(
                      for t in need])
                 paths = np.concatenate([fresh[t.uid] for t in need])
                 fleet["stacked_calls"] += 1
-                pend = bk.path_costs_lanes(need[0].lane_store, lanes,
-                                           paths, defer=True)
-                evals.append((fin_groups, paths, pend))
-            for fin_groups, paths, pend in evals:   # round barrier
-                costs = pend.get()
+                gather.append((need[0].lane_store, lanes, paths))
+                evals.append((fin_groups, paths))
+            # the pass's barrier
+            costs_all = bk.path_costs_grouped(gather) if gather else []
+            for (fin_groups, paths), costs in zip(evals, costs_all):
                 # the deadline/idle finishing math is shared per
                 # (t_max, idle) subgroup — one vectorized pass each,
                 # row-identical to per-task evaluation

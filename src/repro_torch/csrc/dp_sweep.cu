@@ -9,7 +9,8 @@
 //
 //   pfdnn_dp_multi         <- dp_multi_stacked_pallas     (dp_kernel)
 //   pfdnn_kbest_multi      <- kbest_multi_stacked_pallas  (kbest_kernel)
-//   pfdnn_path_components  <- path_components_pallas     (gather_kernel)
+//   pfdnn_path_components_grouped <- path_components_pallas
+//                                    (gather_grouped_kernel)
 //
 // Bit-identity with the numpy reference rests on three rules:
 //   * every product and sum is rounded on its own (__dmul_rn /
@@ -95,6 +96,18 @@ constexpr int NSTAGE = 3;                    // staged tiles in flight
 constexpr int DP_THREADS = 256;
 constexpr int KB_THREADS = 512;
 constexpr unsigned FULL = 0xffffffffu;
+// the grouped gather: threads a block, and the int64 words of a group's
+// descriptor in its packet (kernels/dp_sweep.py packs them; keep the
+// two in step)
+constexpr int GATHER_THREADS = 256;
+enum GatherDesc {
+    GD_T_OP, GD_E_OP, GD_T_TRANS, GD_E_TRANS, GD_SWITCH,  // device pointers
+    GD_L, GD_S, GD_P,
+    GD_LANES, GD_PATHS,     // word offsets of its lanes and paths in the packet
+    GD_NODE, GD_TRANS,      // element offsets of its rows in the output blocks
+    GD_BLOCK,               // its first block
+    GD_WORDS = 16
+};
 
 // ------------------------------------------------------------ staging
 
@@ -814,36 +827,59 @@ kbest_kernel(const double* __restrict__ t_op,
     }
 }
 
-// One thread per (path, layer).
-__global__ void gather_kernel(const int64_t* __restrict__ lanes,
-                              const int64_t* __restrict__ path_idx,
-                              const double* __restrict__ t_op,
-                              const double* __restrict__ e_op,
-                              const double* __restrict__ t_trans,
-                              const double* __restrict__ e_trans,
-                              const int64_t* __restrict__ sw,
-                              double* __restrict__ t_out,
-                              double* __restrict__ e_out,
-                              double* __restrict__ tt_out,
-                              double* __restrict__ et_out,
-                              int64_t* __restrict__ sw_out,
-                              int P, int L, int S) {
-    const int64_t g = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (g >= (int64_t)P * L) return;
-    const int64_t p = g / L;
-    const int l = (int)(g % L);
-    const int64_t lane = lanes[p];
-    const int64_t s = path_idx[g];
+// The grouped gather: one launch covers every group of an evaluation
+// pass, each group P paths on lanes of its own mirror (its own L and S).
+// The packet (int64 words, uploaded in one copy) holds one descriptor a
+// group (GD_* below), then every group's lanes, then every group's
+// paths ([P, L] each).  A block takes GATHER_THREADS consecutive
+// elements of one group's [P, L] rows (its group is the last whose
+// first block is <= blockIdx.x), a thread one (path, layer): neighbour
+// threads take neighbour layers of one path, so the path reads and the
+// output writes are coalesced.  The output is five blocks, t_op and
+// e_op of n_node elements, then t_trans, e_trans and switch (int64
+// bits) of n_trans; a group's rows sit at its node and transition
+// offsets in each, C-contiguous.  It is bound by bytes (each gathered
+// value read once and written once: ~3 µs of device time for 512 paths
+// of 70 layers on an H100), so a pass's cost is its launch and its two
+// copies; hence one launch, one packet up and one buffer down a pass.
+__global__ void gather_grouped_kernel(const int64_t* __restrict__ packet,
+                                      int G, double* __restrict__ out,
+                                      int64_t n_node, int64_t n_trans) {
+    int lo = 0, hi = G - 1;
+    while (lo < hi) {
+        const int mid = (lo + hi + 1) / 2;
+        if (packet[(size_t)mid * GD_WORDS + GD_BLOCK] <= (int64_t)blockIdx.x)
+            lo = mid;
+        else
+            hi = mid - 1;
+    }
+    const int64_t* d = packet + (size_t)lo * GD_WORDS;
+    const int64_t L = d[GD_L], S = d[GD_S], P = d[GD_P];
+    const int64_t e = ((int64_t)blockIdx.x - d[GD_BLOCK]) * GATHER_THREADS
+                      + threadIdx.x;
+    if (e >= P * L) return;
+    const double* t_op = reinterpret_cast<const double*>(d[GD_T_OP]);
+    const double* e_op = reinterpret_cast<const double*>(d[GD_E_OP]);
+    const int64_t p = e / L;
+    const int64_t l = e - p * L;
+    const int64_t lane = packet[d[GD_LANES] + p];
+    const int64_t* path = packet + d[GD_PATHS];
+    const int64_t s = path[e];
     const size_t o = ((size_t)lane * L + l) * S + s;
-    t_out[g] = t_op[o];
-    e_out[g] = e_op[o];
+    const int64_t on = d[GD_NODE] + e;
+    out[on] = t_op[o];
+    out[n_node + on] = e_op[o];
     if (l < L - 1) {
-        const int64_t s2 = path_idx[g + 1];
+        const double* t_trans = reinterpret_cast<const double*>(d[GD_T_TRANS]);
+        const double* e_trans = reinterpret_cast<const double*>(d[GD_E_TRANS]);
+        const int64_t* sw = reinterpret_cast<const int64_t*>(d[GD_SWITCH]);
+        const int64_t s2 = path[e + 1];
         const size_t ot = (((size_t)lane * (L - 1) + l) * S + s) * S + s2;
-        const size_t oo = (size_t)p * (L - 1) + l;
-        tt_out[oo] = t_trans[ot];
-        et_out[oo] = e_trans[ot];
-        sw_out[oo] = sw[ot];
+        const int64_t oo = d[GD_TRANS] + p * (L - 1) + l;
+        double* tt = out + 2 * n_node;
+        tt[oo] = t_trans[ot];
+        tt[n_trans + oo] = e_trans[ot];
+        reinterpret_cast<int64_t*>(tt + 2 * n_trans)[oo] = sw[ot];
     }
 }
 
@@ -1072,18 +1108,16 @@ int pfdnn_kbest_multi(const double* t_op, const double* e_op,
     return (int)err;
 }
 
-int pfdnn_path_components(const int64_t* lanes, const int64_t* paths,
-                          const double* t_op, const double* e_op,
-                          const double* t_trans, const double* e_trans,
-                          const int64_t* sw, double* t_out, double* e_out,
-                          double* tt_out, double* et_out, int64_t* sw_out,
-                          int P, int L, int S, void* stream) {
-    const int threads = 256;
-    const int64_t n = (int64_t)P * L;
-    const int blocks = (int)((n + threads - 1) / threads);
-    gather_kernel<<<blocks, threads, 0, (cudaStream_t)stream>>>(
-        lanes, paths, t_op, e_op, t_trans, e_trans, sw, t_out, e_out, tt_out,
-        et_out, sw_out, P, L, S);
+// packet: G descriptors, lanes and paths (see gather_grouped_kernel),
+// resident on the device; blocks = the sum over groups of
+// ceil(P * L / GATHER_THREADS), each group's first block in GD_BLOCK
+int pfdnn_path_components_grouped(const int64_t* packet, int G, int blocks,
+                                  double* out, int64_t n_node,
+                                  int64_t n_trans, void* stream) {
+    if (G < 1 || blocks < 1) return (int)cudaErrorInvalidValue;
+    gather_grouped_kernel<<<blocks, GATHER_THREADS, 0,
+                            (cudaStream_t)stream>>>(packet, G, out, n_node,
+                                                    n_trans);
     return (int)cudaGetLastError();
 }
 

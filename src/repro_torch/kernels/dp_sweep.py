@@ -3,7 +3,9 @@ CUDA kernels (``repro_torch/csrc/dp_sweep.cu``).
 
 Each wrapper takes the lane tensors of a device mirror (``[cap, L, S]``
 node tensors, ``[cap, L-1, S, S]`` transition tensors) plus the lane
-indices of one call, so lanes are gathered inside the kernel:
+indices of one call, so lanes are gathered inside the kernel (the
+grouped gather takes several mirrors, and its lanes and paths on the
+host):
 
   - :func:`dp_multi_stacked` — stacked multi-λ Viterbi DP → best-path
     states ``[B, K, L]`` int32 (replaces ``dp_multi_stacked_pallas``);
@@ -11,9 +13,11 @@ indices of one call, so lanes are gathered inside the kernel:
     ``(paths [B, K, k, L], counts [B, K])`` int32 (replaces
     ``kbest_multi_stacked_pallas``); rows past ``counts`` carry no
     contract;
-  - :func:`path_components` — per-layer cost components of P paths
-    (replaces ``path_components_pallas``); the caller sums them on the
-    host with ``np.sum`` so the totals keep numpy's summation order.
+  - :func:`path_components_grouped` — per-layer cost components of the
+    paths of several groups, each on lanes of its own mirror, in one
+    launch (replaces ``path_components_pallas``); the caller sums them
+    on the host with ``np.sum`` so the totals keep numpy's summation
+    order.
 
 On a tensor that lies on the CPU a wrapper computes its plain PyTorch
 float64 version (the ``*_plain`` functions beside it).  On a CUDA
@@ -27,7 +31,9 @@ The kernels are built at first use with ``nvcc`` for ``sm_90a`` into
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 
+import numpy as np
 import torch
 
 from repro_torch.kernels._nvcc import (
@@ -63,9 +69,10 @@ def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pfdnn_dp_multi.argtypes = [p] * 10 + [i] * 4 + [p]
     lib.pfdnn_kbest_multi.argtypes = [p] * 10 + [i] * 5 + [p]
-    lib.pfdnn_path_components.argtypes = [p] * 12 + [i] * 3 + [p]
+    i64 = ctypes.c_int64
+    lib.pfdnn_path_components_grouped.argtypes = [p, i, i, p, i64, i64, p]
     for fn in (lib.pfdnn_dp_multi, lib.pfdnn_kbest_multi,
-               lib.pfdnn_path_components):
+               lib.pfdnn_path_components_grouped):
         fn.restype = ctypes.c_int
 
 
@@ -197,11 +204,15 @@ def dp_multi_stacked_plain(t_op, e_op, valid, t_trans, e_trans, lanes,
 # ------------------------------------------------------------ k-best
 
 def kbest_multi_stacked(t_op, e_op, valid, t_trans, e_trans, lanes, mus,
-                        k: int) -> tuple[torch.Tensor, torch.Tensor]:
+                        k: int, out: torch.Tensor | None = None
+                        ) -> tuple[torch.Tensor, torch.Tensor]:
     """k best paths per (lane, μ) under node ``e_op + μ·t_op`` and edge
     ``e_trans + μ·t_trans``, in stable ``(value, flat index)`` order →
     ``(paths [B, K, k, L], counts [B, K])`` int32, ``counts =
-    min(k, #finite)``."""
+    min(k, #finite)``.  With ``out`` (a contiguous int32 tensor of
+    ``B·K·(k·L + 1)`` elements on the kernel's device) both are written
+    into it, paths first, and returned as views of it, so a caller can
+    bring them to the host in one copy."""
     dev = _check("kbest_multi_stacked",
                  dict(t_op=t_op, e_op=e_op, valid=valid, t_trans=t_trans,
                       e_trans=e_trans, lanes=lanes, mus=mus),
@@ -212,16 +223,26 @@ def kbest_multi_stacked(t_op, e_op, valid, t_trans, e_trans, lanes, mus,
     if lanes.shape != (B,) or k < 1:
         raise ValueError("kbest_multi_stacked: lanes [B], mus [B, K], "
                          "k >= 1")
-    if dev.type == "cpu":
-        return kbest_multi_stacked_plain(t_op, e_op, valid, t_trans,
-                                         e_trans, lanes, mus, k)
     _, L, S = t_op.shape
+    if out is None:
+        out = torch.empty(B * K * (k * L + 1), dtype=_I32, device=dev)
+    if (out.dtype != _I32 or out.device != dev or not out.is_contiguous()
+            or out.numel() != B * K * (k * L + 1)):
+        raise ValueError("kbest_multi_stacked: out must be a contiguous "
+                         f"int32 tensor of {B * K * (k * L + 1)} elements "
+                         f"on {dev}")
+    paths = out[:B * K * k * L].view(B, K, k, L)
+    counts = out[B * K * k * L:].view(B, K)
+    if dev.type == "cpu":
+        plain = kbest_multi_stacked_plain(t_op, e_op, valid, t_trans,
+                                          e_trans, lanes, mus, k)
+        paths.copy_(plain[0])
+        counts.copy_(plain[1])
+        return paths, counts
     smem = kbest_min_smem(S, k)
     if smem > _MAX_SMEM:
         raise ValueError(f"kbest_multi_stacked: S={S}, k={k} needs {smem} "
                          f"bytes of shared memory (> {_MAX_SMEM})")
-    paths = torch.empty((B, K, k, L), dtype=_I32, device=dev)
-    counts = torch.empty((B, K), dtype=_I32, device=dev)
     if B * K == 0:
         return paths, counts
     back = torch.empty((B, K, max(L - 1, 0), k, S), dtype=_I32, device=dev)
@@ -290,53 +311,174 @@ def kbest_multi_stacked_plain(t_op, e_op, valid, t_trans, e_trans, lanes,
 
 # ------------------------------------------------------------ gather
 
-def path_components(lanes, paths, t_op, e_op, t_trans, e_trans, switch
-                    ) -> tuple[torch.Tensor, ...]:
-    """Per-layer components of P paths on lanes of one mirror: ``lanes
-    [P]``, ``paths [P, L]`` int64 → ``(t_op [P, L], e_op [P, L],
-    t_trans [P, L-1], e_trans [P, L-1], switch [P, L-1])``.  Needs
-    ``L >= 2``; indices must lie in range (the caller checks them on
-    the host)."""
-    dev = _check("path_components",
-                 dict(lanes=lanes, paths=paths, t_op=t_op, e_op=e_op,
-                      t_trans=t_trans, e_trans=e_trans, switch=switch),
-                 dict(lanes=_I64, paths=_I64, t_op=_F64, e_op=_F64,
-                      t_trans=_F64, e_trans=_F64, switch=_I64))
-    cap, L, S = t_op.shape
-    P = paths.shape[0]
-    if L < 2 or paths.shape != (P, L) or lanes.shape != (P,):
-        raise ValueError("path_components: L >= 2, lanes [P], paths "
-                         "[P, L]")
-    want = (cap, L - 1, S, S)
-    for name, t in (("t_trans", t_trans), ("e_trans", e_trans),
-                    ("switch", switch)):
-        if tuple(t.shape) != want:
-            raise ValueError(f"path_components: {name} must be {want}")
+#: int64 words of one group's descriptor in a grouped gather's packet,
+#: and the word of each field (``GatherDesc`` in ``csrc/dp_sweep.cu``)
+GD_WORDS = 16
+(GD_T_OP, GD_E_OP, GD_T_TRANS, GD_E_TRANS, GD_SWITCH, GD_L, GD_S, GD_P,
+ GD_LANES, GD_PATHS, GD_NODE, GD_TRANS, GD_BLOCK) = range(13)
+#: threads a block of the grouped gather (``GATHER_THREADS``)
+GATHER_THREADS = 256
+
+
+@dataclasses.dataclass(frozen=True)
+class GatherLayout:
+    """Where the groups of a grouped gather sit: group ``g`` has
+    ``shapes[g] = (P, L)``; its ``[P, L]`` node rows start at element
+    ``node_off[g]`` of the t_op and e_op blocks of the output, its
+    ``[P, L-1]`` transition rows at ``trans_off[g]`` of the t_trans,
+    e_trans and switch blocks.  The output holds the five blocks in that
+    order, ``2 * n_node + 3 * n_trans`` float64 words, switch as int64
+    bits."""
+
+    shapes: tuple[tuple[int, int], ...]
+    node_off: tuple[int, ...]
+    trans_off: tuple[int, ...]
+    n_node: int
+    n_trans: int
+    blocks: int
+
+    @property
+    def out_words(self) -> int:
+        return 2 * self.n_node + 3 * self.n_trans
+
+
+def pack_gather(mirrors, lanes, paths, *, pin: bool = False
+                ) -> tuple[torch.Tensor, GatherLayout]:
+    """The packet of a grouped gather, as one host int64 tensor
+    (pinned with ``pin``): a descriptor of ``GD_WORDS`` words a group
+    (its mirror's five device pointers, ``L``, ``S``, ``P``, the
+    offsets of its lanes and paths in the packet and of its rows in the
+    output, its first block), then every group's lanes, then every
+    group's paths.  ``mirrors[g]`` is ``(t_op, e_op, t_trans, e_trans,
+    switch)``; ``lanes[g] [P]`` and ``paths[g] [P, L]`` are int64 numpy
+    arrays with ``P >= 1`` and ``L >= 2``."""
+    G = len(mirrors)
+    shapes = tuple((len(ln), pa.shape[1]) for ln, pa in zip(lanes, paths))
+    lane_at = G * GD_WORDS
+    path_at = lane_at + sum(P for P, _ in shapes)
+    n_node = sum(P * L for P, L in shapes)
+    packet = torch.empty(path_at + n_node, dtype=_I64, pin_memory=pin)
+    host = packet.numpy()
+    desc, node_off, trans_off = [], [], []
+    node = trans = block = 0
+    for mirror, ln, pa, (P, L) in zip(mirrors, lanes, paths, shapes):
+        desc += [t.data_ptr() for t in mirror]
+        desc += [L, mirror[0].shape[2], P, lane_at, path_at, node, trans,
+                 block, 0, 0, 0]
+        host[lane_at:lane_at + P] = ln
+        host[path_at:path_at + P * L] = pa.reshape(-1)
+        node_off.append(node)
+        trans_off.append(trans)
+        lane_at += P
+        path_at += P * L
+        node += P * L
+        trans += P * (L - 1)
+        block += -(-P * L // GATHER_THREADS)
+    host[:G * GD_WORDS] = desc
+    return packet, GatherLayout(shapes, tuple(node_off), tuple(trans_off),
+                                node, trans, block)
+
+
+def split_components(out, layout: GatherLayout) -> list[tuple]:
+    """Per group, the five C-contiguous component arrays of a grouped
+    gather's output (views of ``out``, a float64 numpy array or
+    tensor): ``(t_op [P, L], e_op [P, L], t_trans [P, L-1], e_trans
+    [P, L-1], switch [P, L-1] int64)``."""
+    nn, nt = layout.n_node, layout.n_trans
+    if isinstance(out, torch.Tensor):
+        sw_all = out[2 * nn + 2 * nt:].view(_I64)
+    else:
+        sw_all = out[2 * nn + 2 * nt:].view(np.int64)
+    res = []
+    for (P, L), a, b in zip(layout.shapes, layout.node_off,
+                            layout.trans_off):
+        node = slice(a, a + P * L)
+        trans = slice(b, b + P * (L - 1))
+        res.append((out[:nn][node].reshape(P, L),
+                    out[nn:2 * nn][node].reshape(P, L),
+                    out[2 * nn:2 * nn + nt][trans].reshape(P, L - 1),
+                    out[2 * nn + nt:2 * nn + 2 * nt][trans].reshape(P, L - 1),
+                    sw_all[trans].reshape(P, L - 1)))
+    return res
+
+
+_GATHER_DTYPES = dict(t_op=_F64, e_op=_F64, t_trans=_F64, e_trans=_F64,
+                      switch=_I64)
+
+
+def _check_mirror(name: str, mirror, L: int) -> torch.device:
+    dev = _check(name, dict(zip(_GATHER_DTYPES, mirror)), _GATHER_DTYPES)
+    t_op, e_op, t_trans, e_trans, switch = mirror
+    cap, Lm, S = t_op.shape
+    want = (cap, Lm - 1, S, S)
+    if Lm != L or Lm < 2 or e_op.shape != t_op.shape or any(
+            tuple(t.shape) != want for t in (t_trans, e_trans, switch)):
+        raise ValueError(f"{name}: a group's mirror must be [cap, L, S] "
+                         f"and [cap, L-1, S, S] with L = {L} >= 2")
+    return dev
+
+
+def path_components_grouped(mirrors, lanes, paths
+                            ) -> tuple[torch.Tensor, GatherLayout]:
+    """Per-layer components of every group's paths in ONE launch (see
+    :func:`pack_gather` for the groups): the packet goes to the device
+    as one pinned buffer with one non-blocking copy, and the result is
+    one float64 buffer of the mirrors' device, laid out as
+    :class:`GatherLayout` says (:func:`split_components` views it per
+    group).  Indices must lie in range; the caller checks them on the
+    host."""
+    name = "path_components_grouped"
+    if not mirrors or not (len(mirrors) == len(lanes) == len(paths)):
+        raise ValueError(f"{name}: one (mirror, lanes, paths) per group, "
+                         "at least one group")
+    devs = set()
+    for mirror, ln, pa in zip(mirrors, lanes, paths):
+        if pa.ndim != 2 or ln.shape != (pa.shape[0],) or not len(ln):
+            raise ValueError(f"{name}: lanes [P], paths [P, L], P >= 1")
+        devs.add(_check_mirror(name, mirror, pa.shape[1]))
+    if len(devs) != 1:
+        raise ValueError(f"{name}: every mirror must be on one device")
+    dev = devs.pop()
     if dev.type == "cpu":
-        return path_components_plain(lanes, paths, t_op, e_op, t_trans,
-                                     e_trans, switch)
-    outs = (torch.empty((P, L), dtype=_F64, device=dev),
-            torch.empty((P, L), dtype=_F64, device=dev),
-            torch.empty((P, L - 1), dtype=_F64, device=dev),
-            torch.empty((P, L - 1), dtype=_F64, device=dev),
-            torch.empty((P, L - 1), dtype=_I64, device=dev))
-    if P == 0:
-        return outs
+        return path_components_grouped_plain(mirrors, lanes, paths)
     lib = load_library()
+    packet, layout = pack_gather(mirrors, lanes, paths, pin=True)
+    out = torch.empty(layout.out_words, dtype=_F64, device=dev)
     with torch.cuda.device(dev):
-        err = lib.pfdnn_path_components(
-            lanes.data_ptr(), paths.data_ptr(), t_op.data_ptr(),
-            e_op.data_ptr(), t_trans.data_ptr(), e_trans.data_ptr(),
-            switch.data_ptr(), *(o.data_ptr() for o in outs), P, L, S,
-            _stream(dev))
-    _raise_on("path_components", err)
+        dev_packet = packet.to(dev, non_blocking=True)
+        err = lib.pfdnn_path_components_grouped(
+            dev_packet.data_ptr(), len(mirrors), layout.blocks,
+            out.data_ptr(), layout.n_node, layout.n_trans, _stream(dev))
+    _raise_on(name, err)
     LAUNCHES["path_components"] += 1
-    return outs
+    return out, layout
+
+
+def path_components_grouped_plain(mirrors, lanes, paths
+                                  ) -> tuple[torch.Tensor, GatherLayout]:
+    """Plain PyTorch version of :func:`path_components_grouped`: reads
+    every group's lanes and paths back out of the same packet and
+    gathers each group with :func:`path_components_plain` into the same
+    output layout."""
+    packet, layout = pack_gather(mirrors, lanes, paths)
+    dev = mirrors[0][0].device
+    out = torch.empty(layout.out_words, dtype=_F64, device=dev)
+    host = packet.numpy()
+    parts = split_components(out, layout)
+    for g, (mirror, (P, L)) in enumerate(zip(mirrors, layout.shapes)):
+        row = host[g * GD_WORDS:(g + 1) * GD_WORDS]
+        ln = torch.from_numpy(host[row[GD_LANES]:row[GD_LANES] + P]).to(dev)
+        pa = torch.from_numpy(host[row[GD_PATHS]:row[GD_PATHS] + P * L]
+                              .reshape(P, L)).to(dev)
+        for dst, src in zip(parts[g], path_components_plain(ln, pa,
+                                                            *mirror)):
+            dst.copy_(src)
+    return out, layout
 
 
 def path_components_plain(lanes, paths, t_op, e_op, t_trans, e_trans,
                           switch) -> tuple[torch.Tensor, ...]:
-    """Plain PyTorch version of :func:`path_components`."""
+    """Plain PyTorch version of one group of the gather."""
     L = paths.shape[1]
     ln = lanes[:, None]
     li = torch.arange(L, device=paths.device)[None, :]

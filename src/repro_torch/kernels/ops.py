@@ -48,16 +48,19 @@ def quantize_int8(x: torch.Tensor, axis: int = -1
     ``x`` divides in float32)."""
     amax = x.float().abs().amax(dim=axis, keepdim=True)
     scale = amax.clamp_min(1e-8) / 127.0
-    q = torch.round(x / scale).clamp(-127, 127).to(torch.int8)
+    # the cast writes q contiguous whatever x's strides (one pass)
+    q = torch.round(x / scale).clamp(-127, 127).to(
+        torch.int8, memory_format=torch.contiguous_format)
     return q, scale.squeeze(axis)
 
 
 def int8_linear(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     """Quantized linear layer: ``x [M, K]`` and ``w [K, N]`` float
     (float32 or bf16), quantized per row of ``x`` and per column of
-    ``w``, multiplied on the int8 kernel → ``[M, N]`` float32."""
+    ``w``, multiplied on the int8 kernel → ``[M, N]`` float32.  ``w``'s
+    codes are made as a contiguous ``[N, K]`` (the rows of ``w.t()``:
+    the same codes and scales as per column of ``w``), so the kernel
+    reads them K-major and needs no transpose pass."""
     xq, xs = quantize_int8(x, axis=1)
-    wq, ws = quantize_int8(w, axis=0)
-    # elementwise results keep a strided input's layout; the kernel
-    # takes row-major operands
-    return int8_matmul(xq.contiguous(), wq.contiguous(), xs, ws)
+    wq, ws = quantize_int8(w.t(), axis=1)
+    return int8_matmul(xq, wq.t(), xs, ws)

@@ -160,9 +160,21 @@ def test_cuda_tensors_go_to_the_kernel_never_the_plain_version(
         ws = torch.empty(32, device="cuda")
         with pytest.raises(Loaded):
             im.int8_matmul(x, w, xs, ws)
-        with pytest.raises(ValueError, match="contiguous"):
+        # a K-major w (the transpose of a contiguous [N, K]) goes to the
+        # kernel as well; rows padded past N do not
+        with pytest.raises(Loaded):
             im.int8_matmul(x, torch.empty_strided(
                 (64, 32), (1, 64), dtype=torch.int8, device="cuda"), xs, ws)
+        with pytest.raises(ValueError, match="contiguous"):
+            im.int8_matmul(x, torch.empty_strided(
+                (64, 32), (64, 1), dtype=torch.int8, device="cuda"), xs, ws)
+        # the wgmma route (M > 64), with w in either layout
+        xw = torch.empty(128, 64, dtype=torch.int8, device="cuda")
+        xsw = torch.empty(128, device="cuda")
+        for ww in (w, torch.empty(32, 64, dtype=torch.int8,
+                                  device="cuda").t()):
+            with pytest.raises(Loaded):
+                im.int8_matmul(xw, ww, xsw, ws)
         with pytest.raises(Loaded):
             int8_linear(torch.empty(16, 64, dtype=torch.bfloat16,
                                     device="cuda"),

@@ -165,9 +165,10 @@ def test_path_components_match_pallas_and_numpy(B, cap, L, S, K):
     paths = np.stack([rng.integers(0, (arrs[2][ln].sum(axis=1))).astype(
         np.int64) for ln in lanes])
     t_op, e_op, _, t_trans, e_trans, switch, _ = _torch(arrs, lanes)
-    comps = ks.path_components(torch.from_numpy(lanes),
-                               torch.from_numpy(paths), t_op, e_op,
-                               t_trans, e_trans, switch)
+    out, layout = ks.path_components_grouped(
+        [(t_op, e_op, t_trans, e_trans, switch)], [lanes], [paths])
+    comps = [torch.from_numpy(c) for c in
+             ks.split_components(out.numpy(), layout)[0]]
     with jax.enable_x64(True):
         pal = path_components_pallas(lanes, paths, arrs[0], arrs[1],
                                      arrs[3], arrs[4], arrs[5],
@@ -196,8 +197,9 @@ def test_wrappers_reject_malformed_inputs():
     with pytest.raises(ValueError):
         ks.kbest_multi_stacked(f, f, v, tt, tt, lanes.repeat(2), w, 3)
     with pytest.raises(ValueError):
-        ks.path_components(lanes, torch.zeros((1, L + 1), dtype=torch.int64),
-                           f, f, tt, tt, tt.long())
+        ks.path_components_grouped([(f, f, tt, tt, tt.long())],
+                                   [lanes.numpy()],
+                                   [np.zeros((1, L + 1), np.int64)])
     wide = ks.MAX_STATES * 2
     with pytest.raises(ValueError, match="exceed"):
         ks.dp_multi_stacked(
