@@ -7,7 +7,8 @@ NVIDIA GPU:
      started together), prints each build's time and the count of
      ``HGMMA`` instructions in the bf16 attention library's SASS and of
      ``IGMMA`` in the int8 library's (``cuobjdump -sass``; each must be
-     > 0);
+     > 0), and the float32 attention kernel's registers and spills
+     (``ptxas -v``);
   2. kernel phase: calls each rail-sweep kernel's wrapper on the card
      at the shapes the rail sweep gives it (lanes of real rail-subset
      problems) and holds the result against its plain PyTorch version
@@ -21,12 +22,15 @@ NVIDIA GPU:
      ``TorchBackend.path_costs_grouped`` (an empty and an L = 1 group
      beside them) against the host's sums, with their time a pass
      (events, device, host clock), beside the same pass made one
-     ``path_costs_lanes`` call a bucket; then holds the two attention
-     kernels against their
+     ``path_costs_lanes`` call a bucket; then checks the float32
+     attention kernel's tiling per head dim against
+     ``flash_attention.f32_plan`` and holds the two attention kernels
+     against their
      plain versions at the serving shapes of tinyllama-1.1b, the sweep
      of ``tests/test_kernels.py`` and the edges of the bf16 tensor-core
-     prefill and the split decode (3e-5 abs in float32, 2e-2 in
-     bfloat16; rows that see no key and lengths of 0 give zeros);
+     prefill, the float32 prefill and the split decode (3e-5 abs in
+     float32, 2e-2 in bfloat16; rows that see no key and lengths of 0
+     give zeros), the serving rows also back to back;
      prints each kernel's time (CUDA events, median of 25), its device
      time (``torch.profiler``), its plain version's time, its bound and,
      for attention, the time of ``scaled_dot_product_attention`` on the
@@ -92,7 +96,13 @@ no result, without one or without the repository beside it.  ``python3
 chip_smoke.py --sweep-kernels`` builds the rail-sweep library alone,
 runs the kernel phase's rail-sweep rows, the grouped gather and the
 edges and profiles one mobilevit-xxs compile, and prints no result
-line.
+line.  ``python3 chip_smoke.py --attention-kernels`` builds the two
+prefill attention libraries alone, prints the float32 kernel's
+registers and spills (``ptxas -v``) and its plan, runs the prefill
+rows and prints the float32 serving row's events, back-to-back, device,
+bound and SDPA times; it prints no result line.  Run from a ``git
+archive`` of another commit, this script times that commit's kernels
+(a tree without the float32 plan skips its check).
 """
 
 from __future__ import annotations
@@ -736,7 +746,11 @@ def _kernel_row(rows, name, shape, ms, plain_ms, bound_ms, bound_by,
 # second); then the bf16 tensor-core kernel's edges: every other head
 # dim, non-causal, Sq < Sk with q_offset, Sq = Sk = 1000 (no multiple of
 # a tile), GQA group 1, and Sq > Sk (negative q_offset: rows that see no
-# key give zeros)
+# key give zeros); then the float32 kernel's: the serve parity run's
+# prefill (4 prompts of 200 tokens), every head dim the rows above give
+# no float32 row (48 and 80-128; above 64 one CTA an SM, and D % 32 !=
+# 0 reads V by float2), Sq = Sk = 1000, Sq < Sk causal and non-causal,
+# GQA group 1, and Sq > Sk at D = 64 and 128
 ATTENTION_SHAPES = (
     (16, 32, 4, 1024, 1024, 64, True, "bfloat16"),
     (16, 32, 4, 1024, 1024, 64, True, "float32"),
@@ -757,7 +771,20 @@ ATTENTION_SHAPES = (
     (2, 16, 4, 1000, 1000, 64, True, "bfloat16"),
     (2, 16, 4, 1000, 1000, 64, False, "bfloat16"),
     (1, 4, 2, 100, 60, 64, True, "bfloat16"),
+    (4, 32, 4, 200, 200, 64, True, "float32"),
+    (2, 4, 2, 200, 333, 48, False, "float32"),
+    (1, 4, 2, 130, 130, 80, True, "float32"),
+    (1, 4, 4, 200, 200, 96, False, "float32"),
+    (1, 8, 2, 257, 257, 112, True, "float32"),
+    (2, 8, 8, 512, 512, 128, True, "float32"),
+    (2, 8, 2, 300, 1000, 64, True, "float32"),
+    (2, 16, 4, 1000, 1000, 64, True, "float32"),
+    (2, 16, 4, 1000, 1000, 64, False, "float32"),
+    (1, 4, 2, 100, 60, 64, True, "float32"),
+    (1, 8, 2, 300, 170, 128, True, "float32"),
 )
+# the rows whose back-to-back time is printed too: the serving shapes
+SERVING_ROWS = 2
 # (b, s, kh, h, d, dtype, zero_last): tinyllama-1.1b decoding at batch
 # 16 over a 2048-token cache, the launcher's cache (B = 4, S = 96), then
 # the sweep of tests/test_kernels.py; then the split kernel's edges: B =
@@ -826,21 +853,44 @@ def decode_bound(h, kh, d, lengths, dtype
 def attention_phase() -> list[dict]:
     """The two attention kernels against their plain versions and the
     library yardstick, at ATTENTION_SHAPES and DECODE_SHAPES."""
-    import numpy as np
+    import torch
+
+    rows: dict[str, dict] = {}
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    f32_plan_check()
+    prefill_rows(rows, gen)
+    decode_rows(rows, gen)
+    return list(rows.values())
+
+
+def _attn_label(b, h, kh, sq, sk, d, causal, dtype) -> str:
+    return (f"[{b},{h},{sq},{d}]x[{kh},{sk}] "
+            f"{'causal' if causal else 'full'} {dtype}")
+
+
+def _randn(gen, *shape, dtype):
+    import torch
+
+    return torch.randn(shape, generator=gen, device=DEVICE,
+                       dtype=torch.float32).to(_dtype(dtype))
+
+
+def prefill_rows(rows: dict, gen) -> dict[str, dict]:
+    """``flash_attention`` at ATTENTION_SHAPES against its plain version
+    (3e-5 in float32, 2e-2 in bf16; rows that see no key give zeros),
+    with its times beside its bound and SDPA's; returns each row's
+    numbers by label."""
     import torch
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa
-    from repro_torch.kernels import flash_decode as fd
-
-    rows: dict[str, dict] = {}
-    gen = torch.Generator(device=DEVICE).manual_seed(0)
 
     def randn(*shape, dtype):
-        return torch.randn(shape, generator=gen, device=DEVICE,
-                           dtype=torch.float32).to(_dtype(dtype))
+        return _randn(gen, *shape, dtype=dtype)
 
-    for b, h, kh, sq, sk, d, causal, dtype in ATTENTION_SHAPES:
+    found = {}
+    for n, (b, h, kh, sq, sk, d, causal, dtype) in enumerate(
+            ATTENTION_SHAPES):
         q = randn(b, h, sq, d, dtype=dtype)
         k = randn(b, kh, sk, d, dtype=dtype)
         v = randn(b, kh, sk, d, dtype=dtype)
@@ -850,8 +900,7 @@ def attention_phase() -> list[dict]:
         want = fa.flash_attention_plain(q, k, v, **args)
         torch.cuda.synchronize()
         err = _max_abs_err(got, want)
-        label = (f"[{b},{h},{sq},{d}]x[{kh},{sk}] "
-                 f"{'causal' if causal else 'full'} {dtype}")
+        label = _attn_label(b, h, kh, sq, sk, d, causal, dtype)
         check(err <= ATTN_TOL[dtype], f"flash_attention != plain at "
               f"{label}: max abs err {err}")
         mask = None
@@ -872,13 +921,34 @@ def attention_phase() -> list[dict]:
         bound, by, nbytes, ops = attention_bound(b, h, kh, sq, sk, d,
                                                  causal, q_offset, dtype)
         kernel = lambda: fa.flash_attention(q, k, v, **args)  # noqa: E731
-        _kernel_row(rows, "flash_attention", label, time_ms(kernel),
+        got_row = dict(ms=time_ms(kernel), dev_ms=device_ms(kernel),
+                       lib_ms=time_ms(library), bound=bound, by=by,
+                       b2b=time_ms_b2b(kernel) if n < SERVING_ROWS
+                       else None)
+        found[label] = got_row
+        _kernel_row(rows, "flash_attention", label, got_row["ms"],
                     time_ms(lambda: fa.flash_attention_plain(q, k, v,
                                                              **args)),
-                    bound, by, err, time_ms(library), device_ms(kernel))
+                    bound, by, err, got_row["lib_ms"], got_row["dev_ms"])
+        b2b = ("" if got_row["b2b"] is None
+               else f"  back-to-back {got_row['b2b']:.4f} ms")
         print(f"  bytes {nbytes}  operations {ops}  library max abs err "
-              f"vs plain {lib_err}", flush=True)
+              f"vs plain {lib_err}{b2b}", flush=True)
         del q, k, v, got, want
+    return found
+
+
+def decode_rows(rows: dict, gen) -> None:
+    """``flash_decode`` at DECODE_SHAPES against its plain version, with
+    its times beside its bound and SDPA's."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode as fd
+
+    def randn(*shape, dtype):
+        return _randn(gen, *shape, dtype=dtype)
 
     lrng = np.random.default_rng(0)
     for b, s, kh, h, d, dtype, zero_last in DECODE_SHAPES:
@@ -922,7 +992,73 @@ def attention_phase() -> list[dict]:
         print(f"  bytes {nbytes}  operations {ops}  library max abs err "
               f"vs plain {lib_err}", flush=True)
         del q, k, v, got, want
-    return list(rows.values())
+
+
+def f32_plan_check() -> None:
+    """The float32 kernel's tiling as the library reports it on this
+    card (``pfdnn_flash_attention_f32_plan``: CTAs an SM holds from the
+    occupancy calculator) against ``flash_attention.f32_plan``, for
+    every head dim.  Skipped for a tree whose library has no plan."""
+    import ctypes
+
+    from repro_torch.kernels import flash_attention as fa
+
+    lib = fa.LIBRARY.load()
+    if not hasattr(fa, "f32_plan") or not hasattr(
+            lib, "pfdnn_flash_attention_f32_plan"):
+        print("f32 plan: this tree's float32 kernel reports no plan",
+              flush=True)
+        return
+    keys = ("block_rows", "block_keys", "threads", "rows_per_lane",
+            "smem_bytes")
+    for d in fa.HEAD_DIMS:
+        out = (ctypes.c_int * 6)()
+        err = lib.pfdnn_flash_attention_f32_plan(d, out)
+        check(err == 0, f"pfdnn_flash_attention_f32_plan({d}) failed "
+              f"(cudaError {err})")
+        got = dict(zip(keys, out[:5]))
+        check(got == fa.f32_plan(d), f"float32 attention plan at D = {d}: "
+              f"library {got} != f32_plan {fa.f32_plan(d)}")
+        print(f"f32 plan D={d}: {json.dumps(got)}  CTAs an SM {out[5]}",
+              flush=True)
+
+
+def ptxas_usage(lib) -> str:
+    """Registers and spills of each kernel of ``lib``'s source, as
+    ``ptxas -v`` prints them for a cubin built with the library's own
+    flags (one line a kernel)."""
+    import re
+
+    from repro_torch.kernels._nvcc import BUILD_DIR, nvcc
+
+    flags = [f for f in lib.flags
+             if f not in ("-shared", "-Xcompiler", "-fPIC")]
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    out = BUILD_DIR / f".ptxas_{lib.source.stem}_{id(lib)}.cubin"
+    proc = subprocess.run([nvcc(), *flags, "-cubin", "-Xptxas", "-v",
+                           "-o", str(out), str(lib.source)],
+                          capture_output=True, text=True)
+    out.unlink(missing_ok=True)
+    if proc.returncode != 0:
+        return f"ptxas: {lib.source.name}: the build failed\n{proc.stderr}"
+    lines, name, spill = [], "", ""
+    for line in (proc.stdout + proc.stderr).splitlines():
+        entry = re.search(r"Compiling entry function '([^']+)'", line)
+        if entry:
+            name = entry.group(1)
+        props = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill "
+                          r"stores, (\d+) bytes spill loads", line)
+        if props:
+            spill = (f"stack {props.group(1)} B, spill stores "
+                     f"{props.group(2)} B, spill loads {props.group(3)} B")
+        regs = re.search(r"Used (\d+) registers", line)
+        if regs and name:
+            d = re.search(r"ILi(\d+)E", name)
+            label = f"{name[:48]}..." if d is None else f"D={d.group(1)}"
+            lines.append(f"ptxas: {lib.source.name} {label}: {regs.group(1)} "
+                         f"registers, {spill}")
+            name, spill = "", ""
+    return "\n".join(lines)
 
 
 # --------------------------------------------------------- path phase
@@ -1220,11 +1356,19 @@ def parity_run(dtype: str) -> None:
     n_split = fd.decode_splits(
         cache, torch.cuda.get_device_properties(0).multi_processor_count)
     tic = time.perf_counter()
+    prefill(params, cfg, {"tokens": toks}, cache)     # warm-up
+    torch.cuda.synchronize()
     _reset_counts()
+    tic_prefill = time.perf_counter()
     lk, sk = prefill(params, cfg, {"tokens": toks}, cache)
+    torch.cuda.synchronize()
+    prefill_ms = (time.perf_counter() - tic_prefill) * 1e3
     prefill_counts = _counts()
+    tic_prefill = time.perf_counter()
     with plain_attention():
         lp, sp = prefill(params, cfg, {"tokens": toks}, cache)
+    torch.cuda.synchronize()
+    plain_prefill_ms = (time.perf_counter() - tic_prefill) * 1e3
     with plain_attention(n_split):
         lf, sf = prefill(params, cfg, {"tokens": toks}, cache)
     worst, floor, same, total = 0.0, 0.0, 0, 0
@@ -1253,7 +1397,9 @@ def parity_run(dtype: str) -> None:
           f"{floor!r}; identical greedy tokens {same}/{total}; wall "
           f"{time.perf_counter() - tic:.3f} s; kernel-path prefill "
           f"launched flash_attention {prefill_counts['flash_attention']} "
-          "times", flush=True)
+          f"times; prefill {prefill_ms:.3f} ms on the kernel path, "
+          f"{plain_prefill_ms:.3f} ms on the plain path (host clock, "
+          "synchronized, after one warm-up prefill)", flush=True)
 
 
 def batch_run() -> None:
@@ -1679,9 +1825,11 @@ def build_all() -> None:
         return path.name, time.perf_counter() - tic
 
     tic = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+    with concurrent.futures.ThreadPoolExecutor(len(libs) + 1) as pool:
+        usage = pool.submit(ptxas_usage, fa.LIBRARY)
         for name, secs in pool.map(build, libs):
             print(f"build: {name} in {secs:.2f} s", flush=True)
+        print(usage.result(), flush=True)
     for lib in libs:
         lib.load()
     print(f"build: all in {time.perf_counter() - tic:.2f} s", flush=True)
@@ -1722,6 +1870,51 @@ def sweep_kernels_only(k_best: int) -> int:
     return 0
 
 
+def attention_kernels_only() -> int:
+    """``--attention-kernels``: build the two prefill libraries alone
+    (and the float32 one's ``ptxas -v`` report beside them), check the
+    float32 plan, run the prefill rows and print the float32 serving
+    row's numbers; no result line."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    libs = (fa.LIBRARY, fa.WGMMA_LIBRARY)
+    tic = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(libs) + 1) as pool:
+        usage = pool.submit(ptxas_usage, fa.LIBRARY)
+        for path in pool.map(lambda lib: lib.build(), libs):
+            print(f"build: {path.name}", flush=True)
+        print(usage.result(), flush=True)
+    for lib in libs:
+        lib.load()
+    print(f"build: both in {time.perf_counter() - tic:.2f} s", flush=True)
+    f32_plan_check()
+    rows: dict[str, dict] = {}
+    found = prefill_rows(rows, torch.Generator(device=DEVICE).manual_seed(0))
+    b, h, kh, sq, sk, d, causal, dtype = ATTENTION_SHAPES[1]
+    label = _attn_label(*ATTENTION_SHAPES[1])
+    row = found[label]
+    print(f"f32 serving row {label}: events {row['ms']:.4f} ms  "
+          f"back-to-back {row['b2b']:.4f} ms  device {_ms(row['dev_ms'])}  "
+          f"bound {row['bound']:.5f} ms ({row['by']})  SDPA "
+          f"{row['lib_ms']:.4f} ms", flush=True)
+    # the card's clocks and power while ~1 s of these launches run
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    q = _randn(gen, b, h, sq, d, dtype=dtype)
+    k = _randn(gen, b, kh, sk, d, dtype=dtype)
+    v = _randn(gen, b, kh, sk, d, dtype=dtype)
+    torch.cuda.synchronize()
+    for _ in range(max(1, int(1000 / row["b2b"]))):
+        fa.flash_attention(q, k, v, causal=causal)
+    loaded = clocks()
+    torch.cuda.synchronize()
+    print(f"f32 serving row under load (sm clock, max sm clock, power, "
+          f"temperature): {loaded}", flush=True)
+    print(json.dumps({"kernels": list(rows.values())}), flush=True)
+    return 0
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -1753,6 +1946,8 @@ def main(argv: list[str]) -> int:
     from repro_torch.core.policies import OrchestratorConfig
     if argv == ["--sweep-kernels"]:
         return sweep_kernels_only(OrchestratorConfig().k_candidates)
+    if argv == ["--attention-kernels"]:
+        return attention_kernels_only()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2

@@ -13,6 +13,15 @@ reference's online-softmax semantics (``NEG_INF`` masks, the
 ``acc / max(l, 1e-30)`` in q's dtype).  ``Sq`` and ``Sk`` need not
 divide any block size.
 
+The float32 kernel gives each CTA of 8 warps 128 query rows and
+streams 64-key K/V tiles through two ``cp.async`` stages; a lane holds
+a 4 × 8 score tile and its rows' outputs in registers, and the softmax
+stays in the registers of one warp.  :func:`f32_plan` states
+its tiling and shared memory per head dim and :func:`f32_blocks` its
+blocks in launch order (heaviest causal query tile first), as the CUDA
+source sets them; ``chip_smoke.py`` holds the plan against the
+library's ``pfdnn_flash_attention_f32_plan`` on the card.
+
 On a tensor that lies on the CPU the wrapper computes
 :func:`flash_attention_plain`; on a CUDA tensor it launches the kernel
 of its dtype or raises.  Every launch adds one to :data:`LAUNCHES`.
@@ -54,21 +63,81 @@ def reset_launch_counts() -> None:
     LAUNCHES["flash_attention"] = 0
 
 
-def _declare(entry: str) -> Callable[[ctypes.CDLL], None]:
+def _declare(entry: str, plan: str | None = None
+             ) -> Callable[[ctypes.CDLL], None]:
     def declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, entry)
         p, i = ctypes.c_void_p, ctypes.c_int
         fn.argtypes = [p] * 4 + [i] * 8 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
+        if plan is not None:
+            fn = getattr(lib, plan)
+            fn.argtypes = [i, ctypes.POINTER(i)]
+            fn.restype = ctypes.c_int
     return declare
 
 
-#: float32 kernel (``pfdnn_flash_attention_f32``)
+#: float32 kernel (``pfdnn_flash_attention_f32``; its tiling per head
+#: dim from ``pfdnn_flash_attention_f32_plan``)
 LIBRARY = CudaLibrary(SOURCE, NVCC_FLAGS,
-                      _declare("pfdnn_flash_attention_f32"))
+                      _declare("pfdnn_flash_attention_f32",
+                               "pfdnn_flash_attention_f32_plan"))
 #: bfloat16 tensor-core kernel (``pfdnn_flash_attention_bf16``)
 WGMMA_LIBRARY = CudaLibrary(WGMMA_SOURCE, NVCC_FLAGS,
                             _declare("pfdnn_flash_attention_bf16"))
+
+
+#: query rows a CTA of the float32 kernel owns, keys a K/V tile
+F32_BLOCK_ROWS, F32_BLOCK_KEYS = 128, 64
+
+
+def f32_plan(d: int) -> dict[str, int]:
+    """The float32 kernel's tiling at head dim ``d``, as
+    ``csrc/flash_attention.cu`` sets it: a lane owns 4 query rows (and 8
+    keys of a tile), a warp 16 rows, a CTA of 8 warps 128 rows; shared
+    memory holds the Q tile (transposed), two stages of K (rows padded
+    by 4 floats) and V, and each warp's quarter tile of P."""
+    if d not in HEAD_DIMS:
+        raise ValueError(f"f32_plan: head dim {d} not in {HEAD_DIMS}")
+    rows_per_lane, warps = 4, 8
+    warp_rows = F32_BLOCK_ROWS // warps
+    floats = (F32_BLOCK_ROWS * d + 2 * F32_BLOCK_KEYS * (d + 4)
+              + 2 * F32_BLOCK_KEYS * d
+              + warps * (F32_BLOCK_KEYS // 4) * warp_rows)
+    return {"block_rows": F32_BLOCK_ROWS, "block_keys": F32_BLOCK_KEYS,
+            "threads": 32 * warps, "rows_per_lane": rows_per_lane,
+            "smem_bytes": 4 * floats}
+
+
+def f32_kv_tiles(first: int, rows: int, sq: int, sk: int, q_offset: int,
+                 causal: bool) -> int:
+    """K/V tiles the float32 kernel runs for query rows ``[first, first
+    + rows)``: every tile of ``sk``, or (causal) those that start at or
+    before the last real row's position; 0 when no row sees a key."""
+    tiles = -(-sk // F32_BLOCK_KEYS)
+    end = min(first + rows, sq)
+    if end <= first:
+        return 0
+    if causal:
+        last = q_offset + end - 1
+        tiles = 0 if last < 0 else min(tiles, last // F32_BLOCK_KEYS + 1)
+    return tiles
+
+
+def f32_blocks(b: int, h: int, sq: int, sk: int, q_offset: int,
+               causal: bool) -> list[tuple[int, int, int, int]]:
+    """The float32 kernel's blocks in launch order, as ``(batch, head,
+    first query row, K/V tiles)``: block ``i`` takes query tile ``n_qt -
+    1 - i // (b * h)`` of (batch, head) ``i % (b * h)``, so the heaviest
+    causal tiles start first and neighbouring blocks share a KV head."""
+    n_qt = -(-sq // F32_BLOCK_ROWS)
+    blocks = []
+    for i in range(n_qt * b * h):
+        first = (n_qt - 1 - i // (b * h)) * F32_BLOCK_ROWS
+        bi, hi = divmod(i % (b * h), h)
+        blocks.append((bi, hi, first, f32_kv_tiles(
+            first, F32_BLOCK_ROWS, sq, sk, q_offset, causal)))
+    return blocks
 
 
 def softmax_scale(d: int) -> float:
