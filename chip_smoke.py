@@ -79,7 +79,31 @@ NVIDIA GPU:
      ``squeezenet1.1|0.5|3`` with the CPU compile byte for byte, compiles
      ``MinLatency`` and ``ParetoFront`` goals on the card against the
      CPU, and prints each compile's wall and DP-kernel launches;
-  8. prints the ``kernels`` JSON line and, last, the result line.
+  8. service phase, the fleet compile service on the card: checks
+     that a collection frees no device memory left by the earlier
+     phases; compiles ``pfdnn`` for the four edge networks at 0.5, 0.7
+     and 0.9 x max rate (3 rails of the 9-level menu) plus a
+     ``MinLatency`` and a ``ParetoFront(n_points=4)`` request on
+     squeezenet1.1, first each alone with the collector off (device
+     memory back within 1 MiB after them), then each alone through one
+     shared ``ArtifactStore``, then as one
+     ``CompileService.compile_many`` (launch counts set to 0 just
+     before and read just after; each result equal to its solo compile
+     and, byte for byte, to the same fleet compiled on the CPU in a
+     spawned process meanwhile), printing the walls, the DP, k-best and
+     gather launches and lanes per launch of the three runs, and the
+     fleet's device busy time (``torch.profiler``, device activity
+     only); repeats the batch from the schedule cache (0 launches) and
+     with the cache off (0 lane uploads); reads
+     ``torch.cuda.memory_allocated`` before the fleet, with the lane
+     mirrors resident and after ``store.clear(stacks=True)`` (back
+     within 1 MiB); runs two threads' ``compile_many`` on one service
+     under ``lockcheck`` (clean: no cycle, no lock held across the
+     barrier); then a 2-worker ``CompileFarm`` on the card over a
+     temporary disk store (8 requests, 2 tenants, no error, equal to
+     solo) and a 1-worker farm of a fresh process answering from the
+     first one's entries, with the p50 and p95 of each;
+  9. prints the ``kernels`` JSON line and, last, the result line.
 
 ``profiler_check`` runs at the start, in the int8 phase and at the end:
 it times a spin kernel of a fixed cycle count by CUDA events and under
@@ -100,7 +124,9 @@ line.  ``python3 chip_smoke.py --attention-kernels`` builds the two
 prefill attention libraries alone, prints the float32 kernel's
 registers and spills (``ptxas -v``) and its plan, runs the prefill
 rows and prints the float32 serving row's events, back-to-back, device,
-bound and SDPA times; it prints no result line.  Run from a ``git
+bound and SDPA times; it prints no result line.  ``python3
+chip_smoke.py --service`` builds the rail-sweep library alone and runs
+the service phase; it prints no result line.  Run from a ``git
 archive`` of another commit, this script times that commit's kernels
 (a tree without the float32 plan skips its check).
 """
@@ -1458,6 +1484,9 @@ def batch_run() -> None:
             prof_wall = time.perf_counter() - prof_tic
             prof.__exit__(None, None, None)
     total = time.perf_counter() - tic_all
+    # the wrapper holds the engine through ``inner``: drop it, or the
+    # cycle keeps the engine's weights on the card until a collection
+    del engine._prefill_batch
     counts = _counts()
     padded = BATCH * int(lengths.max())
     decode_walls = [w for j, (w, dec) in enumerate(steps)
@@ -1797,6 +1826,356 @@ def policy_phase() -> None:
               f"{name} launched no DP kernel on the card")
 
 
+# ----------------------------------------------------- service phase
+
+SERVICE_FRACTIONS = (0.5, 0.7, 0.9)       # x max rate, every edge network
+SERVICE_GOAL_NET = "squeezenet1.1"        # + a MinLatency and a ParetoFront
+SERVICE_BUDGET = 1.5                      # x the network's min-E_op bound
+FARM_TENANTS = {"A": 0.9, "B": 0.7}       # 4 networks each, 8 requests
+THREAD_NETS = ("squeezenet1.1", "mobilenetv3-small", "resnet18")
+# counters of the round scheduler as a whole: a fleet's differ from a
+# solo compile's, so solo comparisons set them aside
+FLEET_STATS = ("stacked_rounds", "stacked_calls", "fleet_networks")
+MIB = 1 << 20
+
+
+def _result_json(result, drop: tuple = ()):
+    """A compile result as comparable JSON: a schedule without its host
+    stats (and ``drop``), an InfeasibleGoal as it is, a frontier point
+    by point."""
+    if hasattr(result, "points"):
+        return [(p.deadline_s, _result_json(p.schedule, drop))
+                for p in result.points]
+    if not hasattr(result, "solver_stats"):
+        return result.to_json()
+    skip = ("wall_time_s", "backend", "ilp_wall_time_s") + drop
+    stats = {k: v for k, v in result.solver_stats.items() if k not in skip}
+    return dataclasses.replace(result, solver_stats=stats).to_json()
+
+
+def service_requests(device: str, nets=None, fractions=SERVICE_FRACTIONS,
+                     goals: bool = True) -> list:
+    """The fleet of the service phase: ``pfdnn`` for every edge network
+    at each fraction of its max rate (3 rails of the 9-level menu), then
+    a ``MinLatency`` and a ``ParetoFront(n_points=4)`` request."""
+    from repro_torch.core import (
+        CompilationContext,
+        MinLatency,
+        OrchestratorConfig,
+        ParetoFront,
+    )
+    from repro_torch.models.edge_cnn import EDGE_NETWORKS, edge_network
+    from repro_torch.service import CompileRequest
+
+    cfg = OrchestratorConfig(device=device)
+    reqs = [CompileRequest(edge_network(net), frac * max_rate(net), cfg,
+                           net)
+            for net in (nets or EDGE_NETWORKS) for frac in fractions]
+    if goals:
+        net = SERVICE_GOAL_NET
+        ctx = CompilationContext(edge_network(net), network=net)
+        budget = SERVICE_BUDGET * ctx.min_e_op_bound(ctx.levels)
+        reqs += [CompileRequest(edge_network(net), cfg=cfg, network=net,
+                                goal=MinLatency(energy_budget_j=budget)),
+                 CompileRequest(edge_network(net), cfg=cfg, network=net,
+                                goal=ParetoFront(n_points=4))]
+    return reqs
+
+
+def _label(req) -> str:
+    goal = req.goal.key() if req.goal is not None \
+        else f"{req.target_rate_hz / max_rate(req.network):.1f} x max"
+    return f"{req.network} {goal}"
+
+
+# intra-op threads of the spawned CPU-side process: it shares the host
+# with the card-side compiles and the farm's workers
+CPU_SIDE_THREADS = 2
+
+
+def cpu_fleet() -> list:
+    """The service phase's fleet compiled on the CPU (plain versions),
+    as comparable JSON.  Runs in a spawned process beside the card's
+    work."""
+    import torch
+
+    from repro_torch.service import CompileService
+
+    torch.set_num_threads(CPU_SIDE_THREADS)
+
+    with CompileService() as svc:
+        return [_result_json(r)
+                for r in svc.compile_many(service_requests("cpu"))]
+
+
+def _dp_counts(io_before: dict, io_after: dict, before: dict,
+               after: dict) -> dict:
+    """DP / k-best / gather launches between two readings and the
+    lanes a DP and a k-best launch carried on average."""
+    d = {k: after[k] - before[k] for k in DP_KERNELS}
+    d["lanes per DP launch"] = round(
+        (io_after["dp_lanes"] - io_before["dp_lanes"])
+        / max(d["dp_multi_stacked"], 1), 3)
+    d["lanes per k-best launch"] = round(
+        (io_after["kbest_lanes"] - io_before["kbest_lanes"])
+        / max(d["kbest_multi_stacked"], 1), 3)
+    return d
+
+
+def _percentiles(results) -> str:
+    lat = sorted(r.latency_s for r in results)
+    p50 = statistics.quantiles(lat, n=100, method="inclusive")[49]
+    p95 = statistics.quantiles(lat, n=100, method="inclusive")[94]
+    return f"p50 {p50:.3f} s  p95 {p95:.3f} s"
+
+
+def _farm_run(root: str, solo: dict, n_workers: int) -> dict:
+    """One farm of fresh processes on the card over the disk store at
+    ``root``: 8 requests from 2 tenants, each result held against the
+    solo compile; returns the farm's summed counters."""
+    from repro_torch.service import CompileFarm
+
+    tic = time.perf_counter()
+    with CompileFarm(root, n_workers=n_workers, batch_size=2) as farm:
+        uid_req = {}
+        for tenant, frac in FARM_TENANTS.items():
+            reqs = service_requests(DEVICE, fractions=(frac,), goals=False)
+            for uid, req in zip(farm.submit(tenant, reqs), reqs):
+                uid_req[uid] = req
+        results = farm.drain()
+        counters = farm.counters()
+    wall = time.perf_counter() - tic
+    for uid, res in results.items():
+        check(res.error is None, f"farm worker {res.worker}: {res.error}")
+        label = _label(uid_req[uid])
+        check(_result_json(res.value, FLEET_STATS) == solo[label],
+              f"farm {label}: differs from the solo compile")
+    by_tenant = {t: [r for r in results.values() if r.tenant == t]
+                 for t in FARM_TENANTS}
+    print(f"service farm: {n_workers} worker{'s' * (n_workers > 1)}, "
+          f"{len(results)} results, "
+          f"wall {wall:.3f} s "
+          f"(process start included), {farm.n_batches} batches, fleet "
+          f"{_percentiles(results.values())}; "
+          + "; ".join(f"tenant {t} {_percentiles(rs)}"
+                      for t, rs in by_tenant.items())
+          + f"; disk hits {json.dumps(counters['disk_hits'])}", flush=True)
+    return counters
+
+
+def service_phase() -> dict:
+    """The fleet compile service on the card (see the module docstring,
+    phase 8); returns the DP kernels' launches of its fleet run."""
+    import gc
+    import multiprocessing
+    import tempfile
+    import threading
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis import lockcheck
+    from repro_torch.core import compile
+    from repro_torch.core.backend import get_backend
+    from repro_torch.service import ArtifactStore, CompileService
+
+    pool = concurrent.futures.ProcessPoolExecutor(
+        1, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu_side = pool.submit(cpu_fleet)
+        reqs = service_requests(DEVICE)
+        bk = get_backend(DEVICE)
+
+        # the earlier phases hold no device memory in reference cycles:
+        # a collection here frees nothing
+        torch.cuda.synchronize()
+        mem_in = torch.cuda.memory_allocated()
+        gc.collect()
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        print(f"service memory: allocated {mem_in} B at the phase's "
+              f"start, {mem0} B after a collection", flush=True)
+        check(abs(mem_in - mem0) <= MIB, f"{mem_in - mem0} B of device "
+              "memory were held by reference cycles of earlier phases")
+
+        # solo: each request compiled alone on the card (no store), with
+        # the collector off: a compile frees its lane mirrors itself
+        solo, solo_walls = {}, {}
+        io0, c0 = bk.io_counts(), _counts()
+        gc.disable()
+        try:
+            for req in reqs:
+                tic = time.perf_counter()
+                out = compile(req.specs, req.resolve_goal(), cfg=req.cfg,
+                              network=req.network)
+                solo_walls[_label(req)] = time.perf_counter() - tic
+                solo[_label(req)] = _result_json(out, FLEET_STATS)
+            del out
+            torch.cuda.synchronize()
+            mem_solo = torch.cuda.memory_allocated()
+        finally:
+            gc.enable()
+        solo_counts = _dp_counts(io0, bk.io_counts(), c0, _counts())
+        solo_sum = sum(solo_walls.values())
+        print(f"service memory: {mem_solo} B after {len(reqs)} solo "
+              "compiles with the collector off", flush=True)
+        check(abs(mem_solo - mem0) <= MIB, f"{len(reqs)} solo compiles "
+              f"left {mem_solo - mem0} B of device memory")
+
+        # solo through one store: the same compiles, one after another,
+        # sharing master tables, transitions, prunings and resident
+        # lanes (schedule cache off), so that the fleet's gain splits
+        # into artifact reuse and launch merging
+        store = ArtifactStore()
+        io0, c0 = bk.io_counts(), _counts()
+        tic = time.perf_counter()
+        for req in reqs:
+            out = CompileService(store=store, use_schedule_cache=False) \
+                .compile(req.specs, goal=req.resolve_goal(), cfg=req.cfg,
+                         network=req.network)
+            check(_result_json(out, FLEET_STATS) == solo[_label(req)],
+                  f"solo through a store {_label(req)}: differs from solo")
+        stored_wall = time.perf_counter() - tic
+        stored_counts = _dp_counts(io0, bk.io_counts(), c0, _counts())
+        store.clear(stacks=True)
+        del store, out
+
+        # 1. the fleet: every request in one compile_many, under the
+        # profiler's device activity only (no host events: it costs the
+        # host nothing measurable)
+        svc = CompileService()
+        _reset_counts()
+        io0 = bk.io_counts()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tic = time.perf_counter()
+            fleet = svc.compile_many(reqs)
+            torch.cuda.synchronize()
+            fleet_wall = time.perf_counter() - tic
+        counts = {k: n for k, n in _counts().items() if k in DP_KERNELS}
+        fleet_counts = _dp_counts(io0, bk.io_counts(),
+                                  dict.fromkeys(DP_KERNELS, 0), counts)
+        print(f"service launches: {json.dumps(counts)}", flush=True)
+        for name in DP_KERNELS:
+            check(counts[name] > 0,
+                  f"kernel {name} was not launched by the fleet")
+        for req, res in zip(reqs, fleet):
+            check(_result_json(res, FLEET_STATS) == solo[_label(req)],
+                  f"fleet {_label(req)}: differs from the solo compile")
+        print(f"service fleet: {len(reqs)} requests  wall "
+              f"{fleet_wall:.3f} s against {solo_sum:.3f} s of solo "
+              f"walls ({fleet_wall / solo_sum:.3f}) and {stored_wall:.3f} "
+              f"s of solo compiles through one store "
+              f"({fleet_wall / stored_wall:.3f}); identical to each solo "
+              "compile on the card", flush=True)
+        print(f"service launches fleet {json.dumps(fleet_counts)}; solo "
+              f"{json.dumps(solo_counts)}; solo through one store "
+              f"{json.dumps(stored_counts)}", flush=True)
+        _print_busy("profile service fleet", prof, fleet_wall * 1e6)
+
+        # 2. warm answers: the schedule cache, then lanes already resident
+        c0 = _counts()
+        again = svc.compile_many(reqs)
+        delta = {k: _counts()[k] - c0[k] for k in DP_KERNELS}
+        check(not any(delta.values()),
+              f"cached repeat launched kernels: {delta}")
+        check([_result_json(r) for r in again]
+              == [_result_json(r) for r in fleet],
+              "cached repeat differs from the fleet")
+        io0 = bk.io_counts()
+        tic = time.perf_counter()
+        warm = CompileService(store=svc.store, use_schedule_cache=False) \
+            .compile_many(reqs)
+        warm_wall = time.perf_counter() - tic
+        uploads = bk.io_counts()["h2d_lane_uploads"] \
+            - io0["h2d_lane_uploads"]
+        check(uploads == 0, f"warm repeat uploaded {uploads} lanes")
+        check([_result_json(r) for r in warm]
+              == [_result_json(r) for r in fleet],
+              "warm repeat differs from the fleet")
+        stats = svc.store.stats()
+        print(f"service warm: cached repeat 0 launches; warm repeat "
+              f"(schedule cache off) wall {warm_wall:.3f} s, 0 lane "
+              f"uploads, {stats['resident_lanes']} lanes resident, lane "
+              f"hits {stats['hits']['lanes']}", flush=True)
+
+        # 3. device memory: the mirrors go with the lane stores
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        svc.store.clear(stacks=True)
+        torch.cuda.synchronize()
+        mem2 = torch.cuda.memory_allocated()
+        print(f"service memory: allocated {mem0} B before the fleet, "
+              f"{mem1} B with the mirrors resident, {mem2} B after "
+              f"clear(stacks=True)", flush=True)
+        check(mem1 > mem0, "no device memory held by the lane mirrors")
+        check(abs(mem2 - mem0) <= MIB,
+              f"clear left {mem2 - mem0} B of device memory")
+
+        # 4. two threads, one service, under the lock checker
+        lockcheck.enable()
+        lockcheck.reset()
+        try:
+            shared = CompileService(use_schedule_cache=False)
+            mine = service_requests(DEVICE, nets=THREAD_NETS,
+                                    fractions=(0.9,), goals=False)
+            out, errors = {}, []
+
+            def run(tid, order):
+                try:
+                    res = shared.compile_many([mine[i] for i in order])
+                    out[tid] = dict(zip(order, res))
+                except BaseException as exc:    # re-raised below
+                    errors.append(exc)
+
+            tic = time.perf_counter()
+            order = list(range(len(mine)))
+            threads = [threading.Thread(target=run, args=(t, o))
+                       for t, o in enumerate((order, order[::-1]))]
+            for t in threads:
+                t.start()
+            for t in threads:
+                t.join(timeout=300)
+            wall = time.perf_counter() - tic
+            check(not any(t.is_alive() for t in threads),
+                  "a compile_many thread did not finish")
+            if errors:
+                raise errors[0]
+            for res in out.values():
+                for i, r in res.items():
+                    check(_result_json(r, FLEET_STATS)
+                          == solo[_label(mine[i])],
+                          f"thread {_label(mine[i])}: differs from solo")
+            report = lockcheck.assert_clean()
+            locks = lockcheck.graph()["locks"]
+            shared.store.clear()
+        finally:
+            lockcheck.disable()
+        print(f"service threads: 2 x compile_many of {len(mine)} on one "
+              f"service, wall {wall:.3f} s, equal to solo; lockcheck "
+              f"clean: {len(report['edges'])} edges, 0 cycles, 0 hazards "
+              f"over {len(locks)} locks {locks}", flush=True)
+
+        # 5. the farm: 2 workers on the card, then 1 fresh one warm
+        with tempfile.TemporaryDirectory() as root:
+            _farm_run(root, solo, 2)
+            warm_counters = _farm_run(root, solo, 1)
+        check(warm_counters["disk_hits"]["schedule"] > 0,
+              "the second farm answered nothing from the first one's disk")
+
+        # the CPU side, computed meanwhile
+        tic = time.perf_counter()
+        cpu = cpu_side.result(timeout=600)
+        for req, res, want in zip(reqs, fleet, cpu):
+            check(_result_json(res) == want,
+                  f"fleet {_label(req)}: differs from the CPU fleet")
+        print(f"service CPU: the fleet ({len(cpu)} results) identical to "
+              f"the CPU compiles (waited {time.perf_counter() - tic:.3f} s "
+              "for them)", flush=True)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    return counts
+
+
 def sass_count(lib, op: str) -> int:
     """Instructions of ``op`` (e.g. ``HGMMA``, ``IGMMA``: what ``wgmma``
     compiles to for bf16 and int8) in a built library's SASS
@@ -1915,6 +2294,21 @@ def attention_kernels_only() -> int:
     return 0
 
 
+def service_only() -> int:
+    """``--service``: build the rail-sweep library alone and run the
+    service phase; no result line."""
+    from repro_torch.kernels import dp_sweep as ks
+
+    tic = time.perf_counter()
+    ks.LIBRARY.load()
+    print(f"build: {ks.LIBRARY.path().name} in "
+          f"{time.perf_counter() - tic:.2f} s", flush=True)
+    tic = time.perf_counter()
+    service_phase()
+    print(f"phase service: {time.perf_counter() - tic:.3f} s", flush=True)
+    return 0
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -1948,6 +2342,8 @@ def main(argv: list[str]) -> int:
         return sweep_kernels_only(OrchestratorConfig().k_candidates)
     if argv == ["--attention-kernels"]:
         return attention_kernels_only()
+    if argv == ["--service"]:
+        return service_only()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -1973,6 +2369,9 @@ def main(argv: list[str]) -> int:
     tic = time.perf_counter()
     policy_phase()
     print(f"phase policy: {time.perf_counter() - tic:.3f} s", flush=True)
+    tic = time.perf_counter()
+    service_phase()
+    print(f"phase service: {time.perf_counter() - tic:.3f} s", flush=True)
     for row in rows:
         name = row["name"]
         row["launches"] = (serve_counts if name.startswith("flash")

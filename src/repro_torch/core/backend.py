@@ -48,6 +48,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
+from repro_torch.analysis.lockcheck import make_lock
 from repro_torch.kernels.dp_sweep import (
     dp_multi_stacked,
     kbest_multi_stacked,
@@ -199,7 +200,7 @@ class BucketStack:
         self.n = 0
         self._cap = 8
         self.slot: dict = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("backend.bucket._lock")
         # backend-owned per-bucket scratch (the device lane mirror):
         # dies with the stack, so dropping a stack frees its device
         # buffers too
@@ -280,12 +281,35 @@ class StackCaches:
     """The round scheduler's persistent per-bucket-signature
     :class:`BucketStack` lane stores (signature = ``(levels, n_layers,
     s_pad)`` for a sweep job).  A fresh instance per sweep is the
-    default; reuse only ever turns lane copies into cache hits (lane
-    contents are content-addressed), never changes a kernel result."""
+    default; a process-wide owner (the fleet service's
+    :class:`~repro_torch.service.ArtifactStore`) keeps one alive across
+    compilations.  Reuse only ever turns lane copies into cache hits
+    (lane contents are content-addressed), never changes a kernel
+    result.  Each store's device mirror lives in its ``scratch``, so
+    :meth:`clear` frees the device buffers with the host lanes."""
 
     def __init__(self):
         self.buckets: dict[tuple, BucketStack] = {}
-        self._lock = threading.Lock()
+        self._lock = make_lock("backend.stacks._lock")
+        # warm-lane lookup counters (the "lanes" category of
+        # ArtifactStore.stats): a hit means a task reused a resident
+        # lane's padded tensors and skipped build_padded entirely
+        self.lane_hits = 0
+        self.lane_misses = 0
+
+    def warm_padded(self, bucket_sig: tuple, lane_key) -> object | None:
+        """Resident-lane lookup for a task being admitted: the
+        zero-copy :class:`PaddedArrays` of ``lane_key`` in the
+        ``bucket_sig`` store, or None — counted as a "lanes" hit or
+        miss either way."""
+        bs = self.buckets.get(bucket_sig)
+        warm = bs.padded(lane_key) if bs is not None else None
+        with self._lock:
+            if warm is None:
+                self.lane_misses += 1
+            else:
+                self.lane_hits += 1
+        return warm
 
     def bucket(self, sig: tuple, n_layers: int, s_pad: int) -> BucketStack:
         bs = self.buckets.get(sig)          # lock-free fast path
@@ -465,11 +489,25 @@ class TorchBackend:
         elif dev.type != "cpu":
             raise ValueError(f"TorchBackend: unsupported device {dev}")
         self.device = dev
-        # host→device traffic and launch accounting of the lane path
-        # (stats only, so no lock)
+        # host→device traffic and launch accounting of the lane path;
+        # the parallel sweep and concurrent compile_many calls share
+        # one backend, so every update goes through _count.  A leaf
+        # lock: nothing else is ever acquired while it is held.
         self.io_stats = {"h2d_lane_uploads": 0, "h2d_lane_bytes": 0,
                          "kernel_dispatches": 0, "gather_calls": 0,
-                         "gather_groups": 0}
+                         "gather_groups": 0, "dp_lanes": 0,
+                         "kbest_lanes": 0}
+        self._io_lock = threading.Lock()
+
+    def _count(self, **deltas: int) -> None:
+        with self._io_lock:
+            for name, n in deltas.items():
+                self.io_stats[name] += n
+
+    def io_counts(self) -> dict:
+        """A consistent copy of :attr:`io_stats`."""
+        with self._io_lock:
+            return dict(self.io_stats)
 
     def _put(self, arr: np.ndarray, dtype=None) -> torch.Tensor:
         arr = np.ascontiguousarray(arr, dtype=dtype)
@@ -524,6 +562,7 @@ class TorchBackend:
         (counted in ``io_stats``), capacity growth copies on the device,
         and a warm sync is a bookkeeping check."""
         key = ("torch_lanes", str(self.device))
+        uploads = nbytes = 0
         with store._lock:
             m = store.scratch.get(key)
             if m is None:
@@ -548,11 +587,11 @@ class TorchBackend:
                 for arr, h in zip(m.arrays, host):
                     arr[m.n:store.n].copy_(
                         torch.from_numpy(h[m.n:store.n]))
-                self.io_stats["h2d_lane_uploads"] += store.n - m.n
-                self.io_stats["h2d_lane_bytes"] += sum(
-                    h[m.n:store.n].nbytes for h in host)
+                uploads = store.n - m.n
+                nbytes = sum(h[m.n:store.n].nbytes for h in host)
             m.n = store.n
-            return m
+        self._count(h2d_lane_uploads=uploads, h2d_lane_bytes=nbytes)
+        return m
 
     @staticmethod
     def _lanes_of(store: BucketStack, lanes: Sequence[int]) -> np.ndarray:
@@ -576,7 +615,7 @@ class TorchBackend:
         ln, we, wt = self._stage(idx, np.asarray(w_e, np.float64),
                                  np.asarray(w_t, np.float64))
         out = dp_multi_stacked(*m.arrays[:5], ln, we, wt)
-        self.io_stats["kernel_dispatches"] += 1
+        self._count(kernel_dispatches=1, dp_lanes=len(idx))
         pend = self._fetch(out, lambda a: a.astype(np.int64))
         return pend if defer else pend.get()
 
@@ -595,7 +634,7 @@ class TorchBackend:
         out = torch.empty(n_paths + B * K, dtype=torch.int32,
                           device=self.device)
         kbest_multi_stacked(*m.arrays[:5], ln, mu, k, out=out)
-        self.io_stats["kernel_dispatches"] += 1
+        self._count(kernel_dispatches=1, kbest_lanes=B)
         pend = self._fetch(out, lambda a: (
             a[:n_paths].reshape(B, K, k, L).astype(np.int64),
             a[n_paths:].reshape(B, K).astype(np.int64)))
@@ -657,9 +696,8 @@ class TorchBackend:
         paths)``; the result is the host sums of each job."""
         mirrors, lanes, paths = zip(*jobs)
         out, layout = path_components_grouped(mirrors, lanes, paths)
-        self.io_stats["kernel_dispatches"] += 1
-        self.io_stats["gather_calls"] += 1
-        self.io_stats["gather_groups"] += len(jobs)
+        self._count(kernel_dispatches=1, gather_calls=1,
+                    gather_groups=len(jobs))
         return self._fetch(out, lambda host: [
             _sum_components(c) for c in split_components(host, layout)])
 

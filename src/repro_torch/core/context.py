@@ -27,11 +27,11 @@ problem the monolithic builder would have produced.
 from __future__ import annotations
 
 import hashlib
-import threading
 from typing import Sequence
 
 import numpy as np
 
+from repro_torch.analysis.lockcheck import make_lock
 from repro_torch.core.edge_builder import (
     build_idle_model,
     layer_state_arrays,
@@ -63,20 +63,36 @@ class CompilationContext:
     """Per-compile shared state: characterization, bank plan, master
     state tables, and the content-keyed transition cache.  None of them
     depend on the deadline, so one context serves every deadline of its
-    network."""
+    network.
+
+    With an injected ``store`` (the fleet service's
+    :class:`~repro_torch.service.ArtifactStore`, or any object with the
+    same ``characterization`` / ``transition`` / ``master`` /
+    ``put_master`` methods), everything content-addressable is read
+    from — and published to — the process-wide store instead of being
+    rebuilt per compile: layer characterization + bank plan, the master
+    per-layer state tables, and the pairwise transition matrices.
+
+    ``cost_model`` (anything with a ``digest`` and an
+    ``apply(costs)``) compiles under a measured or learned cost model
+    instead of the static analytic one; its digest is folded into every
+    derived key.
+    """
 
     def __init__(self, specs: Sequence[LayerSpec],
                  target_rate_hz: float | None = None,
                  *, acc: Edge40nmAccelerator = EDGE40NM_DEFAULT,
                  network: str = "net",
                  e_switch_nom: float | None = None,
-                 deadline_s: float | None = None):
+                 store=None, deadline_s: float | None = None,
+                 cost_model=None):
         if target_rate_hz is not None and deadline_s is not None:
             raise ValueError(
                 "give at most one of target_rate_hz / deadline_s")
         self.specs = list(specs)
         self.acc = acc
         self.network = network
+        self.store = store
         # the *default* deadline for problem_for(t_max=None); a
         # deadline-free context (both None) requires callers to pass
         # t_max explicitly
@@ -89,14 +105,32 @@ class CompilationContext:
         self.transition_model = acc.transitions(e_switch_nom)
         # content keys (deterministic digests of frozen-dataclass
         # reprs): specs_acc_key addresses everything derived from
-        # (specs, acc); content_key folds in the transition model and
-        # addresses subset lane stores
-        self.cost_model_digest = "static"
+        # (specs, acc) under the static analytic cost model — the
+        # shared characterization; model_key folds in an injected
+        # cost-model digest and addresses the master state tables;
+        # content_key folds in the transition model on top and
+        # addresses subset lane stores, prunings and the service's
+        # schedule cache.  With cost_model=None every key is the
+        # reference's byte for byte.
+        self.cost_model = cost_model
+        self.cost_model_digest = "static" if cost_model is None \
+            else cost_model.digest
         self.specs_acc_key = _digest(repr(tuple(self.specs)), repr(acc))
-        self.content_key = _digest(self.specs_acc_key,
+        self.model_key = self.specs_acc_key if cost_model is None \
+            else _digest(self.specs_acc_key, self.cost_model_digest)
+        self.content_key = _digest(self.model_key,
                                    repr(self.transition_model))
-        self.costs = characterize_network(self.specs, acc)
-        self.plan = plan_banks(self.costs, acc)
+        self._tm_key = repr(self.transition_model)
+        if store is not None:
+            self.costs, self.plan = store.characterization(
+                self.specs, acc, key=self.specs_acc_key)
+        else:
+            self.costs = characterize_network(self.specs, acc)
+            self.plan = plan_banks(self.costs, acc)
+        if cost_model is not None:
+            # per-layer corrections scale work; the bank plan stays
+            # static (weight placement depends on spec bytes)
+            self.costs = cost_model.apply(self.costs)
         # gating flag -> per-layer master voltage / t / e tables
         self._master_volts: dict[bool, list[np.ndarray]] = {}
         self._master_t_op: dict[bool, list[np.ndarray]] = {}
@@ -117,28 +151,44 @@ class CompilationContext:
         # (gating, volts content, subset) -> master-state index vector
         self._slice_cache: dict[tuple[bool, bytes, tuple[float, ...]],
                                 np.ndarray] = {}
-        # master-table construction is guarded by this lock (its four
-        # dicts must become visible together); the transition and slice
-        # caches stay lock-free — concurrent misses recompute the same
-        # immutable value and dict writes are atomic under the GIL
-        self._master_lock = threading.Lock()
+        # The parallel rail sweep shares one context across worker
+        # threads.  Master-table construction is guarded by this lock
+        # (its four dicts must become visible together); the transition
+        # and slice caches stay lock-free — concurrent misses recompute
+        # the same immutable value and dict writes are atomic under the
+        # GIL, so a race only wastes work.
+        self._master_lock = make_lock("context._master_lock")
 
     # -- master state table -------------------------------------------
     def _master_arrays(self, gating: bool) -> None:
         """Build the per-layer master voltage/t/e arrays once per gating
         flag (vectorized — every rail subset is an index slice of these
-        arrays)."""
+        arrays).  With a store, the record is fetched from — or built
+        and published to — the store under this context's master lock;
+        the store's record is immutable once published, so two contexts
+        racing on a cold store only duplicate work."""
         with self._master_lock:
             if gating in self._master_volts:
                 return
-            cols = [layer_state_arrays(c, i, self.acc, self.plan,
-                                       self.levels, gating=gating)
-                    for i, c in enumerate(self.costs)]
-            self._master_t_op[gating] = [t for _, t, _ in cols]
-            self._master_e_op[gating] = [e for _, _, e in cols]
-            self._master_vkey[gating] = [v.tobytes() for v, _, _ in cols]
+            rec = None
+            mkey = (self.model_key, gating)
+            if self.store is not None:
+                rec = self.store.master(mkey)
+            if rec is None:
+                cols = [layer_state_arrays(c, i, self.acc, self.plan,
+                                           self.levels, gating=gating)
+                        for i, c in enumerate(self.costs)]
+                rec = {"volts": [v for v, _, _ in cols],
+                       "t_op": [t for _, t, _ in cols],
+                       "e_op": [e for _, _, e in cols],
+                       "vkey": [v.tobytes() for v, _, _ in cols]}
+                if self.store is not None:
+                    self.store.put_master(mkey, rec)
+            self._master_t_op[gating] = rec["t_op"]
+            self._master_e_op[gating] = rec["e_op"]
+            self._master_vkey[gating] = rec["vkey"]
             # set last: readers key "is the master built?" off this
-            self._master_volts[gating] = [v for v, _, _ in cols]
+            self._master_volts[gating] = rec["volts"]
 
     def master_states(self, gating: bool) -> list[list[StateCost]]:
         """Per-layer master :class:`StateCost` lists — the record view
@@ -183,7 +233,15 @@ class CompilationContext:
         key = (ka, kb)
         hit = self._trans_cache.get(key)
         if hit is None:
-            hit = _pairwise_transition(self.transition_model, va, vb)
+            if self.store is not None:
+                # shared content-keyed cache (the store's key adds the
+                # transition-model content, so different accelerators
+                # or e_switch_nom never alias)
+                hit = self.store.transition(self._tm_key, ka, kb,
+                                            self.transition_model,
+                                            va, vb)
+            else:
+                hit = _pairwise_transition(self.transition_model, va, vb)
             self._trans_cache[key] = hit
         return hit
 

@@ -619,7 +619,8 @@ class StackedLambdaTask:
                  bisect_iters: int = 48, bisect_rel_tol: float = 0.0,
                  collect_idle_branches: bool = True,
                  lam_hint: float | None = None,
-                 lane_key=None, sig_prefix: tuple = (), goal=None):
+                 lane_key=None, sig_prefix: tuple = (), caches=None,
+                 goal=None):
         self.idx = idx
         self.rails = rails
         self.problem = problem
@@ -631,13 +632,20 @@ class StackedLambdaTask:
         self.stats.states_explored = problem.n_states()
         self.stats.edges_explored = problem.n_edges()
         # lane provenance for the round scheduler: a content-derived
-        # lane key lets a BucketStack shared across compiles recognize
-        # this subset's padded tensors and skip the admission copy.  The
-        # bucket signature is ``sig_prefix + (n_layers, s_pad)`` (the
-        # pfdnn sweep prefixes the accelerator's voltage levels).
+        # lane key lets a BucketStack shared across compiles (the
+        # fleet service's) recognize this subset's padded tensors,
+        # skipping both the admission copy and, here, build_padded (the
+        # resident lane is read back as a zero-copy view).  The bucket
+        # signature is ``sig_prefix + (n_layers, s_pad)`` (the pfdnn
+        # sweep prefixes the accelerator's voltage levels).
         self.lane_key = lane_key
         self.bucket_sig = sig_prefix + (
             problem.n_layers, pad_bucket(max(problem.sizes)))
+        if caches is not None and lane_key is not None \
+                and problem._padded is None:
+            warm = caches.warm_padded(self.bucket_sig, lane_key)
+            if warm is not None:
+                problem._padded = warm
         self.uid: int | None = None      # assigned by run_stacked_sweeps
         self.padded = problem.padded_arrays()
         self.bucket = bucket_key(self.padded)

@@ -28,6 +28,7 @@ validate, build the context, dispatch.
 
 from __future__ import annotations
 
+import os
 from typing import Sequence
 
 from repro_torch.core.context import CompilationContext
@@ -65,6 +66,8 @@ def compile(
     acc: Edge40nmAccelerator = EDGE40NM_DEFAULT,
     network: str | None = None,
     ctx: CompilationContext | None = None,
+    store=None,
+    cost_model=None,
 ) -> PowerSchedule | InfeasibleGoal | ParetoFrontier:
     """Compile a deployment power schedule for an explicit goal.
 
@@ -81,19 +84,31 @@ def compile(
     policies, goals and deadlines of the same network (none of the
     context's artifacts depend on the deadline); it must describe the
     same network, accelerator, and transition energy — mismatches raise
-    ``ValueError``.
+    ``ValueError``.  ``store`` plugs a process-wide artifact store
+    (:class:`repro_torch.service.ArtifactStore`) into a freshly built
+    context; a ``str``/``PathLike`` builds a *disk-backed* store over
+    that directory (the on-disk tier of :mod:`repro_torch.service.disk`,
+    shared by every process pointed at the same path).
+
+    ``cost_model`` compiles under a measured or learned cost model
+    (anything with a ``digest`` and an ``apply(costs)``) instead of the
+    static analytic one; its digest is folded into every derived
+    artifact key and stamped on the emitted schedule
+    (``PowerSchedule.cost_model``).
     """
     goal = as_goal(goal)
     cfg = cfg or OrchestratorConfig()
+    store = _resolve_store(store)
     if ctx is None:
         ctx = CompilationContext(
             specs, acc=acc,
             network=network if network is not None else "net",
-            e_switch_nom=cfg.e_switch_nom,
+            e_switch_nom=cfg.e_switch_nom, store=store,
             deadline_s=goal.deadline if isinstance(goal, MinEnergy)
-            else None)
+            else None, cost_model=cost_model)
     else:
-        _check_reused_context(ctx, specs, acc, cfg, network=network)
+        _check_reused_context(ctx, specs, acc, cfg, network=network,
+                              store=store, cost_model=cost_model)
     if isinstance(goal, ParetoFront):
         return _compile_frontier(ctx, goal, cfg)
     sched = _dispatch(ctx, cfg, goal)
@@ -109,13 +124,31 @@ def compile_power_schedule(
     cfg: OrchestratorConfig | None = None,
     acc: Edge40nmAccelerator = EDGE40NM_DEFAULT,
     network: str | None = None,
+    ctx: CompilationContext | None = None,
+    store=None,
 ) -> PowerSchedule | None:
     """Back-compat wrapper: compile the paper's scenario — min energy at
     a periodic inference rate (``MinEnergy(rate_hz=...)``, §3.3) — and
     keep the legacy ``None`` for an infeasible deadline."""
     result = compile(specs, MinEnergy(rate_hz=target_rate_hz), cfg=cfg,
-                     acc=acc, network=network)
+                     acc=acc, network=network, ctx=ctx, store=store)
     return None if isinstance(result, InfeasibleGoal) else result
+
+
+def _resolve_store(store):
+    """Accept a ready store object or a filesystem path: paths build a
+    disk-backed :class:`~repro_torch.service.ArtifactStore` on the fly.
+    Imported lazily; :mod:`repro_torch.service` depends on this
+    module."""
+    if store is None or hasattr(store, "characterization"):
+        return store
+    if isinstance(store, (str, os.PathLike)):
+        from repro_torch.service.store import ArtifactStore
+
+        return ArtifactStore(disk_path=store)
+    raise TypeError(
+        f"store= must be an ArtifactStore-like object or a directory "
+        f"path, got {type(store).__name__}")
 
 
 def _dispatch(ctx: CompilationContext, cfg: OrchestratorConfig,
@@ -178,6 +211,7 @@ def _compile_frontier(ctx: CompilationContext, goal: ParetoFront,
     so every point's schedule is identical to an independent MinEnergy
     compile at that deadline."""
     deadlines = goal.resolve_deadlines(ctx.min_t_op_bound(ctx.levels))
+    caches = ctx.store.stack_caches if ctx.store is not None else None
     # duplicate deadlines (explicit repeats) solve once and fan out
     results: dict[float, object] = {}
     jobs = []
@@ -185,9 +219,9 @@ def _compile_frontier(ctx: CompilationContext, goal: ParetoFront,
         if deadline in results:
             continue
         sub = MinEnergy(deadline_s=deadline)
-        job = stacked_compile_job(ctx, cfg, goal=sub)
+        job = stacked_compile_job(ctx, cfg, caches=caches, goal=sub)
         if job is None:
-            # non-stackable policy: plain per-point compile
+            # non-stackable policy or config: plain per-point compile
             sched = _dispatch(ctx, cfg, sub)
             results[deadline] = sched if sched is not None \
                 else infeasible_result(sub, ctx)
@@ -197,7 +231,7 @@ def _compile_frontier(ctx: CompilationContext, goal: ParetoFront,
     if jobs:
         _wire_incumbent_seeds(jobs)
         fleet = run_stacked_sweeps([job.sweep for _, _, job in jobs],
-                                   backend=cfg.device)
+                                   backend=cfg.device, caches=caches)
         for deadline, sub, job in jobs:
             sched = job.emit(fleet)
             results[deadline] = sched if sched is not None \
@@ -250,11 +284,18 @@ def _check_reused_context(ctx: CompilationContext,
                           specs: Sequence[LayerSpec],
                           acc: Edge40nmAccelerator,
                           cfg: OrchestratorConfig, *,
-                          network: str | None) -> None:
+                          network: str | None, store,
+                          cost_model=None) -> None:
     """A reused context must match the compile request — a silently
     mismatched context would emit a schedule for the wrong network or
-    transition energies.  The deadline is deliberately NOT checked:
-    none of the context's artifacts depend on it."""
+    transition energies (or bypass the caller's artifact store).  The
+    deadline is deliberately NOT checked: none of the context's
+    artifacts depend on it."""
+    if store is not None and store is not ctx.store:
+        raise ValueError(
+            "ctx= carries its own artifact store; passing a different "
+            "store= alongside it would be silently ignored — build the "
+            "context with that store instead")
     if network is not None and network != ctx.network:
         raise ValueError(
             f"ctx= was built for network label {ctx.network!r} but the "
@@ -271,3 +312,13 @@ def _check_reused_context(ctx: CompilationContext,
         raise ValueError(
             "ctx= was built with a different e_switch_nom than cfg "
             "requests; build a new CompilationContext")
+    # cost_model=None inherits whatever model the context carries; an
+    # explicit model must match it (a silent mismatch would emit a
+    # schedule stamped — and cached — under the wrong model)
+    if cost_model is not None \
+            and cost_model.digest != ctx.cost_model_digest:
+        raise ValueError(
+            f"ctx= was built under cost model "
+            f"{ctx.cost_model_digest!r} but the request passes "
+            f"{cost_model.digest!r}; build a matching "
+            "CompilationContext (or drop cost_model= to inherit)")

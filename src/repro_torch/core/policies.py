@@ -300,7 +300,8 @@ class _PfdnnStackedTask(StackedLambdaTask):
                  problem: ScheduleProblem, cfg: OrchestratorConfig,
                  agg: dict, problems: dict,
                  lam_hint: float | None = None,
-                 lane_key=None, sig_prefix: tuple = (), goal=None):
+                 lane_key=None, sig_prefix: tuple = (), caches=None,
+                 goal=None, prune_cache=None, prune_key=None):
         self._orig = problem
         self._cfg = cfg
         self._agg = agg
@@ -310,13 +311,14 @@ class _PfdnnStackedTask(StackedLambdaTask):
         self._moves: int | None = None
         target = problem
         if cfg.prune:
-            target, pinfo = prune_problem(problem)
+            target, pinfo = prune_problem(problem, cache=prune_cache,
+                                          cache_key=prune_key)
             self._index_maps = pinfo.pop("index_maps")
         super().__init__(
             idx, rails, target, k_candidates=cfg.k_candidates,
             bisect_rel_tol=cfg.bisect_rel_tol if cfg.warm_start else 0.0,
             lam_hint=lam_hint, lane_key=lane_key, sig_prefix=sig_prefix,
-            goal=goal)
+            caches=caches, goal=goal)
         self.stats.backend = get_backend(cfg.device).name
 
     def _post_machine(self):
@@ -377,12 +379,15 @@ class StackedSweepJob:
     one per deadline); ``job.emit(fleet_stats)`` afterwards binds the
     sweep's selection to the deployable
     :class:`~repro_torch.core.schedule.PowerSchedule`.  Tasks carry
-    content-derived lane keys (network content × rails × pruning).
+    content-derived lane keys (network content × rails × pruning), so a
+    persistent store-owned cache (``caches``) recognizes resident subset
+    lanes across compiles, and the fleet compile service co-schedules
+    many networks' jobs in one round scheduler.
     """
 
     def __init__(self, policy: str, ctx: CompilationContext,
                  cfg: OrchestratorConfig, *, prune: bool = True,
-                 goal=None, subsets=None):
+                 caches=None, goal=None, subsets=None):
         self.policy = policy
         self.ctx = ctx
         self.cfg = cfg
@@ -422,6 +427,7 @@ class StackedSweepJob:
         # same-accelerator networks stack
         lane_base = (ctx.content_key, True, True, bool(cfg_local.prune))
         sig_prefix = (ctx.levels,)
+        prune_cache = ctx.store if cfg_local.prune else None
 
         def make_task(idx: int, rails: tuple[float, ...],
                       hint: dict | None = None) -> _PfdnnStackedTask:
@@ -435,12 +441,22 @@ class StackedSweepJob:
                                      self.agg, self.problems,
                                      lam_hint=lam_hint,
                                      lane_key=lane_base + (rails,),
-                                     sig_prefix=sig_prefix, goal=goal)
+                                     sig_prefix=sig_prefix,
+                                     caches=caches, goal=goal,
+                                     prune_cache=prune_cache,
+                                     prune_key=(ctx.content_key, True,
+                                                rails))
 
         self.sweep = StackedSweep(subsets, make_task, bound_fn=bound_fn,
                                   objective=objective,
                                   max_live=cfg.stack_max_live,
                                   name=ctx.network)
+
+    def start_clock(self) -> None:
+        """Restart the wall-time clock: ``compile_many`` builds every
+        job up front but runs one fleet per device, so each job's
+        ``wall_time_s`` starts when its fleet does."""
+        self._tic = time.perf_counter()
 
     def emit(self, fleet: dict) -> PowerSchedule | None:
         """Bind the finished sweep's selection to the schedule artifact
@@ -468,16 +484,19 @@ _STACKABLE_SWEEPS = {"pfdnn": True, "pfdnn_nopp": False}
 
 
 def stacked_compile_job(ctx: CompilationContext, cfg: OrchestratorConfig,
-                        *, goal=None) -> StackedSweepJob | None:
+                        *, caches=None, goal=None
+                        ) -> StackedSweepJob | None:
     """Build the :class:`StackedSweepJob` for ``cfg`` when its policy
     routes to the subset-stacked engine, else None (a non-sweep policy
-    or the evenly-spaced ablation).  The frontier compiler uses this to
-    co-schedule all points of a ParetoFront in one round scheduler."""
+    or the evenly-spaced ablation).  The frontier compiler and the
+    fleet service use this to co-schedule many sweeps — of any mix of
+    MinEnergy and MinLatency goals — in one round scheduler."""
     goal = _default_goal(ctx, goal)
     prune = _STACKABLE_SWEEPS.get(cfg.policy)
     if prune is None:
         return None
-    return StackedSweepJob(cfg.policy, ctx, cfg, prune=prune, goal=goal)
+    return StackedSweepJob(cfg.policy, ctx, cfg, prune=prune,
+                           caches=caches, goal=goal)
 
 
 def _solve_budget_sweep(policy: str, ctx: CompilationContext,
@@ -492,9 +511,11 @@ def _solve_budget_sweep(policy: str, ctx: CompilationContext,
                    for k in range(1, cfg.n_max_rails + 1)]
     else:
         subsets = None
-    job = StackedSweepJob(policy, ctx, cfg, prune=prune, goal=goal,
-                          subsets=subsets)
-    fleet = run_stacked_sweeps([job.sweep], backend=cfg.device)
+    caches = ctx.store.stack_caches if ctx.store is not None else None
+    job = StackedSweepJob(policy, ctx, cfg, prune=prune, caches=caches,
+                          goal=goal, subsets=subsets)
+    fleet = run_stacked_sweeps([job.sweep], backend=cfg.device,
+                               caches=caches)
     return job.emit(fleet)
 
 
@@ -510,8 +531,11 @@ def _solve_sweep(policy: str, ctx: CompilationContext,
     if not even:
         # subset-stacked engine: whole same-bucket buckets of live
         # subsets advance one λ-search round per kernel launch
-        job = StackedSweepJob(policy, ctx, cfg, prune=prune, goal=goal)
-        fleet = run_stacked_sweeps([job.sweep], backend=cfg.device)
+        caches = ctx.store.stack_caches if ctx.store is not None else None
+        job = StackedSweepJob(policy, ctx, cfg, prune=prune,
+                              caches=caches, goal=goal)
+        fleet = run_stacked_sweeps([job.sweep], backend=cfg.device,
+                                   caches=caches)
         return job.emit(fleet)
 
     # the evenly-spaced ablation: n_max subsets solved one after the

@@ -33,10 +33,28 @@ def _worst_case_transition(problem: ScheduleProblem) -> tuple[float, float]:
     return t_bound, e_bound
 
 
-def prune_problem(problem: ScheduleProblem
-                  ) -> tuple[ScheduleProblem, dict]:
-    """Return a pruned copy of the problem + stats + index maps."""
-    return _apply_keep(problem, _compute_keep(problem))
+def prune_problem(problem: ScheduleProblem, *, cache=None,
+                  cache_key=None) -> tuple[ScheduleProblem, dict]:
+    """Return a pruned copy of the problem + stats + index maps.
+
+    ``cache``/``cache_key`` plug a content-addressed store of the
+    per-layer keep-index maps (the fleet service's
+    :class:`~repro_torch.service.ArtifactStore`, or any object with
+    ``pruning(key)`` / ``put_pruning(key, maps)``): the domination
+    scoring depends only on (network content, accelerator + transition
+    model, gating, rails), never on the deadline or goal, so repeats
+    rebuild the pruned *view* from the cached maps without re-scoring.
+    Callers key by ``(content_key, gating, rails)``.
+    """
+    if cache is not None and cache_key is not None:
+        maps = cache.pruning(cache_key)
+        if maps is not None:
+            return _apply_keep(problem, [list(m) for m in maps])
+    index_maps = _compute_keep(problem)
+    if cache is not None and cache_key is not None:
+        cache.put_pruning(cache_key,
+                          tuple(tuple(m) for m in index_maps))
+    return _apply_keep(problem, index_maps)
 
 
 def _compute_keep(problem: ScheduleProblem) -> list[list[int]]:

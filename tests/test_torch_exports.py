@@ -28,13 +28,15 @@ from repro_torch.models.edge_cnn import edge_network
 from repro_torch.perfmodel import characterize_network
 from repro_torch.perfmodel.layer_costs import nominal_latency
 
-PACKAGES = ("core", "kernels", "hw", "perfmodel", "serve", "models")
+PACKAGES = ("core", "kernels", "hw", "perfmodel", "serve", "models",
+            "service", "analysis")
 
 # Names of the reference the port leaves out on purpose, by package or
 # module.  Each entry must still be missing from the port: once it is
 # ported, it leaves this list.
 OMITTED = {
-    # the scalar solver path and its config knobs (ROADMAP Queue 1, 1)
+    # the scalar solver path (the host DP and its bisection) and the
+    # thread-pool sweep's knobs: slower routes to the same schedules
     "core": {"dp_paths", "dp_best_path", "kbest_paths"},
     "core.lambda_dp": {"dp_paths", "dp_best_path", "kbest_paths"},
     "core.policies": {"sweep_workers", "stack_max_live"},
@@ -48,14 +50,15 @@ OMITTED = {
                 "path_components_pallas"},
     # the TPU adaptation (Queue 1, 10)
     "hw": {"TpuChipModel", "TPU_V5E"},
-    # faults and traffic (Queue 1, 2), the service (3), the control
-    # plane (5)
+    # faults and traffic (Queue 1, 2) and the control plane (5)
     "serve": {"AdaptiveConfig", "AdaptiveScheduler", "AsyncResolver",
               "ControlEvent", "EventLog", "MissLedger", "RateTracker",
               "ServeReport", "StaticSchedulePolicy", "serve_trace",
               "FaultConfig", "FaultInjector", "linear_drift", "SCENARIOS",
-              "TrafficConfig", "TrafficSimulator", "ArtifactStore",
-              "CompileRequest", "CompileService", "ContingencyBundle"},
+              "TrafficConfig", "TrafficSimulator"},
+    # the certifier and the determinism linter (Queue 1, 6); the
+    # package exposes its submodules lazily
+    "analysis": {"certify", "lint_determinism"},
     # the jnp attention oracles (the kernels' plain versions stand in)
     # and the other LM families (Queue 1, 7)
     "models.layers": {"AttnChunks", "decode_attention_jnp",
@@ -79,7 +82,8 @@ def _public(mod) -> set[str]:
         names = [n for n, v in vars(mod).items()
                  if not n.startswith("_")
                  and not isinstance(v, types.ModuleType)]
-    return set(names)
+    # submodules a package exposes lazily (``repro.analysis``)
+    return set(names) | set(getattr(mod, "_SUBMODULES", ()))
 
 
 def _defined(mod) -> set[str]:
