@@ -103,7 +103,33 @@ NVIDIA GPU:
      temporary disk store (8 requests, 2 tenants, no error, equal to
      solo) and a 1-worker farm of a fresh process answering from the
      first one's entries, with the p50 and p95 of each;
-  9. prints the ``kernels`` JSON line and, last, the result line.
+  9. control phase, the adaptive control plane on the card
+     (``benchmarks/serve_robustness.py``'s setup: squeezenet1.1 at full
+     width, ``pfdnn``, 3 rails, base rate 60 Hz provisioned at 0.85,
+     tightened variants at 0.92, seed 11, ``CONTROL_FRAMES`` frames a
+     row): compiles the contingency bundle in one
+     ``compile_contingencies`` (launch counts set to 0 just before and
+     read just after; DP, k-best and gather must launch); serves the
+     calm, bursty and drift traces, static and adaptive, then
+     drift_learned, whose blocking ledger-learned re-solves each run on
+     the card (wall and launches printed, each kernel launched by
+     each); computes the benchmark's acceptance block (its ``--smoke``
+     six must hold, all eight at 420 frames); runs an async re-solve,
+     awaited and equal to the blocking one, then one that the watchdog
+     abandons mid-flight while serving goes on (no error, device memory
+     back within 1 MiB after ``clear(stacks=True)``, ``lockcheck``
+     clean); the calibration harness (parity, a synthetic truth
+     recovered, publication and reuse through a disk store, the parity
+     model compiling the static schedule, ``solver_kernel_walls`` on the
+     card with the CUDA-event time of the same calls); a 3-band policy
+     table in one ``compile_many`` and a trace over its bands; 100
+     periods of ``PeriodicScheduler`` under the bursty faults; one
+     blocking re-solve under ``torch.profiler`` (idle share).  The same
+     phase runs on the CPU port in two spawned processes meanwhile;
+     every schedule, ``ServeReport``, event log, table, periodic ledger
+     and the walls' checksum must equal it;
+ 10. prints the card's name and power limit again, the ``kernels`` JSON
+     line and, last, the result line.
 
 ``profiler_check`` runs at the start, in the int8 phase and at the end:
 it times a spin kernel of a fixed cycle count by CUDA events and under
@@ -126,7 +152,9 @@ registers and spills (``ptxas -v``) and its plan, runs the prefill
 rows and prints the float32 serving row's events, back-to-back, device,
 bound and SDPA times; it prints no result line.  ``python3
 chip_smoke.py --service`` builds the rail-sweep library alone and runs
-the service phase; it prints no result line.  Run from a ``git
+the service phase; it prints no result line.  ``python3 chip_smoke.py
+--control`` builds the rail-sweep library alone and runs the control
+phase; it prints no result line.  Run from a ``git
 archive`` of another commit, this script times that commit's kernels
 (a tree without the float32 plan skips its check).
 """
@@ -2176,6 +2204,643 @@ def service_phase() -> dict:
     return counts
 
 
+# ----------------------------------------------------- control phase
+
+# benchmarks/serve_robustness.py's setup: squeezenet1.1 at full width,
+# pfdnn, 3 rails of the 9-level menu, the base rate provisioned at
+# CONTROL_UTIL, deadline-tightened variants at CONTROL_TIGHTEN
+CONTROL_NET = "squeezenet1.1"
+CONTROL_RATE = 60.0
+CONTROL_UTIL = 0.85
+CONTROL_TIGHTEN = 0.92
+CONTROL_SEED = 11
+# the benchmark's smoke horizon, shared by every row (drift_learned's
+# energy ratio divides by the drift row's static energy); PERF.md says
+# why not its 420
+CONTROL_FRAMES = 180
+# the acceptance booleans serve_robustness.py --smoke asserts
+SMOKE_ACCEPTANCE = ("bursty_miss_improved", "calm_energy_within_1pct",
+                    "all_snaps_precompiled", "drift_learned_recalibrated",
+                    "drift_learned_energy_improved", "drift_learned_miss_leq")
+POLICY_BANDS = (0.0, 0.4, 0.7, 1.0)       # activation-density bands
+PERIODIC_INTERVALS = 100
+
+
+def control_scenarios(n_frames: int) -> dict:
+    """Traffic and faults of each row (``serve_robustness.py``'s
+    ``scenario_plan``)."""
+    from repro_torch.serve import FaultConfig, TrafficConfig, linear_drift
+
+    return {
+        "calm": dict(
+            traffic=TrafficConfig(CONTROL_RATE, scenario="calm"),
+            faults=FaultConfig(seed=CONTROL_SEED, p_drop=0.01), bias=None),
+        "bursty": dict(
+            traffic=TrafficConfig(
+                CONTROL_RATE, scenario="bursty", seed=3, jitter_sigma=0.05,
+                burst_rate_mult=1.25, lull_rate_mult=0.4),
+            faults=FaultConfig(
+                seed=CONTROL_SEED, op_sigma=0.02, trans_sigma=0.1,
+                p_trans_spike=0.02, p_drop=0.01, p_late=0.01,
+                late_max_s=0.003),
+            bias=None),
+        # layer-cost error ramps to +30 % at mid-trace, then back down
+        "drift": dict(
+            traffic=TrafficConfig(CONTROL_RATE, scenario="calm"),
+            faults=FaultConfig(seed=CONTROL_SEED, op_sigma=0.01),
+            bias=linear_drift(0.3 / (n_frames // 2),
+                              peak=n_frames // 2)),
+    }
+
+
+def learned_config():
+    """The benchmark's drift_learned plane: blocking ledger-learned
+    re-solves, provisioned at 0.95, 10 points over (0.5, 1.8)."""
+    from repro_torch.serve import AdaptiveConfig
+
+    return AdaptiveConfig(calib_enabled=True, calib_blocking=True,
+                          util_target=0.95, resolve_points=10,
+                          resolve_rate_band=(0.5, 1.8), calib_window=16,
+                          calib_min_samples=8, calib_cooldown=8,
+                          calib_threshold=0.02)
+
+
+def _resolve_service_class():
+    from repro_torch.service import CompileService
+
+    class ResolveLog(CompileService):
+        """A service that records each ``compile_contingencies`` call's
+        wall and its DP, k-best and gather launches, and the arguments
+        of the last one."""
+
+        def __init__(self, *args, **kwargs):
+            super().__init__(*args, **kwargs)
+            self.calls: list[tuple[float, dict]] = []
+            self.last: tuple | None = None
+            self.fleets = 0
+
+        def compile_many(self, *args, **kwargs):
+            self.fleets += 1
+            return super().compile_many(*args, **kwargs)
+
+        def compile_contingencies(self, *args, **kwargs):
+            self.last = (args, kwargs)
+            c0 = _counts()
+            tic = time.perf_counter()
+            out = super().compile_contingencies(*args, **kwargs)
+            wall = time.perf_counter() - tic
+            self.calls.append((wall, {k: _counts()[k] - c0[k]
+                                      for k in DP_KERNELS}))
+            return out
+
+    return ResolveLog
+
+
+def _control_net():
+    from repro_torch.hw.edge40nm import EDGE40NM_DEFAULT as acc
+    from repro_torch.models.edge_cnn import edge_network
+    from repro_torch.perfmodel import characterize_network, plan_banks
+
+    specs = edge_network(CONTROL_NET)
+    costs = characterize_network(specs, acc)
+    return specs, costs, plan_banks(costs, acc), acc
+
+
+def _report_row(report) -> tuple:
+    """Every field of a ServeReport but its event log."""
+    return dataclasses.astuple(dataclasses.replace(report, events=None))
+
+
+def _bundle_json(bundle, drop: tuple = ()) -> dict:
+    """A contingency bundle as comparable JSON (schedules without their
+    host stats and ``drop``)."""
+    def one(sched):
+        return None if sched is None else _result_json(sched, drop)
+
+    return {"base": bundle.base_deadline_s,
+            "points": [(d, one(s)) for d, s in sorted(bundle.points.items())],
+            "tightened": [(d, one(s))
+                          for d, s in sorted(bundle.tightened.items())],
+            "aggressive": one(bundle.aggressive),
+            "budget": one(bundle.budget),
+            "infeasible": [(kind, d) for kind, d, _ in bundle.infeasible]}
+
+
+def control_bundle(svc, device: str):
+    """Step 1: the contingency bundle of the base rate, one
+    ``compile_contingencies`` (one ``compile_many``)."""
+    from repro_torch.core import OrchestratorConfig
+
+    specs = _control_net()[0]
+    return svc.compile_contingencies(
+        specs, CONTROL_RATE / CONTROL_UTIL, tighten_frac=CONTROL_TIGHTEN,
+        cfg=OrchestratorConfig(policy="pfdnn", device=device),
+        network=CONTROL_NET)
+
+
+def control_rows(bundle, n_frames: int) -> dict:
+    """Step 2, without the learned row: calm, bursty and drift, static
+    and adaptive, on the bundle."""
+    from repro_torch.serve import (
+        AdaptiveScheduler,
+        FaultInjector,
+        StaticSchedulePolicy,
+        TrafficSimulator,
+        serve_trace,
+    )
+
+    _, costs, plan, acc = _control_net()
+    static_sched = bundle.points[bundle.base_deadline_s]
+    rows = {}
+    for name, sc in control_scenarios(n_frames).items():
+        times = TrafficSimulator(sc["traffic"]).frame_times(n_frames)
+        static = serve_trace(
+            times, StaticSchedulePolicy(static_sched, costs, plan, acc),
+            injector=FaultInjector(sc["faults"], len(costs),
+                                   op_bias=sc["bias"]))
+        adaptive = serve_trace(
+            times, AdaptiveScheduler(bundle, costs, plan, acc),
+            injector=FaultInjector(sc["faults"], len(costs),
+                                   op_bias=sc["bias"]))
+        rows[name] = {"static": static, "adaptive": adaptive}
+    return rows
+
+
+def control_learned(svc, bundle, device: str, n_frames: int):
+    """Step 2's learned row: the drift trace on a copy of the bundle
+    (re-solves replace its points in place), blocking re-solves through
+    ``svc``; returns the report and the plane."""
+    from repro_torch.core import OrchestratorConfig
+    from repro_torch.serve import (
+        AdaptiveScheduler,
+        FaultInjector,
+        TrafficSimulator,
+        serve_trace,
+    )
+
+    specs, costs, plan, acc = _control_net()
+    sc = control_scenarios(n_frames)["drift"]
+    times = TrafficSimulator(sc["traffic"]).frame_times(n_frames)
+    copy = dataclasses.replace(bundle, points=dict(bundle.points),
+                               tightened=dict(bundle.tightened),
+                               infeasible=list(bundle.infeasible))
+    plane = AdaptiveScheduler(
+        copy, costs, plan, acc, service=svc, specs=specs,
+        compile_cfg=OrchestratorConfig(policy="pfdnn", device=device),
+        acfg=learned_config())
+    report = serve_trace(times, plane, injector=FaultInjector(
+        sc["faults"], len(costs), op_bias=sc["bias"]))
+    return report, plane
+
+
+def control_table(svc, bundle, device: str):
+    """Step 5: a 3-band policy table in one ``compile_many``, then a
+    40-frame trace whose observable walks the bands.  The trace applies
+    no input-dependent work, so a sparse band's schedule (planned for
+    less MAC work) runs long and misses; the ladder is held (a dwell
+    longer than the trace) so that every band regime snaps."""
+    import numpy as np
+
+    from repro_torch.calib import compile_policy_table
+    from repro_torch.core import OrchestratorConfig
+    from repro_torch.serve import (
+        AdaptiveConfig,
+        AdaptiveScheduler,
+        serve_trace,
+    )
+
+    specs, costs, plan, acc = _control_net()
+    base = CONTROL_UTIL / CONTROL_RATE
+    table = compile_policy_table(
+        svc, specs, band_edges=POLICY_BANDS, deadlines=[base, 1.25 * base],
+        cfg=OrchestratorConfig(policy="pfdnn", device=device),
+        network=CONTROL_NET)
+    n = 40
+    times = np.arange(n + 1) / CONTROL_RATE
+    obs = np.repeat([0.2, 0.5, 0.9, 0.5], n // 4)
+    plane = AdaptiveScheduler(bundle, costs, plan, acc, policy_table=table,
+                              acfg=AdaptiveConfig(dwell_intervals=n + 1))
+    report = serve_trace(times, plane, observables=obs)
+    return table, report
+
+
+def control_periodic(static_sched) -> dict:
+    """Step 6: 100 periods of the static schedule under the bursty
+    faults."""
+    from repro_torch.serve import (
+        FaultInjector,
+        PeriodicScheduler,
+        PowerRuntime,
+    )
+
+    _, costs, plan, acc = _control_net()
+    faults = control_scenarios(CONTROL_FRAMES)["bursty"]["faults"]
+    out = PeriodicScheduler(
+        PowerRuntime(static_sched, costs, plan, acc),
+        1.0 / static_sched.t_max).run(
+        PERIODIC_INTERVALS, injector=FaultInjector(faults, len(costs)))
+    out["ledgers"] = [dataclasses.asdict(x) for x in out["ledgers"]]
+    return out
+
+
+def _table_json(table) -> list:
+    """A policy table as comparable JSON; the round scheduler's counters
+    are set aside (they depend on what the store already held)."""
+    return [(b.lo, b.hi, b.cost_model.digest,
+             [(d, _result_json(s, FLEET_STATS))
+              for d, s in sorted(b.schedules.items())],
+             [(d, g.to_json()) for d, g in b.infeasible])
+            for b in table.bands]
+
+
+def cpu_control(part: str, n_frames: int) -> dict:
+    """The control phase's CPU side (plain versions), as comparable
+    values: ``"rows"`` is the bundle, the calm, bursty and drift rows,
+    the policy table and its trace, the periodic run and the solver
+    walls' checksum; ``"learned"`` is the drift_learned row and its
+    re-solves' walls.  Runs in a spawned process beside the card's
+    work."""
+    import torch
+
+    from repro_torch.calib import solver_kernel_walls
+
+    torch.set_num_threads(CPU_SIDE_THREADS)
+    svc = _resolve_service_class()()
+    with svc:
+        bundle = control_bundle(svc, "cpu")
+        if part == "learned":
+            svc.calls.clear()
+            report, plane = control_learned(svc, bundle, "cpu", n_frames)
+            return {"learned": (_report_row(report),
+                                plane.events.to_json()),
+                    "resolve_walls": [wall for wall, _ in svc.calls]}
+        rows = control_rows(bundle, n_frames)
+        table, table_report = control_table(svc, bundle, "cpu")
+        return {
+            "bundle": _bundle_json(bundle),
+            "rows": {name: (_report_row(r["static"]),
+                            _report_row(r["adaptive"]),
+                            r["adaptive"].events.to_json())
+                     for name, r in rows.items()},
+            "table": _table_json(table),
+            "table_trace": (_report_row(table_report),
+                            table_report.events.to_json()),
+            "periodic": control_periodic(
+                bundle.points[bundle.base_deadline_s]),
+            "walls_checksum": solver_kernel_walls("cpu")["checksum"]}
+
+
+def control_acceptance(rows: dict, learned, n_recal: int) -> dict:
+    """``serve_robustness.py``'s acceptance block over the rows."""
+    def ratio(name):
+        return rows[name]["adaptive"].energy_j / \
+            rows[name]["static"].energy_j
+
+    def precompiled(events):
+        snaps = events.of("snap")
+        return bool(snaps) and all(e.detail.get("precompiled")
+                                   for e in snaps)
+
+    learned_ratio = learned.energy_j / rows["drift"]["static"].energy_j
+    return {
+        "drift_learned_energy_improved": learned_ratio < ratio("drift"),
+        "drift_learned_miss_leq":
+            learned.miss_rate <= rows["drift"]["adaptive"].miss_rate + 1e-9,
+        "drift_learned_recalibrated": n_recal > 0,
+        "bursty_miss_improved": rows["bursty"]["adaptive"].miss_rate
+        < rows["bursty"]["static"].miss_rate,
+        "bursty_energy_leq": ratio("bursty") <= 1.0 + 1e-9,
+        "calm_energy_within_1pct": abs(ratio("calm") - 1.0) <= 0.01,
+        "drift_miss_improved": rows["drift"]["adaptive"].miss_rate
+        < rows["drift"]["static"].miss_rate,
+        "all_snaps_precompiled": all(
+            precompiled(r["adaptive"].events) for r in rows.values())
+        and precompiled(learned.events),
+    }
+
+
+def _check_equal(card, cpu, what: str) -> None:
+    """Fail, naming the innermost differing key, unless equal."""
+    if card != cpu:
+        if isinstance(card, dict) and isinstance(cpu, dict):
+            for key in sorted(card.keys() | cpu.keys()):
+                _check_equal(card.get(key), cpu.get(key), f"{what}.{key}")
+        fail(f"{what}: the card's differs from the CPU port's")
+
+
+def control_phase() -> dict:
+    """The adaptive control plane on the card (see the module
+    docstring, phase 9); returns the sweep kernels' launches of its
+    bundle compile and blocking re-solves."""
+    import gc
+    import multiprocessing
+    import tempfile
+
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.analysis import lockcheck
+    from repro_torch.calib import (
+        HarnessConfig,
+        identity_model,
+        run_harness,
+        solver_kernel_walls,
+        synthetic_measurement,
+    )
+    from repro_torch.core import MinEnergy, OrchestratorConfig, compile
+    from repro_torch.core.backend import get_backend
+    from repro_torch.serve import (
+        AsyncResolver,
+        StaticSchedulePolicy,
+        TrafficSimulator,
+        serve_trace,
+    )
+    from repro_torch.service import ArtifactStore
+
+    n_frames = CONTROL_FRAMES
+    print(f"control horizon: {n_frames} frames, every row", flush=True)
+    ResolveLog = _resolve_service_class()
+    specs, costs, plan, acc = _control_net()
+    card_cfg = OrchestratorConfig(policy="pfdnn", device=DEVICE)
+    pool = concurrent.futures.ProcessPoolExecutor(
+        2, mp_context=multiprocessing.get_context("spawn"))
+    try:
+        cpu_parts = [pool.submit(cpu_control, part, n_frames)
+                     for part in ("learned", "rows")]
+        svc = ResolveLog()
+        total = dict.fromkeys(DP_KERNELS, 0)
+
+        # 1. the contingency bundle, one compile_contingencies
+        _reset_counts()
+        tic = time.perf_counter()
+        bundle = control_bundle(svc, DEVICE)
+        bundle_wall = time.perf_counter() - tic
+        counts = {k: _counts()[k] for k in DP_KERNELS}
+        for k in DP_KERNELS:
+            total[k] += counts[k]
+        print(f"control bundle: {len(bundle.points)} points, "
+              f"{len(bundle.tightened)} tightened, aggressive "
+              f"{bundle.aggressive is not None}, budget "
+              f"{bundle.budget is not None}, {svc.fleets} compile_many; "
+              f"wall {bundle_wall:.3f} s  launches {json.dumps(counts)}",
+              flush=True)
+        check(svc.fleets == 1, "the bundle took more than one compile_many")
+        for name in DP_KERNELS:
+            check(counts[name] > 0,
+                  f"kernel {name} was not launched by the bundle compile")
+
+        # 2. the rows, then drift_learned with blocking re-solves
+        tic = time.perf_counter()
+        rows = control_rows(bundle, n_frames)
+        rows_wall = time.perf_counter() - tic
+        svc.calls.clear()
+        tic = time.perf_counter()
+        learned, plane = control_learned(svc, bundle, DEVICE, n_frames)
+        learned_wall = time.perf_counter() - tic
+        for i, (wall, c) in enumerate(svc.calls):
+            print(f"control re-solve {i + 1}: wall {wall:.3f} s  launches "
+                  f"{json.dumps(c)}", flush=True)
+            for k in DP_KERNELS:
+                total[k] += c[k]
+                check(c[k] > 0, f"re-solve {i + 1} launched no {k}")
+        n_recal = len(plane.events.of("calibrate_done"))
+        resolve_walls = [w for w, _ in svc.calls]
+        check(len(resolve_walls) == n_recal > 0,
+              f"{len(resolve_walls)} re-solves for {n_recal} calibrations")
+        for name, r in rows.items():
+            for side in ("static", "adaptive"):
+                print(f"control {name:8s} {side:8s} {r[side].summary()}",
+                      flush=True)
+        print(f"control learned  adaptive {learned.summary()}  events "
+              f"{json.dumps(plane.events.kinds())}", flush=True)
+        print(f"control serve walls: 6 rows {rows_wall:.3f} s; "
+              f"drift_learned {learned_wall:.3f} s, of which "
+              f"{sum(resolve_walls):.3f} s in {n_recal} blocking re-solves "
+              f"(median {statistics.median(resolve_walls):.3f} s, max "
+              f"{max(resolve_walls):.3f} s)", flush=True)
+        accept = control_acceptance(rows, learned, n_recal)
+        print(f"control acceptance: {json.dumps(accept)}", flush=True)
+        for key in SMOKE_ACCEPTANCE:
+            check(accept[key], f"control acceptance {key} is false")
+        if n_frames >= 420:
+            for key, val in accept.items():
+                check(val, f"control acceptance {key} is false")
+
+        # 3. async re-solves on a store of their own, with the last
+        # blocking re-solve's arguments: one awaited, one (at another
+        # rate) abandoned by the watchdog mid-flight while serving goes on
+        torch.cuda.synchronize()
+        mem0 = torch.cuda.memory_allocated()
+        (_, base_rate), kw = svc.last
+        lockcheck.enable()
+        lockcheck.reset()
+        try:
+            asvc = ResolveLog(use_schedule_cache=False)
+            c0 = _counts()
+            tic = time.perf_counter()
+            landed = asvc.compile_contingencies_async(
+                specs, base_rate, **kw).result(timeout=300)
+            async_wall = time.perf_counter() - tic
+            c = {k: _counts()[k] - c0[k] for k in DP_KERNELS}
+            # the live bundle's infeasible list accumulates over the
+            # re-solves; its points are the last re-solve's
+            got, want = (_bundle_json(b, FLEET_STATS)
+                         for b in (landed, plane.bundle))
+            check(all(got[k] == want[k] for k in ("points", "tightened",
+                                                  "aggressive", "budget")),
+                  "the awaited async re-solve differs from the blocking one")
+            print(f"control async: awaited re-solve wall {async_wall:.3f} s "
+                  f"launches {json.dumps(c)}; equal to the blocking "
+                  "re-solve's bundle", flush=True)
+            resolver = AsyncResolver(1e-3, on_timeout=asvc.abandon_async_pool)
+            future = asvc.compile_contingencies_async(
+                specs, 1.1 * base_rate, **kw)
+            resolver.watch("resolve", future)
+            time.sleep(0.01)
+            polled = resolver.poll()
+            check(polled is not None and polled[0] == "timeout"
+                  and not future.done(),
+                  f"the watchdog did not abandon the re-solve: {polled}")
+            # the serving loop goes on while the abandoned compile runs
+            times = TrafficSimulator(
+                control_scenarios(60)["calm"]["traffic"]).frame_times(60)
+            serve_trace(times, StaticSchedulePolicy(
+                bundle.points[bundle.base_deadline_s], costs, plan, acc))
+            ran = future.done()
+            abandoned = future.result(timeout=300)
+            check(abandoned.points, "the abandoned re-solve found no point")
+            report = lockcheck.assert_clean()
+            locks = lockcheck.graph()["locks"]
+        finally:
+            lockcheck.disable()
+        torch.cuda.synchronize()
+        mem1 = torch.cuda.memory_allocated()
+        asvc.store.clear(stacks=True)
+        del asvc, landed, abandoned, future
+        gc.collect()
+        torch.cuda.synchronize()
+        mem2 = torch.cuda.memory_allocated()
+        state = "had ended" if ran else "still ran"
+        print(f"control abandon: watchdog {polled[0]} after "
+              f"{polled[2] * 1e3:.3f} ms, the compile {state} when the "
+              "60-frame serve ended; it ended without error; "
+              f"memory {mem0} B before, {mem1} B with its mirrors, {mem2} "
+              f"B after clear(stacks=True); lockcheck clean: "
+              f"{len(report['edges'])} edges, 0 cycles, 0 hazards over "
+              f"{len(locks)} locks", flush=True)
+        check(abs(mem2 - mem0) <= MIB,
+              f"the async re-solves left {mem2 - mem0} B of device memory")
+
+        # 4. the calibration harness
+        parity = run_harness(acc, HarnessConfig())
+        check(set(parity.ratios_by_kind().values()) == {(1.0, 1.0)},
+              "harness parity mode: a ratio is not 1.0")
+        truth = {"conv": 1.3, "fc": 0.8}
+        synth = run_harness(acc, HarnessConfig(repeats=5, seed=1),
+                            measure=synthetic_measurement(
+                                truth, noise_sigma=0.02))
+        ratios = synth.ratios_by_kind()
+        check(all(abs(ratios[k][0] / truth.get(k, 1.0) - 1.0) <= 0.05
+                  for k in ratios),
+              f"the harness did not recover {truth}: {ratios}")
+        with tempfile.TemporaryDirectory() as root:
+            store = ArtifactStore(disk_path=root)
+            run_harness(acc, HarnessConfig(), store=store)
+            again = run_harness(acc, HarnessConfig(), store=store)
+            other = ArtifactStore(disk_path=root)
+            reused = run_harness(acc, HarnessConfig(), store=other)
+            check(store.misses["calibration"] == 1
+                  and store.hits["calibration"] == 1
+                  and other.disk_hits["calibration"] == 1
+                  and again.to_record() == reused.to_record()
+                  == parity.to_record(),
+                  "harness publication or reuse through the store failed")
+        model = parity.cost_model(specs)
+        static = compile(specs, MinEnergy(rate_hz=base_rate), cfg=card_cfg,
+                         network=CONTROL_NET)
+        c0 = _counts()
+        calibrated = compile(specs, MinEnergy(rate_hz=base_rate),
+                             cfg=card_cfg, network=CONTROL_NET,
+                             cost_model=model)
+        c = {k: _counts()[k] - c0[k] for k in DP_KERNELS}
+        check(calibrated.cost_model == model.digest != static.cost_model,
+              "the calibrated schedule does not carry its model")
+        check(_result_json(dataclasses.replace(calibrated,
+                                               cost_model="static"))
+              == _result_json(static),
+              "the parity model compiled another schedule than static")
+        check(identity_model(len(specs)).scale == model.scale,
+              "the parity model is not the identity")
+        be = get_backend(DEVICE)
+        timed = []
+        plain_call = be.dp_multi
+
+        def dp_multi(*args):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = plain_call(*args)
+            end.record()
+            end.synchronize()
+            timed.append(start.elapsed_time(end))
+            return out
+
+        be.dp_multi = dp_multi
+        c1 = _counts()
+        try:
+            walls = solver_kernel_walls(DEVICE)
+        finally:
+            del be.dp_multi
+        dp_launches = _counts()["dp_multi_stacked"] - c1["dp_multi_stacked"]
+        check(dp_launches == len(timed) == 4,
+              f"solver_kernel_walls launched the DP kernel {dp_launches} "
+              f"times in {len(timed)} calls")
+        print(f"control harness: parity all 1.0 over "
+              f"{len(parity.points)} points; synthetic {truth} recovered "
+              f"as conv {ratios['conv'][0]!r}, fc {ratios['fc'][0]!r}; "
+              f"published, then 1 hit and 1 disk hit; the parity model's "
+              f"compile equals static (launches {json.dumps(c)})",
+              flush=True)
+        print(f"control solver walls: median "
+              f"{walls['wall_s_median'] * 1e3:.4f} ms, min "
+              f"{walls['wall_s_min'] * 1e3:.4f} ms (host clock, "
+              f"paths on the host); CUDA events of the same calls "
+              f"{', '.join(f'{t:.4f}' for t in timed[1:])} ms (warm-up "
+              f"{timed[0]:.4f} ms); checksum {walls['checksum']}",
+              flush=True)
+
+        # 5. the policy table, one compile_many, and its trace
+        fleets = svc.fleets
+        c0 = _counts()
+        tic = time.perf_counter()
+        table, table_report = control_table(svc, bundle, DEVICE)
+        table_wall = time.perf_counter() - tic
+        c = {k: _counts()[k] - c0[k] for k in DP_KERNELS}
+        check(svc.fleets - fleets == 1,
+              "the policy table took more than one compile_many")
+        snaps = [e for e in table_report.events.of("snap")
+                 if e.detail.get("variant") == "policy_table"]
+        check(len(snaps) == 4, f"{len(snaps)} policy-table snaps, not 4")
+        print(f"control policy table: {len(table.bands)} bands x "
+              f"{len(table.deadlines())} deadlines in one compile_many, "
+              f"wall {table_wall:.3f} s (trace included) launches "
+              f"{json.dumps(c)}; 40 frames: {table_report.summary()}, "
+              f"{len(snaps)} band snaps", flush=True)
+
+        # 6. the periodic scheduler under the bursty faults
+        periodic = control_periodic(bundle.points[bundle.base_deadline_s])
+        print(f"control periodic: {PERIODIC_INTERVALS} periods, "
+              f"{periodic['deadline_misses']} misses, "
+              f"{periodic['dropped_frames']} dropped, "
+              f"{periodic['avg_power_mw']!r} mW", flush=True)
+
+        # 7. one blocking re-solve under the profiler, cold (own store)
+        psvc = ResolveLog(use_schedule_cache=False)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            tic = time.perf_counter()
+            psvc.compile_contingencies(specs, base_rate, **kw)
+            torch.cuda.synchronize()
+            prof_wall = time.perf_counter() - tic
+        _print_busy("profile control re-solve", prof, prof_wall * 1e6)
+        psvc.store.clear(stacks=True)
+
+        # the CPU side, computed meanwhile
+        tic = time.perf_counter()
+        cpu = {}
+        for part in cpu_parts:
+            cpu.update(part.result(timeout=900))
+        card = {
+            "bundle": _bundle_json(bundle),
+            "rows": {name: (_report_row(r["static"]),
+                            _report_row(r["adaptive"]),
+                            r["adaptive"].events.to_json())
+                     for name, r in rows.items()},
+            "learned": (_report_row(learned), plane.events.to_json()),
+            "table": _table_json(table),
+            "table_trace": (_report_row(table_report),
+                            table_report.events.to_json()),
+            "periodic": periodic,
+            "walls_checksum": walls["checksum"]}
+        cpu_walls = cpu.pop("resolve_walls")
+        _check_equal(card, cpu, "control")
+        print(f"control CPU port re-solves ({CPU_SIDE_THREADS} threads, "
+              f"beside the card's work): {len(cpu_walls)}, median "
+              f"{statistics.median(cpu_walls):.3f} s, max "
+              f"{max(cpu_walls):.3f} s, sum {sum(cpu_walls):.3f} s; on "
+              f"the card median {statistics.median(resolve_walls):.3f} s",
+              flush=True)
+        print(f"control CPU: bundle, {len(rows)} rows x 2 policies and "
+              f"drift_learned (reports field for field, event logs byte "
+              f"for byte), the policy table, the periodic run and the "
+              f"walls' checksum identical to the CPU port's (waited "
+              f"{time.perf_counter() - tic:.3f} s for them)", flush=True)
+        svc.store.clear(stacks=True)
+    finally:
+        pool.shutdown(wait=True, cancel_futures=True)
+    print(f"control launches: {json.dumps(total)}", flush=True)
+    return total
+
+
 def sass_count(lib, op: str) -> int:
     """Instructions of ``op`` (e.g. ``HGMMA``, ``IGMMA``: what ``wgmma``
     compiles to for bf16 and int8) in a built library's SASS
@@ -2309,6 +2974,21 @@ def service_only() -> int:
     return 0
 
 
+def control_only() -> int:
+    """``--control``: build the rail-sweep library alone and run the
+    control phase; no result line."""
+    from repro_torch.kernels import dp_sweep as ks
+
+    tic = time.perf_counter()
+    ks.LIBRARY.load()
+    print(f"build: {ks.LIBRARY.path().name} in "
+          f"{time.perf_counter() - tic:.2f} s", flush=True)
+    tic = time.perf_counter()
+    control_phase()
+    print(f"phase control: {time.perf_counter() - tic:.3f} s", flush=True)
+    return 0
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -2344,6 +3024,8 @@ def main(argv: list[str]) -> int:
         return attention_kernels_only()
     if argv == ["--service"]:
         return service_only()
+    if argv == ["--control"]:
+        return control_only()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -2372,6 +3054,9 @@ def main(argv: list[str]) -> int:
     tic = time.perf_counter()
     service_phase()
     print(f"phase service: {time.perf_counter() - tic:.3f} s", flush=True)
+    tic = time.perf_counter()
+    control_phase()
+    print(f"phase control: {time.perf_counter() - tic:.3f} s", flush=True)
     for row in rows:
         name = row["name"]
         row["launches"] = (serve_counts if name.startswith("flash")
@@ -2379,6 +3064,9 @@ def main(argv: list[str]) -> int:
                            else counts)[name]
     profiler_check("end")
     print(f"compile walls (s): {json.dumps(walls)}", flush=True)
+    # the card again, near the end: a caller that keeps only the tail of
+    # the output still sees which card and power limit the numbers had
+    print(smi, flush=True)
     print(json.dumps({"kernels": rows}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

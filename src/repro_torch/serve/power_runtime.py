@@ -6,13 +6,22 @@ model: it walks the schedule layer by layer, applies rail switches /
 bank gating with their transition costs, accumulates the per-layer
 energy/latency ledger, and enforces the deadline.  Because the schedule
 is static and the workload deterministic (§2.2), this simulated
-execution *is* the deployment semantics — there is no dynamic control
-path to diverge from it.
+execution *is* the deployment semantics in the fault-free case — there
+is no dynamic control path to diverge from it.
+
+Online, the world does diverge: ``execute_interval`` accepts a seeded
+:class:`~repro_torch.serve.faults.IntervalFaults` perturbation
+(layer-cost error, transition-latency overrun, dropped / late frames)
+and an explicit ``deadline_s`` override so the adaptive control plane
+(:mod:`repro_torch.serve.control_plane`) can execute any precompiled
+schedule against the *current* traffic interval rather than the
+deadline it was compiled for.
 
 ``simulate_interval`` is the one-call version: it returns the interval
 ledger and cross-checks the executed ``e_total`` / ``t_infer`` against
 the compiler's prediction — beyond float tolerance it raises a
-structured :class:`LedgerMismatch`.
+structured :class:`LedgerMismatch` (the check is skipped when faults or
+a deadline override intentionally diverge the execution).
 """
 
 from __future__ import annotations
@@ -32,6 +41,7 @@ from repro_torch.hw.edge40nm import (
 )
 from repro_torch.perfmodel.gating import BankPlan
 from repro_torch.perfmodel.layer_costs import LayerCost
+from repro_torch.serve.faults import IntervalFaults
 
 
 @dataclasses.dataclass
@@ -59,6 +69,11 @@ class IntervalLedger:
     # domain (gating entries/exits excluded — same semantics as the
     # compiler's ScheduleProblem evaluators)
     n_rail_switches: int = 0
+    # fault-injection provenance: arrival delay charged against this
+    # interval's budget, and whether the frame never arrived at all
+    # (a dropped frame executes nothing and cannot miss its deadline)
+    t_late: float = 0.0
+    dropped: bool = False
 
 
 class LedgerMismatch(RuntimeError):
@@ -97,10 +112,32 @@ class PowerRuntime:
             acc, plan.n_banks, gating=gating,
             allow_sleep=not schedule.z_active_idle or gating)
 
-    def execute_interval(self) -> IntervalLedger:
-        """Execute one inference interval against the compiled
-        ``t_max``."""
-        deadline = self.schedule.t_max
+    def execute_interval(self, *, faults: IntervalFaults | None = None,
+                         deadline_s: float | None = None
+                         ) -> IntervalLedger:
+        """Execute one inference interval.
+
+        ``faults`` applies a seeded perturbation (see
+        :mod:`repro_torch.serve.faults`): per-layer op time+energy and
+        transition-latency scale factors, an arrival delay charged
+        against the interval budget, or a dropped frame (nothing
+        executes; the whole interval idles).  ``deadline_s`` executes
+        the schedule against an external deadline (the adaptive plane's
+        current traffic interval) instead of the compiled ``t_max`` —
+        the terminal idle/slack accounting follows it.
+        """
+        deadline = self.schedule.t_max if deadline_s is None \
+            else float(deadline_s)
+        late = faults.late_s if faults is not None else 0.0
+        if faults is not None and faults.dropped:
+            # the frame never arrived: no execution, the interval is
+            # one long idle stretch (and trivially meets its deadline)
+            e_idle = self.idle.energy(deadline)
+            return IntervalLedger(
+                layers=[], t_infer=0.0, e_exec=0.0, e_idle=e_idle,
+                e_total=e_idle, deadline=deadline, met_deadline=True,
+                z_active_idle=self.idle.z_choice(deadline),
+                n_rail_switches=0, t_late=0.0, dropped=True)
         acc = self.acc
         tm = acc.transitions()
         dvfs = [acc.dvfs(D_COMPUTE), acc.dvfs(D_FEEDER), acc.dvfs(D_RRAM)]
@@ -121,6 +158,8 @@ class PowerRuntime:
                 if any(a != b and a != V_GATED and b != V_GATED
                        for a, b in zip(prev_v, volts)):
                     n_switches += 1
+                if faults is not None:
+                    t_tr *= float(faults.trans_scale[i])
             # op execution at the selected state
             awake = self.schedule.awake_banks[i]
             times = []
@@ -144,13 +183,19 @@ class PowerRuntime:
                 e_dyn += wakes * (tm.energy(V_GATED, volts[D_RRAM])
                                   / self.plan.n_banks)
             e_op = e_dyn + p_leak * t_op
+            if faults is not None:
+                # cost-model error scales the layer's work: time and
+                # energy move together (more cycles at the same state)
+                s = float(faults.op_scale[i])
+                t_op *= s
+                e_op *= s
             ledger.append(LayerLedger(i, volts, t_op, e_op, t_tr, e_tr,
                                       awake))
             t += t_op + t_tr
             e += e_op + e_tr
             prev_v = volts
 
-        slack = deadline - t
+        slack = deadline - t - late
         e_idle = self.idle.energy(max(slack, 0.0))
         return IntervalLedger(
             layers=ledger,
@@ -159,23 +204,32 @@ class PowerRuntime:
             e_idle=e_idle,
             e_total=e + e_idle,
             deadline=deadline,
-            met_deadline=t <= deadline + 1e-15,
+            met_deadline=t + late <= deadline + 1e-15,
             z_active_idle=self.idle.z_choice(max(slack, 0.0)),
             n_rail_switches=n_switches,
+            t_late=late,
         )
 
 
 def simulate_interval(schedule: PowerSchedule, costs: Sequence[LayerCost],
                       plan: BankPlan, acc: Edge40nmAccelerator, *,
+                      faults: IntervalFaults | None = None,
+                      deadline_s: float | None = None,
                       check: bool = True, rtol: float = 1e-6
                       ) -> IntervalLedger:
     """Execute one interval and cross-check the executed ledger against
-    the compiled schedule's prediction: the executed ``e_total`` and
-    ``t_infer`` must equal the compiler's prediction to float precision
-    — a divergence beyond ``rtol`` raises a structured
-    :class:`LedgerMismatch` (``check=False`` disables the check)."""
-    led = PowerRuntime(schedule, costs, plan, acc).execute_interval()
-    if check:
+    the compiled schedule's prediction.
+
+    In the fault-free, native-deadline case the executed ``e_total``
+    and ``t_infer`` must equal the compiler's prediction to float
+    precision — a divergence beyond ``rtol`` raises a structured
+    :class:`LedgerMismatch`.  With ``faults`` or a ``deadline_s``
+    override the execution diverges *by design* and the cross-check is
+    skipped (``check=False`` disables it explicitly).
+    """
+    led = PowerRuntime(schedule, costs, plan, acc).execute_interval(
+        faults=faults, deadline_s=deadline_s)
+    if check and faults is None and deadline_s is None:
         for field, executed, predicted in (
                 ("t_infer", led.t_infer, schedule.t_infer),
                 ("e_total", led.e_total, schedule.e_total)):

@@ -119,8 +119,7 @@ class CompileRequest:
 @dataclasses.dataclass
 class ContingencyBundle:
     """The precompiled operating points of one network's online control
-    plane (the reference's ``repro.serve.control_plane``; not ported
-    yet), produced by ONE
+    plane (:mod:`repro_torch.serve.control_plane`), produced by ONE
     ``compile_many`` fleet call so a traffic spike at serve time snaps
     to a finished schedule instead of waiting on a cold compile.
 

@@ -350,8 +350,8 @@ class DiskTier:
 
     # -- calibrations --------------------------------------------------
     # key: calibration content key (host fingerprint × accelerator ×
-    # harness config digest, the calibration harness's key; calibration
-    # is not ported yet); value: the RooflineTable record (JSON dict) —
+    # harness config digest, see repro_torch.calib.harness.calibration_key);
+    # value: the RooflineTable record (JSON dict) —
     # how farm workers on one host share a single characterization pass
     @staticmethod
     def calibration_digest(key: str) -> str:

@@ -28,10 +28,9 @@ content-addressable and therefore shareable process-wide:
     deserialized artifact; provably-impossible goals cache their
     structured ``InfeasibleGoal`` (reason + bound) the same way;
   - **characterization calibrations** — measured roofline tables from
-    a calibration harness, keyed by (host fingerprint, accelerator,
-    harness config) content so every farm worker on one host shares a
-    single measurement pass (the harness itself is not ported yet; the
-    category keeps the disk tier's layout whole).
+    the :mod:`repro_torch.calib` harness, keyed by (host fingerprint,
+    accelerator, harness config) content so every farm worker on one
+    host shares a single measurement pass.
 
 With ``disk_path=`` the store gains a second tier: a content-addressable
 on-disk store of per-entry digest-named immutable files

@@ -29,7 +29,7 @@ from repro_torch.perfmodel import characterize_network
 from repro_torch.perfmodel.layer_costs import nominal_latency
 
 PACKAGES = ("core", "kernels", "hw", "perfmodel", "serve", "models",
-            "service", "analysis")
+            "service", "analysis", "calib")
 
 # Names of the reference the port leaves out on purpose, by package or
 # module.  Each entry must still be missing from the port: once it is
@@ -48,26 +48,20 @@ OMITTED = {
     # repro_torch.kernels.dp_sweep under their own names
     "kernels": {"dp_multi_stacked_pallas", "kbest_multi_stacked_pallas",
                 "path_components_pallas"},
-    # the TPU adaptation (Queue 1, 10)
+    # the TPU adaptation (Queue 1, 5)
     "hw": {"TpuChipModel", "TPU_V5E"},
-    # faults and traffic (Queue 1, 2) and the control plane (5)
-    "serve": {"AdaptiveConfig", "AdaptiveScheduler", "AsyncResolver",
-              "ControlEvent", "EventLog", "MissLedger", "RateTracker",
-              "ServeReport", "StaticSchedulePolicy", "serve_trace",
-              "FaultConfig", "FaultInjector", "linear_drift", "SCENARIOS",
-              "TrafficConfig", "TrafficSimulator"},
-    # the certifier and the determinism linter (Queue 1, 6); the
+    # the certifier and the determinism linter (Queue 1, 1); the
     # package exposes its submodules lazily
     "analysis": {"certify", "lint_determinism"},
     # the jnp attention oracles (the kernels' plain versions stand in)
-    # and the other LM families (Queue 1, 7)
+    # and the other LM families (Queue 1, 2)
     "models.layers": {"AttnChunks", "decode_attention_jnp",
                       "flash_attention_jnp", "apply_mrope"},
-    # abstract shapes and parameter counts (Queue 1, 9)
+    # abstract shapes and parameter counts (Queue 1, 4)
     "models.module": {"abstract_params", "param_bytes", "param_count",
                       "stack_layer_inits"},
     # the JAX runtime (sharding constraints, abstract evaluation),
-    # training (Queue 1, 8) and the recurrent and encoder families (7)
+    # training (Queue 1, 3) and the recurrent and encoder families (2)
     "models.transformer": {"Runtime", "abstract", "constrain",
                            "chunked_softmax_xent", "forward_train",
                            "init_encoder_layer", "init_mlstm_layer",
