@@ -30,7 +30,16 @@ NVIDIA GPU:
      of ``tests/test_kernels.py`` and the edges of the bf16 tensor-core
      prefill, the float32 prefill and the split decode (3e-5 abs in
      float32, 2e-2 in bfloat16; rows that see no key and lengths of 0
-     give zeros), the serving rows also back to back;
+     give zeros), the serving rows also back to back; then the prefill
+     kernels with hymba-1.5b's sliding window (``WINDOW_SHAPES``:
+     hymba's prefill at 2 x 2048 and 1 x 1536 tokens, 25 query heads
+     over 5 KV heads, window 1024, and the window's edges: window 1,
+     window >= Sk, a window off the 64-key grid, q_offset > 0, rows that
+     see no key) and the decode kernel over hymba's rings
+     (``RING_SHAPES``: 1024 rows read up to min(length + 1, 1024)), each
+     against its plain version with the same tolerances, the bound
+     counting only the pairs the window keeps, SDPA with the same boolean
+     mask beside it;
      prints each kernel's time (CUDA events, median of 25), its device
      time (``torch.profiler``), its plain version's time, its bound and,
      for attention, the time of ``scaled_dot_product_attention`` on the
@@ -56,7 +65,30 @@ NVIDIA GPU:
      |logits| in float32, 2e-2 x in bf16); serves 16 requests of
      512-1024 prompt tokens at batch 16 and prints prefill and decode
      rates and the decode loop's device busy share;
-  6. int8 phase (its kernel rows run right after the attention
+  6. hybrid phase, hymba-1.5b at full width on the card (32 layers,
+     d_model 1600, bf16, seed-0 weights): the launcher (8 requests, 16
+     new tokens, the 30 Hz ``pfdnn`` schedule; launch counts set to 0
+     just before and read just after: both attention kernels must
+     launch); the kernel path against the plain path on 2 x 1536 and 2
+     x 2048-token prompts (the window of 1024 cuts prefill, the rings
+     have wrapped before the first decode step), prefill + 8 decode
+     steps, 1e-3 x max |logits| in float32 and ``HYMBA_BF16_LIMIT`` in
+     bf16, printing the floor (the plain path against the kernels'
+     algorithms in plain PyTorch: 64-key tiled prefill, two-pass decode);
+     a planted fault the bf16 limit must fail (the window dropped from
+     the kernel path's prefill); a mid-batch refill through
+     ``ServingEngine`` in float32, each step's logits against each
+     request alone within 1e-3 x max |logits|, tokens equal;
+     then where a 2 x 2048-token bf16 prefill and the decode steps spend
+     their time (``gated_linear_scan``'s share; ``torch.profiler``:
+     device busy, idle share, device time by kind);
+  7. ssm phase, xlstm-350m at full width: the launcher (no attention
+     kernel may launch; the power compile's sweep kernels must), prefill
+     of 8 x 512 tokens and 16 decode steps with ``slstm_scan``'s share,
+     and the card against the CPU port in float32 (every block on the
+     same inputs within 1e-4, end to end within ``XLSTM_LIMIT`` beside
+     the floor of one rounding);
+  8. int8 phase (its kernel rows run right after the attention
      kernels' and its entry point after the serve phase): holds the
      int8 matmul kernels exactly (bit for bit)
      against their plain version, ``w`` row-major and K-major, at the
@@ -73,13 +105,13 @@ NVIDIA GPU:
      at those widths (launch counts set to 0 just before, read just
      after, by route: M = 16384 on wgmma, M = 16 on mma.sync, no
      transpose pass; error against ``x @ w`` in float32 below 0.05);
-  7. policy phase: compiles all 23 schedules of
+  9. policy phase: compiles all 23 schedules of
      ``tests/golden/pipeline.json`` (all eight policies) on the card and
      holds each against its golden, compares every policy's schedule of
      ``squeezenet1.1|0.5|3`` with the CPU compile byte for byte, compiles
      ``MinLatency`` and ``ParetoFront`` goals on the card against the
      CPU, and prints each compile's wall and DP-kernel launches;
-  8. service phase, the fleet compile service on the card: checks
+  10. service phase, the fleet compile service on the card: checks
      that a collection frees no device memory left by the earlier
      phases; compiles ``pfdnn`` for the four edge networks at 0.5, 0.7
      and 0.9 x max rate (3 rails of the 9-level menu) plus a
@@ -103,7 +135,7 @@ NVIDIA GPU:
      temporary disk store (8 requests, 2 tenants, no error, equal to
      solo) and a 1-worker farm of a fresh process answering from the
      first one's entries, with the p50 and p95 of each;
-  9. control phase, the adaptive control plane on the card
+  11. control phase, the adaptive control plane on the card
      (``benchmarks/serve_robustness.py``'s setup: squeezenet1.1 at full
      width, ``pfdnn``, 3 rails, base rate 60 Hz provisioned at 0.85,
      tightened variants at 0.92, seed 11, ``CONTROL_FRAMES`` frames a
@@ -128,8 +160,16 @@ NVIDIA GPU:
      phase runs on the CPU port in two spawned processes meanwhile;
      every schedule, ``ServeReport``, event log, table, periodic ledger
      and the walls' checksum must equal it;
- 10. prints the card's name and power limit again, the ``kernels`` JSON
-     line and, last, the result line.
+ 12. analysis phase: ``python -m repro_torch.analysis`` as users run it,
+     in subprocesses started together: ``certify --goldens`` on the card
+     (its DP, k-best and gather launches must be > 0) and on the CPU,
+     whose 23 lines must be equal and each PASS; ``lint`` (clean under
+     the port's baseline); ``certify --store`` on the service phase's
+     farm store (OK, entries > 0); ``lockcheck --dump`` on the service
+     phase's two-thread lock graph (no cycle, no barrier hazard);
+ 13. prints the card's name and power limit again, the ``kernels`` JSON
+     line (the hymba configurations of #4 and #5 as rows of their own,
+     with the hybrid launcher's launches) and, last, the result line.
 
 ``profiler_check`` runs at the start, in the int8 phase and at the end:
 it times a spin kernel of a fixed cycle count by CUDA events and under
@@ -154,7 +194,11 @@ bound and SDPA times; it prints no result line.  ``python3
 chip_smoke.py --service`` builds the rail-sweep library alone and runs
 the service phase; it prints no result line.  ``python3 chip_smoke.py
 --control`` builds the rail-sweep library alone and runs the control
-phase; it prints no result line.  Run from a ``git
+phase; it prints no result line.  ``python3 chip_smoke.py
+--lm-families`` builds the attention, decode and rail-sweep libraries
+and runs the windowed and ring kernel rows, the hybrid, ssm and
+analysis phases (without the store audit and the lock dump, which need
+the service phase); it prints no result line.  Run from a ``git
 archive`` of another commit, this script times that commit's kernels
 (a tree without the float32 plan skips its check).
 """
@@ -169,6 +213,7 @@ import pathlib
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 
 ROOT = pathlib.Path(__file__).resolve().parent
@@ -194,14 +239,16 @@ SOURCES = {"dp_multi_stacked": "src/repro_torch/csrc/dp_sweep.cu",
            "kbest_multi_stacked": "src/repro_torch/csrc/dp_sweep.cu",
            "path_components": "src/repro_torch/csrc/dp_sweep.cu",
            # the JSON row is the bf16 serving shape; float32 runs on
-           # csrc/flash_attention.cu
+           # csrc/flash_attention.cu, as hymba's float32 window row says
            "flash_attention": "src/repro_torch/csrc/flash_attention_wgmma.cu",
+           "flash_attention_f32": "src/repro_torch/csrc/flash_attention.cu",
            "flash_decode": "src/repro_torch/csrc/flash_decode.cu",
            "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu"}
 REPLACES = {"dp_multi_stacked": "src/repro/kernels/dp_sweep.py:81",
             "kbest_multi_stacked": "src/repro/kernels/dp_sweep.py:148",
             "path_components": "src/repro/kernels/dp_sweep.py:205",
             "flash_attention": "src/repro/kernels/flash_attention.py:81",
+            "flash_attention_f32": "src/repro/kernels/flash_attention.py:81",
             "flash_decode": "src/repro/kernels/flash_decode.py:68",
             "int8_matmul": "src/repro/kernels/int8_matmul.py:47"}
 # (network, lanes in one call) of the kernel phase: the widest bucket
@@ -776,7 +823,11 @@ def profiler_check(label: str, reps: int = 10) -> None:
 
 
 def _kernel_row(rows, name, shape, ms, plain_ms, bound_ms, bound_by,
-                err, library_ms=None, dev_ms=None) -> None:
+                err, library_ms=None, dev_ms=None, kernel=None) -> None:
+    """Print one kernel row; the first row of each ``name`` goes into the
+    JSON line (``kernel``: the kernel's own name, for rows that carry
+    another configuration of it under their own name)."""
+    kernel = kernel or name
     lib = "" if library_ms is None else f"  library {library_ms:9.4f} ms"
     dev = "" if dev_ms is None else f"  device {dev_ms:9.5f} ms"
     print(f"kernel {name:20s} {shape:28s} {ms:9.4f} ms  plain "
@@ -785,8 +836,8 @@ def _kernel_row(rows, name, shape, ms, plain_ms, bound_ms, bound_by,
     # the JSON line carries the first shape of each kernel (the widest,
     # or for attention the serving shape); every shape is printed above
     rows.setdefault(name, {
-        "name": name, "route": "cuda", "source": SOURCES[name],
-        "replaces": REPLACES[name], "launches": 0, "max_abs_err": err,
+        "name": name, "route": "cuda", "source": SOURCES[kernel],
+        "replaces": REPLACES[kernel], "launches": 0, "max_abs_err": err,
         "ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms,
         "bound_by": bound_by, "library_ms": library_ms, "shape": shape,
         "device_ms": dev_ms})
@@ -878,17 +929,20 @@ def _bound_typed(nbytes: int, ops: int, dtype: str
     return t_ops, "operations", nbytes, ops
 
 
-def attention_bound(b, h, kh, sq, sk, d, causal, q_offset, dtype
-                    ) -> tuple[float, str, int, int]:
+def attention_bound(b, h, kh, sq, sk, d, causal, q_offset, dtype,
+                    window: int = 0) -> tuple[float, str, int, int]:
     """q, k, v read once and the output written once; 4·D operations
-    (two multiply-adds, QK and PV) per (query, key) pair the mask
-    keeps."""
+    (two multiply-adds, QK and PV) per (query, key) pair the mask keeps
+    (causal: keys at or before the query; ``window`` > 0: only the last
+    ``window`` positions of each query)."""
     elt = 2 if dtype == "bfloat16" else 4
     nbytes = (2 * b * h * sq * d + 2 * b * kh * sk * d) * elt
-    if causal:
-        pairs = sum(min(sk, max(0, q_offset + i + 1)) for i in range(sq))
-    else:
-        pairs = sq * sk
+    pairs = 0
+    for i in range(sq):
+        qpos = q_offset + i
+        hi = min(sk - 1, qpos) if causal else sk - 1
+        lo = max(0, qpos - window + 1) if window > 0 else 0
+        pairs += max(0, hi - lo + 1)
     return _bound_typed(nbytes, 4 * d * b * h * pairs, dtype)
 
 
@@ -914,6 +968,8 @@ def attention_phase() -> list[dict]:
     f32_plan_check()
     prefill_rows(rows, gen)
     decode_rows(rows, gen)
+    window_rows(rows, gen)
+    ring_rows(rows, gen)
     return list(rows.values())
 
 
@@ -1048,6 +1104,158 @@ def decode_rows(rows: dict, gen) -> None:
         del q, k, v, got, want
 
 
+# (b, h, kh, sq, sk, d, window, dtype): hymba-1.5b's prefill (25 query
+# heads over 5 KV heads, a group of 5, D = 64, window 1024) at the
+# hybrid parity run's longest prompt, in bf16 and float32; then the
+# window's edges in both dtypes: window 1 (each row sees itself),
+# window >= Sk (the causal mask alone), a window that is no multiple of
+# a 64-key tile, q_offset > 0 (Sq < Sk) with a window that cuts the
+# first rows, and Sq > Sk (rows that see no key); all causal, as hymba's
+HYMBA = "hymba-1.5b"
+WINDOW_SHAPES = (
+    (2, 25, 5, 2048, 2048, 64, 1024, "bfloat16"),
+    (2, 25, 5, 2048, 2048, 64, 1024, "float32"),
+    (1, 25, 5, 1536, 1536, 64, 1024, "bfloat16"),
+    (1, 10, 2, 300, 300, 64, 1, "bfloat16"),
+    (1, 10, 2, 300, 300, 64, 1, "float32"),
+    (1, 10, 2, 500, 500, 64, 4096, "bfloat16"),
+    (1, 10, 2, 500, 500, 64, 4096, "float32"),
+    (2, 5, 1, 1000, 1000, 64, 1000, "bfloat16"),
+    (2, 5, 1, 1000, 1000, 64, 1000, "float32"),
+    (1, 10, 2, 300, 1000, 64, 333, "bfloat16"),
+    (1, 10, 2, 300, 1000, 64, 333, "float32"),
+    (1, 25, 5, 257, 1100, 128, 100, "bfloat16"),
+    (1, 25, 5, 257, 1100, 32, 100, "float32"),
+    (1, 10, 2, 200, 150, 64, 77, "bfloat16"),
+    (1, 10, 2, 200, 150, 64, 77, "float32"),
+)
+# the JSON rows of the hymba configurations, and the count each carries
+# (hybrid_phase): the bf16 rows the hymba launcher's launches (its bf16
+# prefill runs the wgmma kernel alone); the float32 row the float32
+# kernel's launches in the float32 parity runs' kernel-path prefills,
+# the only hymba run in float32
+FAMILY_ROWS = {"flash_attention_window": "flash_attention",
+               "flash_attention_window_f32": "flash_attention_f32",
+               "flash_decode_ring": "flash_decode"}
+# (b, h, kh, d, dtype, lengths): hymba-1.5b's ring decode, a ring of
+# window = 1024 rows read up to min(length + 1, 1024) rows: a batch of 8
+# whose rings have all wrapped, then a batch of 8 with lengths short of
+# the window and at it, in bf16 and float32
+RING_WINDOW = 1024
+RING_SHAPES = (
+    (8, 25, 5, 64, "bfloat16", (2049,) * 8),
+    (8, 25, 5, 64, "float32", (2049,) * 8),
+    (8, 25, 5, 64, "bfloat16", (1, 17, 500, 1022, 1023, 1024, 1500, 3000)),
+    (8, 25, 5, 64, "float32", (1, 17, 500, 1022, 1023, 1024, 1500, 3000)),
+)
+
+
+def window_rows(rows: dict, gen) -> None:
+    """``flash_attention`` with a sliding window at WINDOW_SHAPES
+    against its plain version (3e-5 in float32, 2e-2 in bf16; rows that
+    see no key give zeros), with its times beside its bound (the pairs
+    the window keeps) and SDPA's with the same boolean mask."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    for b, h, kh, sq, sk, d, window, dtype in WINDOW_SHAPES:
+        q = _randn(gen, b, h, sq, d, dtype=dtype)
+        k = _randn(gen, b, kh, sk, d, dtype=dtype)
+        v = _randn(gen, b, kh, sk, d, dtype=dtype)
+        q_offset = sk - sq
+        args = dict(causal=True, q_offset=q_offset, window=window)
+        got = fa.flash_attention(q, k, v, **args)
+        want = fa.flash_attention_plain(q, k, v, **args)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        label = (_attn_label(b, h, kh, sq, sk, d, True, dtype)
+                 + f" window {window}")
+        check(err <= ATTN_TOL[dtype], f"flash_attention != plain at "
+              f"{label}: max abs err {err}")
+        if q_offset < 0:
+            check(bool((got[:, :, :-q_offset] == 0).all()),
+                  f"flash_attention at {label}: rows that see no key are "
+                  "not zero")
+        qpos = q_offset + torch.arange(sq, device=DEVICE)
+        kpos = torch.arange(sk, device=DEVICE)
+        mask = (qpos[:, None] >= kpos[None]) \
+            & (qpos[:, None] - kpos[None] < window)
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        # SDPA gives NaN for a row that sees no key: compare the others
+        seen = mask.any(dim=1)
+        lib_err = _max_abs_err(library()[:, :, seen], want[:, :, seen])
+        bound, by, nbytes, ops = attention_bound(b, h, kh, sq, sk, d, True,
+                                                 q_offset, dtype, window)
+        kernel = lambda: fa.flash_attention(q, k, v, **args)  # noqa: E731
+        bf16 = dtype == "bfloat16"
+        name = ("flash_attention_window" if bf16
+                else "flash_attention_window_f32")
+        _kernel_row(rows, name, label, time_ms(kernel),
+                    time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                             **args)),
+                    bound, by, err, time_ms(library), device_ms(kernel),
+                    kernel="flash_attention" if bf16
+                    else "flash_attention_f32")
+        print(f"  bytes {nbytes}  operations {ops}  library max abs err "
+              f"vs plain {lib_err}", flush=True)
+        del q, k, v, got, want
+
+
+def ring_rows(rows: dict, gen) -> None:
+    """``flash_decode`` over hymba's ring buffers (RING_SHAPES) against
+    its plain version, with its times beside its bound (the valid rows
+    read once) and SDPA's with the same length mask."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode as fd
+
+    s = RING_WINDOW
+    for b, h, kh, d, dtype, lengths in RING_SHAPES:
+        q = _randn(gen, b, h, d, dtype=dtype)
+        k = _randn(gen, b, s, kh, d, dtype=dtype)
+        v = _randn(gen, b, s, kh, d, dtype=dtype)
+        # a decode step at length n reads min(n + 1, window) ring rows
+        valid_np = np.minimum(np.asarray(lengths) + 1, s).astype(np.int32)
+        valid = torch.from_numpy(valid_np).to(DEVICE)
+        got = fd.flash_decode(q, k, v, valid)
+        want = fd.flash_decode_plain(q, k, v, valid)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        n_split = fd.decode_splits(
+            s, torch.cuda.get_device_properties(0).multi_processor_count)
+        label = (f"ring B={b} W={s} {h}/{kh} heads D={d} {dtype} "
+                 f"lengths {min(lengths)}-{max(lengths)} splits={n_split}")
+        check(err <= ATTN_TOL[dtype], f"flash_decode != plain at {label}: "
+              f"max abs err {err}")
+        qs = q[:, :, None, :]
+        ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+        mask = (torch.arange(s, device=DEVICE)[None, :]
+                < valid[:, None])[:, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+        bound, by, nbytes, ops = decode_bound(
+            h, kh, d, [int(x) for x in valid_np], dtype)
+        kernel = lambda: fd.flash_decode(q, k, v, valid)  # noqa: E731
+        _kernel_row(rows, "flash_decode_ring", label, time_ms(kernel),
+                    time_ms(lambda: fd.flash_decode_plain(q, k, v, valid)),
+                    bound, by, err, time_ms(library), device_ms(kernel),
+                    kernel="flash_decode")
+        print(f"  bytes {nbytes}  operations {ops}  library max abs err "
+              f"vs plain {_max_abs_err(library(), want)}", flush=True)
+        del q, k, v, got, want
+
+
 def f32_plan_check() -> None:
     """The float32 kernel's tiling as the library reports it on this
     card (``pfdnn_flash_attention_f32_plan``: CTAs an SM holds from the
@@ -1109,6 +1317,8 @@ def ptxas_usage(lib) -> str:
         if regs and name:
             d = re.search(r"ILi(\d+)E", name)
             label = f"{name[:48]}..." if d is None else f"D={d.group(1)}"
+            if d is not None and "Lb1E" in name:
+                label += " window"
             lines.append(f"ptxas: {lib.source.name} {label}: {regs.group(1)} "
                          f"registers, {spill}")
             name, spill = "", ""
@@ -1328,41 +1538,92 @@ def _counts() -> dict:
             for name, n in mod.LAUNCHES.items()}
 
 
-def cli_run() -> dict:
+def cli_run(argv: list[str] = CLI_ARGS, attention: bool = True) -> dict:
     """The entry point as users run it, in-process, with the launch
-    counts set to 0 just before and read just after."""
+    counts set to 0 just before and read just after: 8 requests of 16
+    tokens served, the attention kernels launched (or, for a family
+    without attention, not launched), the power compile's sweep kernels
+    launched on the card and its 10 replayed periods without a miss."""
     from repro_torch.launch import serve as launch
 
     _reset_counts()
     tic = time.perf_counter()
-    out = launch.main(list(CLI_ARGS))
+    out = launch.main(list(argv))
     wall = time.perf_counter() - tic
     counts = _counts()
-    print(f"serve cli: {' '.join(CLI_ARGS)}: wall {wall:.3f} s  launches "
+    arch = argv[argv.index("--arch") + 1]
+    print(f"serve cli: {' '.join(argv)}: wall {wall:.3f} s  launches "
           f"{json.dumps(counts)}", flush=True)
     done = out["done"]
     check(len(done) == 8 and all(len(r.generated) == 16 and not
                                  r.truncated for r in done),
-          "the launcher did not serve 8 requests of 16 tokens")
+          f"the launcher ({arch}) did not serve 8 requests of 16 tokens")
     for name in ("flash_attention", "flash_decode"):
-        check(counts[name] > 0, f"kernel {name} was not launched by the "
-              "launcher")
-    for name in ("dp_multi_stacked", "kbest_multi_stacked",
-                 "path_components"):
-        check(counts[name] > 0, f"the launcher's power compile did not "
-              f"launch {name} on the card")
+        if attention:
+            check(counts[name] > 0, f"kernel {name} was not launched by "
+                  f"the {arch} launcher")
+        else:
+            check(counts[name] == 0, f"the {arch} launcher launched {name}")
+    for name in DP_KERNELS:
+        check(counts[name] > 0, f"the {arch} launcher's power compile did "
+              f"not launch {name} on the card")
     check(out["schedule"] is not None, "no power schedule at 30 Hz")
     check(out["replay"]["deadline_misses"] == 0
           and len(out["replay"]["ledgers"]) == 10,
-          "the launcher's 10 replayed periods missed a deadline")
+          f"the {arch} launcher's 10 replayed periods missed a deadline")
     return counts
+
+
+def tiled_plain_attention(q, k, v, *, causal: bool = True,
+                          q_offset: int = 0, window: int = 0):
+    """The prefill kernels' algorithm in plain PyTorch: an online
+    softmax over K/V tiles of 64 keys (both kernels' tile) with a
+    float32 ``(m, l, acc)`` carry, the ``0.5·NEG_INF`` clamp on both
+    maxima, ``l`` summing the unrounded ``p`` and ``p`` rounded to V's
+    dtype against the running maximum before ``P·V``.  It differs from
+    ``flash_attention_plain`` (one softmax over all keys) only in where
+    ``p`` is rounded, so the two bound what rounding alone moves; it is
+    the reference's ``flash_attention_jnp`` at a 64-key chunk."""
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+
+    B, H, Sq, D = q.shape
+    g = H // k.shape[1]
+    Sk = k.shape[2]
+    kf = k.float().repeat_interleave(g, dim=1)
+    vt = v.repeat_interleave(g, dim=1)
+    qf = q.float()
+    scale = fa.softmax_scale(D)
+    keep = fa._keep_mask(Sq, Sk, q_offset, causal, window, q.device)
+    m = torch.full((B, H, Sq, 1), fa.NEG_INF, dtype=torch.float32,
+                   device=q.device)
+    l = torch.zeros_like(m)
+    acc = torch.zeros((B, H, Sq, D), dtype=torch.float32, device=q.device)
+    for k0 in range(0, Sk, fa.F32_BLOCK_KEYS):
+        k1 = min(k0 + fa.F32_BLOCK_KEYS, Sk)
+        s = torch.matmul(qf, kf[:, :, k0:k1].transpose(-1, -2)) * scale
+        if keep is not None:
+            s = torch.where(keep[:, k0:k1], s,
+                            torch.full_like(s, fa.NEG_INF))
+        m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
+        m_sub = m_new.clamp_min(0.5 * fa.NEG_INF)
+        p = torch.exp(s - m_sub)
+        corr = torch.exp(m.clamp_min(0.5 * fa.NEG_INF) - m_sub)
+        l = l * corr + p.sum(dim=-1, keepdim=True)
+        acc = acc * corr + torch.matmul(p.to(v.dtype).float(),
+                                        vt[:, :, k0:k1].float())
+        m = m_new
+    return (acc / l.clamp_min(1e-30)).to(q.dtype)
 
 
 @contextlib.contextmanager
 def plain_attention(n_split: int | None = None):
     """Route the transformer's attention through the kernels' plain
     versions (on the same card tensors) for the duration; with
-    ``n_split``, decode through the two-pass plain version instead."""
+    ``n_split``, through the kernels' algorithms in plain PyTorch
+    instead: prefill over 64-key tiles (``tiled_plain_attention``) and
+    decode in two passes over ``n_split`` chunks."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
@@ -1374,6 +1635,7 @@ def plain_attention(n_split: int | None = None):
         def two_pass(q, k, v, length):
             return fd.flash_decode_split_plain(q, k, v, length, n_split)
 
+        ops.flash_attention = tiled_plain_attention
         ops.flash_decode = two_pass
     try:
         yield
@@ -1381,13 +1643,19 @@ def plain_attention(n_split: int | None = None):
         ops.flash_attention, ops.flash_decode = saved
 
 
-def parity_run(dtype: str) -> None:
+def parity_run(dtype: str, arch: str = ARCH,
+               n_prompts: int = PARITY_PROMPTS,
+               prompt_len: int = PARITY_LEN,
+               limit: float | None = None) -> float:
     """Kernel path against plain path: the same seeded weights in
     ``dtype``, the same prompts, prefill + PARITY_STEPS decode steps, the
     kernel path's greedy tokens fed to all.  Beside it, and not held to
-    the limit, the floor: the plain path against the plain path with the
-    two-pass plain decode at the kernel's split count, which differ only
-    in where p is rounded."""
+    the limit, the floor: the plain path against the kernels' algorithms
+    in plain PyTorch (prefill over 64-key tiles, decode in two passes at
+    the kernel's split count), which differ only in where p is rounded;
+    and the kernel path against that tiled plain path.  Returns the
+    floor and the kernel-path prefill's ``flash_attention`` launches
+    (the counts set to 0 just before that prefill, read just after)."""
     import numpy as np
     import torch
 
@@ -1399,16 +1667,18 @@ def parity_run(dtype: str) -> None:
         prefill,
     )
 
-    cfg = dataclasses.replace(get_config(ARCH), dtype=dtype)
-    limit = PARITY_LIMIT[dtype]
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    limit = PARITY_LIMIT[dtype] if limit is None else limit
     params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
                          DEVICE)
     rng = np.random.default_rng(0)
     toks = torch.from_numpy(rng.integers(
-        1, cfg.vocab_size, (PARITY_PROMPTS, PARITY_LEN))).to(DEVICE)
-    cache = PARITY_LEN + PARITY_STEPS
+        1, cfg.vocab_size, (n_prompts, prompt_len))).to(DEVICE)
+    cache = prompt_len + PARITY_STEPS
+    # the rows decode reads: the cache, or hymba's ring of `window` rows
+    rows = cfg.window if cfg.family == "hybrid" else cache
     n_split = fd.decode_splits(
-        cache, torch.cuda.get_device_properties(0).multi_processor_count)
+        rows, torch.cuda.get_device_properties(0).multi_processor_count)
     tic = time.perf_counter()
     prefill(params, cfg, {"tokens": toks}, cache)     # warm-up
     torch.cuda.synchronize()
@@ -1425,14 +1695,17 @@ def parity_run(dtype: str) -> None:
     plain_prefill_ms = (time.perf_counter() - tic_prefill) * 1e3
     with plain_attention(n_split):
         lf, sf = prefill(params, cfg, {"tokens": toks}, cache)
-    worst, floor, same, total = 0.0, 0.0, 0, 0
+    worst, floor, tiled, same, total = 0.0, 0.0, 0.0, 0, 0
+    over = []                    # steps past the limit, held after the print
     for step in range(PARITY_STEPS + 1):
         diff = float((lk - lp).abs().max())
         scale = float(lk.abs().max())
         worst = max(worst, diff / scale)
         floor = max(floor, float((lf - lp).abs().max()) / scale)
-        check(diff <= limit * scale, f"kernel vs plain logits ({dtype}) at "
-              f"step {step}: max |diff| {diff} > {limit} x {scale}")
+        tiled = max(tiled, float((lk - lf).abs().max()) / scale)
+        if diff > limit * scale:
+            over.append(f"step {step}: max |diff| {diff} > {limit} x "
+                        f"{scale}")
         tk, tp = lk.argmax(-1), lp.argmax(-1)
         same += int((tk == tp).sum())
         total += tk.numel()
@@ -1444,16 +1717,20 @@ def parity_run(dtype: str) -> None:
         with plain_attention(n_split):
             lf, sf = decode_step(params, cfg, sf, tk)
     torch.cuda.synchronize()
-    print(f"serve parity: {ARCH} {dtype}, {PARITY_PROMPTS} prompts of "
-          f"{PARITY_LEN} tokens, prefill + {PARITY_STEPS} decode steps: "
+    print(f"serve parity: {arch} {dtype}, {n_prompts} prompts of "
+          f"{prompt_len} tokens, prefill + {PARITY_STEPS} decode steps: "
           f"max |dlogits| / max |logits| {worst!r} (limit {limit}); "
-          f"floor (plain vs two-pass plain decode, {n_split} splits) "
-          f"{floor!r}; identical greedy tokens {same}/{total}; wall "
+          f"floor (plain vs tiled plain prefill and two-pass plain "
+          f"decode, {n_split} splits) {floor!r}; kernel vs tiled plain "
+          f"{tiled!r}; identical greedy tokens {same}/{total}; wall "
           f"{time.perf_counter() - tic:.3f} s; kernel-path prefill "
           f"launched flash_attention {prefill_counts['flash_attention']} "
           f"times; prefill {prefill_ms:.3f} ms on the kernel path, "
           f"{plain_prefill_ms:.3f} ms on the plain path (host clock, "
           "synchronized, after one warm-up prefill)", flush=True)
+    check(not over, f"kernel vs plain logits ({arch} {dtype}) at "
+          + "; ".join(over))
+    return floor, prefill_counts["flash_attention"]
 
 
 def batch_run() -> None:
@@ -1565,6 +1842,492 @@ def serve_phase() -> dict:
     batch_run()
     print(f"phase serve batch: {time.perf_counter() - tic:.3f} s",
           flush=True)
+    return counts
+
+
+# --------------------------------------------- hybrid and ssm phases
+
+HYMBA_ARGS = ["--arch", HYMBA, "--requests", "8", "--max-new", "16",
+              "--rate", "30", "--policy", "pfdnn"]
+# prompts past hymba's window of 1024: prefill attention is cut by it,
+# and the ring has wrapped before the first decode step
+HYMBA_PARITY = ((2, 1536), (2, 2048))
+# hymba's bf16 limit, set from its floor: the plain path and the kernels'
+# algorithm in plain PyTorch, which differ only in where p is rounded,
+# differ by up to 0.0532 x max |logits| at full width (random weights
+# amplify any rounding through the 32 layers' normalized branches), so
+# the kernel path may differ from the plain path by 1.5 x that floor
+# (PERF.md section 2); float32 keeps 1e-3
+HYMBA_BF16_LIMIT = 0.08
+# the refill check's prompts (the first request's, then the one that
+# refills the free slot; both past the window) and new tokens each
+HYMBA_REFILL = (1100, 1300)
+HYMBA_REFILL_NEW = 6
+XLSTM = "xlstm-350m"
+XLSTM_ARGS = ["--arch", XLSTM, "--requests", "8", "--max-new", "16",
+              "--rate", "30", "--policy", "pfdnn"]
+XLSTM_BATCH, XLSTM_PROMPT, XLSTM_STEPS = 8, 512, 16
+XLSTM_PARITY = (2, 16, 4)           # prompts, tokens, decode steps
+# card vs CPU port in float32, relative to the largest value: each block
+# on the same inputs (only summation order differs), and end to end,
+# where one float32 rounding of the embeddings alone moves the logits by
+# 0.0028 x max |logits| at full width (the floor this phase prints) and
+# the card differs from the CPU in every product's summation order, so
+# the limit is set from that floor (PERF.md section 2)
+XLSTM_BLOCK_LIMIT = 1e-4
+XLSTM_LIMIT = 1e-2
+
+
+def hybrid_phase() -> dict:
+    """hymba-1.5b at full width: the launcher (its counts), then the
+    kernel path against the plain path on prompts past the window, in
+    float32 and bf16, the bf16 limit against a planted fault, and a
+    mid-batch refill; returns the launcher's counts and, under
+    ``flash_attention_f32``, the float32 kernel's launches in the
+    float32 parity runs' kernel-path prefills."""
+    tic = time.perf_counter()
+    counts = cli_run(HYMBA_ARGS)
+    print(f"phase hybrid cli: {time.perf_counter() - tic:.3f} s",
+          flush=True)
+    tic = time.perf_counter()
+    floors, f32_launches = [], 0
+    for dtype in PARITY_LIMIT:
+        limit = HYMBA_BF16_LIMIT if dtype == "bfloat16" else None
+        for n, length in HYMBA_PARITY:
+            floor, launched = parity_run(dtype, HYMBA, n, length, limit)
+            if dtype == "bfloat16":
+                floors.append(floor)
+            else:
+                f32_launches += launched
+    print(f"hybrid parity: {HYMBA} bf16 floor (plain vs tiled plain "
+          f"prefill and two-pass plain decode) {max(floors)!r} against "
+          f"the limit {HYMBA_BF16_LIMIT}", flush=True)
+    window_fault_run(*HYMBA_PARITY[-1])
+    print(f"phase hybrid parity: {time.perf_counter() - tic:.3f} s",
+          flush=True)
+    tic = time.perf_counter()
+    hybrid_refill_check()
+    print(f"phase hybrid refill: {time.perf_counter() - tic:.3f} s",
+          flush=True)
+    tic = time.perf_counter()
+    hybrid_profile()
+    print(f"phase hybrid profile: {time.perf_counter() - tic:.3f} s",
+          flush=True)
+    return {**counts, "flash_attention_f32": f32_launches}
+
+
+def _hymba(dtype: str):
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(get_config(HYMBA), dtype=dtype)
+    return cfg, init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+
+
+def window_fault_run(n_prompts: int, prompt_len: int) -> None:
+    """A planted fault the bf16 limit must catch: hymba's kernel path
+    with the window dropped from every prefill attention call (each row
+    then sees every earlier key), against the plain path, on the parity
+    run's prompts and seed-0 weights, prefill + PARITY_STEPS decode
+    steps (the kernel path's greedy tokens fed to both)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import ops
+    from repro_torch.models.transformer import decode_step, prefill
+
+    cfg, params = _hymba("bfloat16")
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (n_prompts, prompt_len))).to(DEVICE)
+    cache = prompt_len + PARITY_STEPS
+
+    def no_window(q, k, v, **kw):
+        return fa.flash_attention(q, k, v, **{**kw, "window": 0})
+
+    saved, ops.flash_attention = ops.flash_attention, no_window
+    try:
+        lk, sk = prefill(params, cfg, {"tokens": toks}, cache)
+    finally:
+        ops.flash_attention = saved
+    with plain_attention():
+        lp, sp = prefill(params, cfg, {"tokens": toks}, cache)
+    worst = 0.0
+    for step in range(PARITY_STEPS + 1):
+        worst = max(worst, float((lk - lp).abs().max())
+                    / float(lk.abs().max()))
+        if step == PARITY_STEPS:
+            break
+        tk = lk.argmax(-1)
+        lk, sk = decode_step(params, cfg, sk, tk)
+        with plain_attention():
+            lp, sp = decode_step(params, cfg, sp, tk)
+    print(f"hybrid parity: planted fault (the bf16 kernel path's prefill "
+          f"ignores the window), {n_prompts} prompts of {prompt_len} "
+          f"tokens, prefill + {PARITY_STEPS} decode steps: max |dlogits| "
+          f"/ max |logits| {worst!r} against the limit "
+          f"{HYMBA_BF16_LIMIT}", flush=True)
+    check(worst > HYMBA_BF16_LIMIT, f"the bf16 limit {HYMBA_BF16_LIMIT} "
+          f"passes a prefill that ignores the window ({worst})")
+
+
+def hybrid_refill_check() -> None:
+    """A mid-batch refill of a hymba slot through ``ServingEngine`` on
+    the card, in float32: two slots, request A prefilled alone, and one
+    step later B prefilled into the free slot (``_prefill_slot``
+    scatters its rings and mamba state into the live batch state); after
+    every step each live slot's next-token logits against its request
+    prefilled and decoded alone (1e-3 x max |logits|, as the float32
+    parity), and the greedy tokens equal.  Both prompts pass the window,
+    so both rings have wrapped."""
+    import numpy as np
+    import torch
+
+    from repro_torch.models.transformer import decode_step, prefill
+    from repro_torch.serve import EngineConfig, ServingEngine
+
+    cfg, params = _hymba("float32")
+    rng = np.random.default_rng(1)
+    prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
+               for n in HYMBA_REFILL]
+    new = HYMBA_REFILL_NEW
+    alone = []                     # each request's logits, step by step
+    for prompt in prompts:
+        logits, st = prefill(params, cfg, {"tokens": torch.from_numpy(
+            prompt[None].astype(np.int64)).to(DEVICE)}, len(prompt) + new)
+        seq = [logits[0].float().cpu().numpy()]
+        for _ in range(new - 1):
+            tok = int(np.argmax(seq[-1])) % cfg.vocab_size
+            logits, st = decode_step(params, cfg, st, torch.tensor(
+                [tok], device=DEVICE))
+            seq.append(logits[0].float().cpu().numpy())
+        alone.append(seq)
+    engine = ServingEngine(cfg, params, EngineConfig(
+        max_batch=2, cache_len=max(HYMBA_REFILL) + new, eos_token=-1,
+        max_new_tokens=new))
+    worst = 0.0
+
+    def hold() -> float:
+        err = 0.0
+        for slot, r in engine.active.items():
+            if not r.done:
+                want = alone[r.rid][len(r.generated)]
+                err = max(err, float(np.abs(engine._logits[slot] - want)
+                                     .max() / np.abs(want).max()))
+        return err
+
+    engine.submit(list(prompts[0]))
+    engine.step()
+    worst = max(worst, hold())
+    engine.submit(list(prompts[1]))
+    engine.step()
+    refilled = {s: r.rid for s, r in engine.active.items()} == {0: 0, 1: 1}
+    worst = max(worst, hold())
+    while engine.queue or engine.active:
+        engine.step()
+        worst = max(worst, hold())
+    done = {r.rid: r.generated for r in engine.completed}
+    want_tokens = [[int(np.argmax(x)) % cfg.vocab_size for x in seq]
+                   for seq in alone]
+    same = all(done.get(i) == want_tokens[i] for i in range(2))
+    print(f"hybrid refill: {HYMBA} float32, 2 slots, prompts "
+          f"{HYMBA_REFILL[0]} and {HYMBA_REFILL[1]} tokens (the second "
+          f"prefilled into the free slot one step later: {refilled}), "
+          f"{new} tokens each: every step's logits against each request "
+          f"alone, max |dlogits| / max |logits| {worst!r} (limit "
+          f"{PARITY_LIMIT['float32']}); tokens equal {same}", flush=True)
+    check(refilled, "the hymba engine did not refill the free slot "
+          "mid-batch")
+    check(worst <= PARITY_LIMIT["float32"] and same,
+          f"a refilled hymba batch differs from its requests alone "
+          f"({worst}, tokens equal {same})")
+
+
+HYMBA_PROFILE = (2, 2048, 16)      # prompts, tokens, decode steps (bf16)
+PROFILED_DECODE = 8                # decode steps run under the profiler
+# device operations by kind, from their kernel names
+DEVICE_KINDS = (("attention kernels", ("flash_attention", "decode_split",
+                                       "decode_combine")),
+                ("cuBLAS products", ("gemm", "nvjet", "cutlass", "xmma")),
+                ("copies", ("Memcpy", "Memset")))
+
+
+def _by_kind(prof) -> str:
+    found = device_busy(prof)
+    if found is None:
+        return "device time not measured"
+    sums = {kind: 0.0 for kind, _ in DEVICE_KINDS}
+    other = 0.0
+    for name, (_, us) in found[1]:
+        for kind, keys in DEVICE_KINDS:
+            if any(key in name for key in keys):
+                sums[kind] += us
+                break
+        else:
+            other += us
+    return "; ".join(f"{kind} {us / 1e3:.3f} ms"
+                     for kind, us in (*sums.items(), ("other", other)))
+
+
+def hybrid_profile() -> None:
+    """Where hymba-1.5b's bf16 serving time goes: a 2 x 2048-token
+    prefill and decode steps over the wrapped rings, timed (host clock,
+    synchronized), with ``gated_linear_scan``'s share of the prefill
+    (synchronized around each call), then one prefill and
+    PROFILED_DECODE decode steps under ``torch.profiler``: device busy
+    and idle share, and device time by kind of operation."""
+    import numpy as np
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models import transformer as tf
+
+    n, length, steps = HYMBA_PROFILE
+    cfg = get_config(HYMBA)
+    params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                            DEVICE)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                         (n, length))).to(DEVICE)
+    feed = torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                         (steps, n))).to(DEVICE)
+
+    def prefill():
+        return tf.prefill(params, cfg, {"tokens": toks}, 0)
+
+    prefill()                                     # warm-up
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, state = prefill()
+    torch.cuda.synchronize()
+    pre = time.perf_counter() - t0
+    walls = []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        logits, state = tf.decode_step(params, cfg, state, feed[step])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{HYMBA}: non-finite decode logits")
+    spent = [0.0]
+    inner = ssm_lib.gated_linear_scan
+
+    def timed_scan(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    tf.ssm_lib.gated_linear_scan = timed_scan
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        prefill()
+        torch.cuda.synchronize()
+        pre_t = time.perf_counter() - t0
+    finally:
+        tf.ssm_lib.gated_linear_scan = inner
+    med = statistics.median(walls)
+    print(f"hybrid serve: {HYMBA} bf16, {n} x {length} prompt tokens: "
+          f"prefill {pre * 1e3:.3f} ms ({n * length / pre:.1f} tokens/s), "
+          f"of it gated_linear_scan {spent[0] * 1e3:.3f} ms of a "
+          f"{pre_t * 1e3:.3f} ms synchronized prefill "
+          f"({spent[0] / pre_t:.4f}); decode step over the wrapped rings "
+          f"median {med * 1e3:.3f} ms over {steps} (min "
+          f"{min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}): "
+          f"{n / med:.1f} decode tokens/s", flush=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        _, state = prefill()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _print_busy("profile hybrid prefill", prof, wall * 1e6)
+    print(f"profile hybrid prefill by kind: {_by_kind(prof)}", flush=True)
+    _print_host("profile hybrid prefill", prof)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for step in range(PROFILED_DECODE):
+            _, state = tf.decode_step(params, cfg, state,
+                                      feed[step % steps])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    _print_busy(f"profile hybrid decode ({PROFILED_DECODE} steps)", prof,
+                wall * 1e6)
+    print(f"profile hybrid decode by kind ({PROFILED_DECODE} steps): "
+          f"{_by_kind(prof)}", flush=True)
+    _print_host(f"profile hybrid decode ({PROFILED_DECODE} steps)", prof)
+
+
+def _print_host(label: str, prof, rows: int = 12) -> None:
+    """The host's time by operator in a profile (self CPU time, largest
+    first): where a host-bound loop spends its wall."""
+    ops = sorted(prof.key_averages(), key=lambda e: -e.self_cpu_time_total)
+    for e in ops[:rows]:
+        print(f"{label} host: {e.count:7d} x {e.self_cpu_time_total / 1e3:10.3f}"
+              f" ms self CPU  {e.key[:80]}", flush=True)
+
+
+def ssm_phase() -> dict:
+    """xlstm-350m at full width: the launcher (no kernel of the table in
+    the engine), prefill and decode-step times with ``slstm_scan``'s
+    share, and the card against the CPU port on a few tokens in float32
+    (no kernel on either side: cuBLAS and the plain scans)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import ssm as ssm_lib
+    from repro_torch.models import transformer as tf
+
+    tic = time.perf_counter()
+    counts = cli_run(XLSTM_ARGS, attention=False)
+    print(f"phase ssm cli: {time.perf_counter() - tic:.3f} s", flush=True)
+
+    cfg = get_config(XLSTM)
+    params = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                            DEVICE)
+    rng = np.random.default_rng(0)
+    toks = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (XLSTM_BATCH, XLSTM_PROMPT))).to(DEVICE)
+    feed = torch.from_numpy(rng.integers(
+        1, cfg.vocab_size, (XLSTM_STEPS, XLSTM_BATCH))).to(DEVICE)
+    spent = [0.0]
+    inner = ssm_lib.slstm_scan
+
+    def timed_scan(*args, **kwargs):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t0
+        return out
+
+    def run(timed: bool) -> tuple[float, list[float], float, float]:
+        """(prefill s, decode step walls, sLSTM s in prefill, in decode)"""
+        spent[0] = 0.0
+        tf.ssm_lib.slstm_scan = timed_scan if timed else inner
+        try:
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            _, state = tf.prefill(params, cfg, {"tokens": toks}, 0)
+            torch.cuda.synchronize()
+            pre = time.perf_counter() - t0
+            pre_scan, spent[0] = spent[0], 0.0
+            walls = []
+            for step in range(XLSTM_STEPS):
+                t0 = time.perf_counter()
+                logits, state = tf.decode_step(params, cfg, state,
+                                               feed[step])
+                torch.cuda.synchronize()
+                walls.append(time.perf_counter() - t0)
+            check(bool(torch.isfinite(logits).all()),
+                  f"{XLSTM}: non-finite decode logits")
+            return pre, walls, pre_scan, spent[0]
+        finally:
+            tf.ssm_lib.slstm_scan = inner
+
+    run(False)                                    # warm-up
+    pre, walls, _, _ = run(False)
+    pre_t, walls_t, pre_scan, dec_scan = run(True)
+    med = statistics.median(walls)
+    print(f"ssm serve: {XLSTM} bf16, batch {XLSTM_BATCH} x {XLSTM_PROMPT} "
+          f"prompt tokens: prefill {pre * 1e3:.3f} ms "
+          f"({XLSTM_BATCH * XLSTM_PROMPT / pre:.1f} tokens/s); decode step "
+          f"median {med * 1e3:.3f} ms over {XLSTM_STEPS} (min "
+          f"{min(walls) * 1e3:.3f}, max {max(walls) * 1e3:.3f}): "
+          f"{XLSTM_BATCH / med:.1f} decode tokens/s", flush=True)
+    n_slstm = sum(tf._is_slstm(cfg, i) for i in range(cfg.n_layers))
+    print(f"ssm serve: slstm_scan ({n_slstm} of {cfg.n_layers} layers, "
+          f"synchronized around each call): {pre_scan * 1e3:.3f} ms of a "
+          f"{pre_t * 1e3:.3f} ms prefill ({pre_scan / pre_t:.4f}), "
+          f"{dec_scan / XLSTM_STEPS * 1e3:.3f} ms of a "
+          f"{statistics.median(walls_t) * 1e3:.3f} ms decode step "
+          f"({dec_scan / sum(walls_t):.4f} of the steps' wall)", flush=True)
+    del params, toks, feed
+
+    # card against the CPU port: float32 weights drawn once on the CPU
+    n, length, steps = XLSTM_PARITY
+    cfg32 = dataclasses.replace(cfg, dtype="float32")
+    cpu_params = tf.init_params(cfg32, torch.Generator().manual_seed(0),
+                                "cpu")
+
+    def to_card(tree):
+        if isinstance(tree, (list, tuple)):
+            out = [to_card(t) for t in tree]
+            return type(tree)(*out) if hasattr(tree, "_fields") \
+                else type(tree)(out)
+        if isinstance(tree, dict):
+            return {k: to_card(v) for k, v in tree.items()}
+        return tree.to(DEVICE)
+
+    card_params = to_card(cpu_params)
+    toks = torch.from_numpy(rng.integers(1, cfg.vocab_size, (n, length)))
+    tic = time.perf_counter()
+
+    # 1. each block on the same inputs (the CPU's), prefill and one
+    # decode step from the CPU's state: only summation order differs
+    x = tf.embed_tokens(cpu_params, cfg32, toks)
+    x1 = tf.embed_tokens(cpu_params, cfg32, toks[:, :1])
+    block_err = 0.0
+    for i in range(cfg.n_layers):
+        block = tf.slstm_block if tf._is_slstm(cfg, i) else tf.mlstm_block
+        lc, lg = tf.layer_params(cpu_params, i), tf.layer_params(card_params,
+                                                                 i)
+        yc, stc = block(lc, cfg32, x)
+        yg, _ = block(lg, cfg32, x.to(DEVICE))
+        dc, _ = block(lc, cfg32, x1, state=stc, decode=True)
+        dg, _ = block(lg, cfg32, x1.to(DEVICE), state=to_card(stc),
+                      decode=True)
+        for got, want in ((yg, yc), (dg, dc)):
+            block_err = max(block_err, float((got.cpu() - want).abs().max())
+                            / float(want.abs().max()))
+        x, x1 = yc, dc
+    check(block_err <= XLSTM_BLOCK_LIMIT, f"{XLSTM} block on the card vs "
+          f"the CPU on the same inputs: {block_err} > {XLSTM_BLOCK_LIMIT}")
+
+    # 2. end to end, beside the floor: the CPU port against itself with
+    # its embedding table moved by one float32 rounding (each entry x (1
+    # +- 2^-24)), which measures how far the model carries one rounding
+    nudge = torch.where(torch.rand(cpu_params["embed"].shape,
+                                   generator=torch.Generator().manual_seed(1))
+                        < 0.5, 1 - 2.0 ** -24, 1 + 2.0 ** -24)
+    nudged = dict(cpu_params, embed=cpu_params["embed"] * nudge)
+    got_l, got = tf.prefill(card_params, cfg32,
+                            {"tokens": toks.to(DEVICE)}, 0)
+    want_l, want = tf.prefill(cpu_params, cfg32, {"tokens": toks}, 0)
+    near_l, near = tf.prefill(nudged, cfg32, {"tokens": toks}, 0)
+    worst, floor = 0.0, 0.0
+    for step in range(steps + 1):
+        scale = float(want_l.abs().max())
+        worst = max(worst, float((got_l.cpu() - want_l).abs().max()) / scale)
+        floor = max(floor, float((near_l - want_l).abs().max()) / scale)
+        if step == steps:
+            break
+        nxt = want_l.argmax(-1)
+        got_l, got = tf.decode_step(card_params, cfg32, got, nxt.to(DEVICE))
+        want_l, want = tf.decode_step(cpu_params, cfg32, want, nxt)
+        near_l, near = tf.decode_step(nudged, cfg32, near, nxt)
+    print(f"ssm parity: {XLSTM} float32 on the card against the CPU port, "
+          f"{n} prompts of {length} tokens: each of {cfg.n_layers} blocks "
+          f"on the same inputs (prefill and a decode step) max |dy| / max "
+          f"|y| {block_err!r} (limit {XLSTM_BLOCK_LIMIT}); end to end, "
+          f"prefill + {steps} decode steps, max |dlogits| / max |logits| "
+          f"{worst!r}; floor (the CPU port against itself with its "
+          f"embeddings moved by one rounding) {floor!r}; wall "
+          f"{time.perf_counter() - tic:.3f} s", flush=True)
+    check(worst <= XLSTM_LIMIT, f"{XLSTM} card vs CPU end to end: {worst} "
+          f"> {XLSTM_LIMIT}")
     return counts
 
 
@@ -1991,12 +2754,16 @@ def _farm_run(root: str, solo: dict, n_workers: int) -> dict:
     return counters
 
 
-def service_phase() -> dict:
+def service_phase(keep: pathlib.Path | None = None) -> dict:
     """The fleet compile service on the card (see the module docstring,
-    phase 8); returns the DP kernels' launches of its fleet run."""
+    phase 10); returns the DP kernels' launches of its fleet run.  With
+    ``keep``, the farm's disk store stays at ``keep / "farm"`` and the
+    two-thread run's lock graph is dumped to ``keep /
+    "lockcheck.jsonl"`` (``lockcheck.dump``, what
+    ``PFDNN_LOCKCHECK_DUMP`` makes a process write at exit), for the
+    analysis phase."""
     import gc
     import multiprocessing
-    import tempfile
     import threading
 
     import torch
@@ -2175,6 +2942,8 @@ def service_phase() -> dict:
                           f"thread {_label(mine[i])}: differs from solo")
             report = lockcheck.assert_clean()
             locks = lockcheck.graph()["locks"]
+            if keep is not None:
+                lockcheck.dump(keep / LOCK_DUMP)
             shared.store.clear()
         finally:
             lockcheck.disable()
@@ -2184,7 +2953,11 @@ def service_phase() -> dict:
               f"over {len(locks)} locks {locks}", flush=True)
 
         # 5. the farm: 2 workers on the card, then 1 fresh one warm
-        with tempfile.TemporaryDirectory() as root:
+        with contextlib.ExitStack() as stack:
+            if keep is None:
+                root = stack.enter_context(tempfile.TemporaryDirectory())
+            else:
+                root = str(keep / FARM_DIR)
             _farm_run(root, solo, 2)
             warm_counters = _farm_run(root, solo, 1)
         check(warm_counters["disk_hits"]["schedule"] > 0,
@@ -2530,7 +3303,7 @@ def _check_equal(card, cpu, what: str) -> None:
 
 def control_phase() -> dict:
     """The adaptive control plane on the card (see the module
-    docstring, phase 9); returns the sweep kernels' launches of its
+    docstring, phase 11); returns the sweep kernels' launches of its
     bundle compile and blocking re-solves."""
     import gc
     import multiprocessing
@@ -2841,6 +3614,113 @@ def control_phase() -> dict:
     return total
 
 
+# ---------------------------------------------------- analysis phase
+
+FARM_DIR, LOCK_DUMP = "farm", "lockcheck.jsonl"
+# runs `python -m repro_torch.analysis <args>` as a user does and, at
+# exit, prints the kernels' launch counts of the process on stderr
+ANALYSIS_MAIN = """
+import atexit, json, runpy, sys
+from repro_torch.kernels import dp_sweep
+atexit.register(lambda: print("LAUNCHES " + json.dumps(dp_sweep.LAUNCHES),
+                              file=sys.stderr, flush=True))
+sys.argv = ["python -m repro_torch.analysis"] + sys.argv[1:]
+runpy.run_module("repro_torch.analysis", run_name="__main__",
+                 alter_sys=True)
+"""
+
+
+def _analysis(args: list[str]) -> subprocess.Popen:
+    import os
+
+    env = dict(os.environ)
+    env["PYTHONPATH"] = os.pathsep.join(
+        [str(ROOT / "src")] + ([env["PYTHONPATH"]]
+                               if env.get("PYTHONPATH") else []))
+    return subprocess.Popen([sys.executable, "-c", ANALYSIS_MAIN, *args],
+                            cwd=str(ROOT), env=env, text=True,
+                            stdout=subprocess.PIPE, stderr=subprocess.PIPE)
+
+
+def _finish(proc: subprocess.Popen, what: str,
+            timeout: float = 600) -> tuple[float, list[str], dict]:
+    """(wall, stdout lines, launch counts) of a finished analysis run;
+    fails on a nonzero exit."""
+    tic = time.perf_counter()
+    out, err = proc.communicate(timeout=timeout)
+    counts = {}
+    for line in err.splitlines():
+        if line.startswith("LAUNCHES "):
+            counts = json.loads(line[len("LAUNCHES "):])
+    check(proc.returncode == 0, f"python -m repro_torch.analysis {what} "
+          f"exited {proc.returncode}:\n{out[-2000:]}\n{err[-2000:]}")
+    return time.perf_counter() - tic, out.splitlines(), counts
+
+
+def analysis_phase(keep: pathlib.Path | None) -> None:
+    """``python -m repro_torch.analysis`` as users run it, in
+    subprocesses started together: ``certify --goldens`` on the card
+    (every golden case compiled through ``repro_torch.core`` on the card
+    and certified; its DP, k-best and gather launches) and on the CPU
+    (``--device cpu``: the plain versions), whose lines must be equal
+    and each PASS; ``lint`` over the port's tree (clean under its
+    baseline); with ``keep`` (the service phase's leavings),
+    ``certify --store`` on the farm's disk store (OK, entries > 0) and
+    ``lockcheck --dump`` on the two-thread run's lock graph (no cycle,
+    no barrier hazard)."""
+    from repro_torch.analysis import __main__ as cli
+
+    tic = time.perf_counter()
+    procs = {"card": _analysis(["certify", "--goldens"]),
+             "cpu": _analysis(["certify", "--goldens", "--device", "cpu"]),
+             "lint": _analysis(["lint"])}
+    if keep is not None:
+        procs["store"] = _analysis(["certify", "--store",
+                                    str(keep / FARM_DIR)])
+        procs["lockcheck"] = _analysis(["lockcheck", "--dump",
+                                        str(keep / LOCK_DUMP)])
+    wall, card, counts = _finish(procs["card"], "certify --goldens")
+    n_cases = len(cli._golden_cases())
+    print(f"analysis certify --goldens on the card: {len(card)} lines, "
+          f"process wall {time.perf_counter() - tic:.3f} s, launches "
+          f"{json.dumps(counts)}", flush=True)
+    for line in card:
+        print(f"  {line}", flush=True)
+    check(len(card) == n_cases and all(": PASS  dual-gap=" in line
+                                       for line in card),
+          "certify --goldens on the card: not every golden case PASSes")
+    for name in DP_KERNELS:
+        check(counts.get(name, 0) > 0, f"certify --goldens did not launch "
+              f"{name} on the card")
+    _, cpu, cpu_counts = _finish(procs["cpu"], "certify --goldens --device "
+                                 "cpu")
+    check(cpu == card, "certify --goldens: the card's lines differ from "
+          "the CPU's")
+    check(not any(cpu_counts.values()), f"certify --goldens --device cpu "
+          f"launched kernels: {cpu_counts}")
+    print(f"analysis certify --goldens --device cpu: the same {len(cpu)} "
+          "lines, no launch", flush=True)
+    _, lint, _ = _finish(procs["lint"], "lint")
+    print(f"analysis lint: {lint[-1]}", flush=True)
+    check(lint[-1].startswith("lint: 0 finding(s)"), "lint found findings")
+    if keep is None:
+        print("analysis: no service phase ran; certify --store and "
+              "lockcheck --dump skipped", flush=True)
+    else:
+        _, store, _ = _finish(procs["store"], "certify --store")
+        print(f"analysis certify --store {keep / FARM_DIR}: {store[0]}",
+              flush=True)
+        check(store[0].endswith("entries, OK")
+              and not store[0].startswith("store audit: 0 "),
+              f"certify --store: {store}")
+        _, lock, _ = _finish(procs["lockcheck"], "lockcheck --dump")
+        for line in lock:
+            print(f"  {line}", flush=True)
+        check(lock[-1] == "lockcheck: OK"
+              and " 0 barrier hazard(s)" in lock[0], "lockcheck --dump")
+    print(f"phase analysis: {time.perf_counter() - tic:.3f} s", flush=True)
+
+
 def sass_count(lib, op: str) -> int:
     """Instructions of ``op`` (e.g. ``HGMMA``, ``IGMMA``: what ``wgmma``
     compiles to for bf16 and int8) in a built library's SASS
@@ -2974,6 +3854,38 @@ def service_only() -> int:
     return 0
 
 
+def lm_families_only() -> int:
+    """``--lm-families``: build the attention, decode and rail-sweep
+    libraries, run the windowed and ring kernel rows, the hybrid and ssm
+    phases and the analysis phase without the service phase's store and
+    dump; no result line."""
+    import torch
+
+    from repro_torch.kernels import dp_sweep as ks
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    libs = (fa.LIBRARY, fa.WGMMA_LIBRARY, fd.LIBRARY, ks.LIBRARY)
+    tic = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        for path in pool.map(lambda lib: lib.build(), libs):
+            print(f"build: {path.name}", flush=True)
+    for lib in libs:
+        lib.load()
+    print(f"build: all in {time.perf_counter() - tic:.2f} s", flush=True)
+    rows: dict[str, dict] = {}
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    window_rows(rows, gen)
+    ring_rows(rows, gen)
+    counts = hybrid_phase()
+    ssm_phase()
+    analysis_phase(None)
+    for name, row in rows.items():
+        row["launches"] = counts[FAMILY_ROWS[name]]
+    print(json.dumps({"kernels": list(rows.values())}), flush=True)
+    return 0
+
+
 def control_only() -> int:
     """``--control``: build the rail-sweep library alone and run the
     control phase; no result line."""
@@ -3026,6 +3938,8 @@ def main(argv: list[str]) -> int:
         return service_only()
     if argv == ["--control"]:
         return control_only()
+    if argv == ["--lm-families"]:
+        return lm_families_only()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -3045,23 +3959,32 @@ def main(argv: list[str]) -> int:
     profile_phase(KERNEL_SHAPES[0][0])
     print(f"phase path: {time.perf_counter() - tic:.3f} s", flush=True)
     serve_counts = serve_phase()
+    hybrid_counts = hybrid_phase()
+    ssm_phase()
     tic = time.perf_counter()
     int8_counts = int8_path_phase()
     print(f"phase int8: {time.perf_counter() - tic:.3f} s", flush=True)
     tic = time.perf_counter()
     policy_phase()
     print(f"phase policy: {time.perf_counter() - tic:.3f} s", flush=True)
-    tic = time.perf_counter()
-    service_phase()
-    print(f"phase service: {time.perf_counter() - tic:.3f} s", flush=True)
-    tic = time.perf_counter()
-    control_phase()
-    print(f"phase control: {time.perf_counter() - tic:.3f} s", flush=True)
+    with tempfile.TemporaryDirectory() as keep:
+        tic = time.perf_counter()
+        service_phase(pathlib.Path(keep))
+        print(f"phase service: {time.perf_counter() - tic:.3f} s",
+              flush=True)
+        tic = time.perf_counter()
+        control_phase()
+        print(f"phase control: {time.perf_counter() - tic:.3f} s",
+              flush=True)
+        analysis_phase(pathlib.Path(keep))
     for row in rows:
         name = row["name"]
-        row["launches"] = (serve_counts if name.startswith("flash")
-                           else int8_counts if name == "int8_matmul"
-                           else counts)[name]
+        if name in FAMILY_ROWS:
+            row["launches"] = hybrid_counts[FAMILY_ROWS[name]]
+        else:
+            row["launches"] = (serve_counts if name.startswith("flash")
+                               else int8_counts if name == "int8_matmul"
+                               else counts)[name]
     profiler_check("end")
     print(f"compile walls (s): {json.dumps(walls)}", flush=True)
     # the card again, near the end: a caller that keeps only the tail of

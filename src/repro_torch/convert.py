@@ -9,7 +9,8 @@ the port reads what the reference writes without importing it:
   - :func:`padded_from_numpy` — the arrays of a reference
     ``PaddedArrays`` → one-lane tensors in the layout the kernels take;
   - :func:`lm_params_from_numpy` — a reference LM parameter tree (from
-    ``repro.models.transformer.init_params``, as numpy) → the port's
+    ``repro.models.transformer.init_params``, as numpy; dense and hybrid
+    stacked, ssm a list of per-layer dicts of two kinds) → the port's
     parameters, so both packages compute with the same weights.
 
 A reference ``PowerSchedule.to_json`` payload is read by the port's own
@@ -80,22 +81,31 @@ def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
     numpy arrays (any float dtype, bfloat16 included): same names,
     per-layer leaves stacked on axis 0 (a list of per-layer dicts, the
     reference's unscanned layout, is stacked here), cast to
-    ``cfg.dtype`` on ``device``.  Every name and shape must be the one
+    ``cfg.dtype`` on ``device``.  The ssm family keeps its list of
+    per-layer dicts (mLSTM and sLSTM layers differ in their names).
+    Every name and shape must be the one
     :func:`repro_torch.models.transformer.init_params` makes."""
     tree = dict(tree)
     layers = tree.get("layers")
-    if isinstance(layers, (list, tuple)):
+    if isinstance(layers, (list, tuple)) and cfg.family != "ssm":
         tree["layers"] = {key: np.stack([np.asarray(lp[key], np.float32)
                                          for lp in layers])
                           for key in layers[0]}
 
     def convert(node, want, path):
+        if isinstance(want, list):
+            if not isinstance(node, (list, tuple)) \
+                    or len(node) != len(want):
+                raise ValueError(f"LM parameters{path}: expected a list "
+                                 f"of {len(want)} layers")
+            return [convert(n, w, f"{path}[{i}]")
+                    for i, (n, w) in enumerate(zip(node, want))]
         if set(node) != set(want):
             raise ValueError(f"LM parameters{path}: names "
                              f"{sorted(node)} != expected {sorted(want)}")
         out = {}
         for key, shape in want.items():
-            if isinstance(shape, dict):
+            if isinstance(shape, (dict, list)):
                 out[key] = convert(node[key], shape, f"{path}.{key}")
                 continue
             arr = np.array(node[key], np.float32)          # a copy

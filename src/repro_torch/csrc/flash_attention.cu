@@ -5,17 +5,20 @@
 // (src/repro/kernels/flash_attention.py:81, _kernel at :29) and computes
 // the same function: causal or non-causal GQA attention of
 // q [B, H, Sq, D] over k/v [B, KH, Sk, D] (query head h reads KV head
-// h / (H / KH)), with queries at absolute positions q_offset + i.
-// Semantics kept from _kernel:
+// h / (H / KH)), with queries at absolute positions q_offset + i, and
+// optionally a sliding window (window > 0 keeps the keys with q_pos -
+// k_pos < window, the mask of the reference's flash_attention_jnp, which
+// hymba's prefill computes).  Semantics kept from _kernel:
 //   * s = dot(q, k) in float32, then times 1/sqrt(D);
 //   * masked scores are NEG_INF = -1e30 (causal: q_pos < k_pos; ragged
-//     tail: k_pos >= Sk);
+//     tail: k_pos >= Sk; window: q_pos - k_pos >= window);
 //   * online softmax with a float32 (m, l, acc) carry, the subtraction
 //     reference clamped to max(m, 0.5 * NEG_INF) on both the new and the
 //     previous maximum, so a row that sees no key gives zeros;
 //   * l sums p in float32; P.V accumulates in float32;
 //   * out = acc / max(l, 1e-30);
-//   * KV tiles that lie wholly above the causal diagonal are skipped.
+//   * KV tiles that lie wholly above the causal diagonal, or wholly
+//     below the window of every row of the CTA, are skipped.
 // Any Sq, Sk and q_offset (negative too) and every D in 16..128, step 16.
 //
 // What bounds it on an H100: about 4 * D operations per unmasked (q, k)
@@ -65,8 +68,13 @@
 //   * blocks run heaviest query tile first (block i takes query tile
 //     n_qt - 1 - i / (B * H)), so the long causal rows start first and
 //     the tail is short; neighbouring blocks share a KV head in L2;
-//   * only tiles that cross the diagonal or the Sk edge are masked; a
-//     warp skips tiles wholly above its own rows' diagonal.
+//   * only tiles that cross the diagonal, the window's lower edge or the
+//     Sk edge are masked; a warp skips tiles wholly above its own rows'
+//     diagonal or wholly below its rows' window (a warp's 16 rows can
+//     see a tile that the CTA's first row cannot, so its bound is its
+//     own); the CTA's loop starts at the tile of its first row's lowest
+//     key.  The window is a template parameter, so the kernel without
+//     one is the windowless kernel, instruction for instruction.
 // Slower on the H100 at the serving shape, while this design was
 // chosen: 8 x 8 tiles a lane (4 warps, 255 registers, 8 warps an SM),
 // and the other lane order (tc in the low bits).
@@ -189,14 +197,14 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
     }
 }
 
-template <int D>
+template <int D, bool WINDOW>
 __global__ void __launch_bounds__(THREADS, Cfg<D>::MIN_BLOCKS)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
                            float* __restrict__ o, int B, int H, int KH,
                            int Sq, int Sk, int q_offset, int causal,
-                           float scale, int n_qt) {
+                           int window, float scale, int n_qt) {
     using C = Cfg<D>;
     constexpr int LD = C::LD;
     constexpr int VEC = C::VEC, NV = C::NV, NO = C::NO;
@@ -219,12 +227,19 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     const float* kg = k + (size_t)(b * KH + kh) * Sk * D;
     const float* vg = v + (size_t)(b * KH + kh) * Sk * D;
 
-    // KV tiles the CTA runs, and those its warp computes: all, or
-    // (causal) those that start at or below the last row's position
+    // KV tiles the CTA runs, [t_lo, n_tiles), and those its warp
+    // computes: all, or (causal) those that start at or below the last
+    // row's position, and (window) from the tile of the first row's
+    // lowest key
     int n_tiles = (Sk + BK - 1) / BK;
     if (causal) {
         const int last = q_offset + min(q0 + BQ, Sq) - 1;
         n_tiles = last < 0 ? 0 : min(n_tiles, last / BK + 1);
+    }
+    int t_lo = 0;
+    if constexpr (WINDOW) {
+        const int lo_key = q_offset + q0 - window + 1;
+        t_lo = lo_key > 0 ? lo_key / BK : 0;
     }
     const int w_first = q0 + warp * WR;
     const int w_rows = min(WR, Sq - w_first);
@@ -234,9 +249,10 @@ flash_attention_f32_kernel(const float* __restrict__ q,
         w_tiles = last < 0 ? 0 : min(w_tiles, last / BK + 1);
     }
 
-    if (n_tiles > 0) {
-        load_rows<D, BK, LD>(ks, kg, 0, Sk);
-        load_rows<D, BK, D>(vs, vg, 0, Sk);
+    if (n_tiles > t_lo) {
+        // tile t lives in stage t & 1
+        load_rows<D, BK, LD>(ks + (t_lo & 1) * C::K_FL, kg, t_lo * BK, Sk);
+        load_rows<D, BK, D>(vs + (t_lo & 1) * C::V_FL, vg, t_lo * BK, Sk);
         cp_async_commit();
         // the Q tile transposed, qs[d][r] = q[q0 + r][d] (rows past Sq as
         // zeros); the first barrier of the loop publishes it
@@ -273,7 +289,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     const float* qcol = qs + warp * WR + tr * RM;
     float* p_lane = ps + warp * (PK * WR) + tr * RM;
 
-    for (int t = 0; t < n_tiles; ++t) {
+    for (int t = t_lo; t < n_tiles; ++t) {
         // tile t has landed, and every warp is done with tile t - 1
         cp_async_wait_all();
         __syncthreads();
@@ -285,6 +301,11 @@ flash_attention_f32_kernel(const float* __restrict__ q,
         }
         if (t >= w_tiles) continue;     // above this warp's diagonal
         const int k0 = t * BK;
+        // below the window of this warp's first row (and so of all its
+        // rows); the row is recomputed, not held across the loop
+        if (WINDOW
+            && k0 + BK - 1 < q_offset + q0 + fresh_tid() / 32 * WR - window + 1)
+            continue;
         const float* kt = ks + (t & 1) * C::K_FL + tc * LD;
         const float* vt = vs + (t & 1) * C::V_FL + tc * VEC;
 
@@ -319,14 +340,18 @@ flash_attention_f32_kernel(const float* __restrict__ q,
         // the warp's first row, recomputed here: held across the loop it
         // would be the one register past 128 at D = 64
         const int first = q_offset + q0 + fresh_tid() / 32 * WR;
-        if (k0 + BK > Sk || (causal && k0 + BK - 1 > first)) {
+        if (k0 + BK > Sk || (causal && k0 + BK - 1 > first)
+            || (WINDOW && k0 <= first + WR - 1 - window)) {
 #pragma unroll
             for (int i = 0; i < RM; ++i) {
                 const int qpos = first + tr * RM + i;
                 const int lim = causal ? min(qpos, Sk - 1) : Sk - 1;
+                const int lo = WINDOW ? qpos - window : INT_MIN;
 #pragma unroll
-                for (int j = 0; j < 8; ++j)
-                    if (k0 + tc + 8 * j > lim) s[i][j] = mask_raw;
+                for (int j = 0; j < 8; ++j) {
+                    const int kp = k0 + tc + 8 * j;
+                    if (kp > lim || kp <= lo) s[i][j] = mask_raw;
+                }
             }
         }
 
@@ -423,9 +448,9 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     }
 }
 
-template <int D>
+template <int D, bool WINDOW>
 cudaError_t configure() {
-    auto kern = flash_attention_f32_kernel<D>;
+    auto kern = flash_attention_f32_kernel<D, WINDOW>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::SMEM);
     if (err != cudaSuccess) return err;
@@ -434,28 +459,29 @@ cudaError_t configure() {
         cudaSharedmemCarveoutMaxShared);
 }
 
-template <int D>
+template <int D, bool WINDOW>
 int launch(const float* q, const float* k, const float* v, float* o, int B,
            int H, int KH, int Sq, int Sk, int q_offset, int causal,
-           float scale, cudaStream_t stream) {
-    const cudaError_t err = configure<D>();
+           int window, float scale, cudaStream_t stream) {
+    const cudaError_t err = configure<D, WINDOW>();
     if (err != cudaSuccess) return (int)err;
     const int n_qt = (Sq + BQ - 1) / BQ;
     const long long blocks = (long long)n_qt * H * B;
     if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-    flash_attention_f32_kernel<D><<<(unsigned)blocks, THREADS,
-                                     Cfg<D>::SMEM, stream>>>(
-        q, k, v, o, B, H, KH, Sq, Sk, q_offset, causal, scale, n_qt);
+    flash_attention_f32_kernel<D, WINDOW><<<(unsigned)blocks, THREADS,
+                                             Cfg<D>::SMEM, stream>>>(
+        q, k, v, o, B, H, KH, Sq, Sk, q_offset, causal, window, scale, n_qt);
     return (int)cudaGetLastError();
 }
 
 template <int D>
 int plan(int* out) {
-    const cudaError_t err = configure<D>();
+    const cudaError_t err = configure<D, false>();
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0;
     const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, flash_attention_f32_kernel<D>, THREADS, Cfg<D>::SMEM);
+        &per_sm, flash_attention_f32_kernel<D, false>, THREADS,
+        Cfg<D>::SMEM);
     if (occ != cudaSuccess) return (int)occ;
     out[0] = BQ;
     out[1] = BK;
@@ -473,11 +499,11 @@ int plan(int* out) {
 extern "C" {
 
 // q, k, v and out are float32; scale is float32(1 / sqrt(D)), as the
-// reference rounds it
+// reference rounds it; window > 0 is the sliding window (0: none)
 int pfdnn_flash_attention_f32(const void* q, const void* k, const void* v,
                               void* o, int B, int H, int KH, int Sq,
                               int Sk, int D, int q_offset, int causal,
-                              float scale, void* stream) {
+                              int window, float scale, void* stream) {
     const auto* qf = static_cast<const float*>(q);
     const auto* kf = static_cast<const float*>(k);
     const auto* vf = static_cast<const float*>(v);
@@ -485,8 +511,11 @@ int pfdnn_flash_attention_f32(const void* q, const void* k, const void* v,
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PFDNN_CASE(DD)                                                  \
     case DD:                                                            \
-        return launch<DD>(qf, kf, vf, of, B, H, KH, Sq, Sk, q_offset,   \
-                          causal, scale, s);
+        return window > 0                                               \
+            ? launch<DD, true>(qf, kf, vf, of, B, H, KH, Sq, Sk,        \
+                               q_offset, causal, window, scale, s)      \
+            : launch<DD, false>(qf, kf, vf, of, B, H, KH, Sq, Sk,       \
+                                q_offset, causal, 0, scale, s);
     switch (D) {
         PFDNN_HEAD_DIMS(PFDNN_CASE)
         default: return (int)cudaErrorInvalidValue;

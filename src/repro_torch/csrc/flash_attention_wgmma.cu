@@ -6,17 +6,20 @@
 // the same function as csrc/flash_attention.cu (which keeps float32):
 // causal or non-causal GQA attention of q [B, H, Sq, D] over k/v
 // [B, KH, Sk, D] (query head h reads KV head h / (H / KH)), queries at
-// absolute positions q_offset + i.  Semantics kept from _kernel:
+// absolute positions q_offset + i, optionally over a sliding window
+// (window > 0 keeps the keys with q_pos - k_pos < window, hymba's
+// prefill mask).  Semantics kept from _kernel:
 //   * s = dot(q, k) accumulated in float32, then times 1/sqrt(D);
 //   * masked scores are NEG_INF = -1e30 (causal: q_pos < k_pos; ragged
-//     tail: k_pos >= Sk);
+//     tail: k_pos >= Sk; window: q_pos - k_pos >= window);
 //   * online softmax with a float32 (m, l, acc) carry, the subtraction
 //     reference clamped to max(m, 0.5 * NEG_INF) on both the new and the
 //     previous maximum, so a fully masked row gives p = 0;
 //   * l sums the unrounded float32 p; p is rounded to bf16 before P.V,
 //     which accumulates in float32;
 //   * out = acc / max(l, 1e-30), rounded to bf16;
-//   * KV tiles wholly above the causal diagonal are skipped.
+//   * KV tiles wholly above the causal diagonal, or wholly below the
+//     window of every row of the CTA, are skipped.
 //
 // What bounds it on an H100: at the serving shape (Sq = Sk = 1024,
 // D = 64) the function does 4 * D operations per unmasked (q, k) pair
@@ -50,8 +53,16 @@
 //     (the accumulator fragment of S is the A fragment of P once packed
 //     to bf16) and V from shared memory as the transposed (MN-major) B
 //     operand, one instruction per 64-column panel of D;
-//   * only tiles that cross the diagonal or the Sk edge are masked; a
-//     warpgroup skips a tile wholly above its own rows' diagonal.
+//   * only tiles that cross the diagonal, the window's lower edge or the
+//     Sk edge are masked; a warpgroup skips a tile wholly above its own
+//     rows' diagonal or wholly below its rows' window.  The CTA's tile
+//     loop starts at the tile of its first row's lowest key, so the
+//     second warpgroup (64 rows later) may see a tile that lies only
+//     partly inside its window: it masks that tile, while the first
+//     warpgroup may skip it.  The window is a template parameter: the
+//     kernel without one is the windowless kernel, instruction for
+//     instruction (a runtime window test cost ~8 % at the serving shape
+//     on the H100).
 // Every D in 16..128 (step 16) is taken: the columns of a panel past D
 // are zeros; S reads only the first D / 16 k-steps, and the P.V columns
 // at or past D are never stored.
@@ -218,14 +229,14 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
     return *reinterpret_cast<const uint32_t*>(&h);
 }
 
-template <int D>
+template <int D, bool WINDOW>
 __global__ void __launch_bounds__(THREADS)
 flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tk,
                              const __grid_constant__ CUtensorMap tv,
                              __nv_bfloat16* __restrict__ o, int H, int KH,
                              int Sq, int Sk, int q_offset, int causal,
-                             float scale) {
+                             int window, float scale) {
     using C = Cfg<D>;
     extern __shared__ uint8_t smem_raw[];
     const uint32_t qs = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -248,11 +259,19 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
     const int wq_first = q_offset + q0 + wg * 64;        // warpgroup's rows
     const int wq_last = wq_first + 63;
 
-    int n_tiles = (Sk + BK - 1) / BK;
+    // the CTA runs tiles [t_lo, t_hi): (causal) up to the last row's
+    // tile, (window) from the tile of the first row's lowest key
+    int t_hi = (Sk + BK - 1) / BK;
     if (causal) {
         const int last = q_offset + min(q0 + BQ, Sq) - 1;
-        n_tiles = last < 0 ? 0 : min(n_tiles, last / BK + 1);
+        t_hi = last < 0 ? 0 : min(t_hi, last / BK + 1);
     }
+    int t_lo = 0;
+    if constexpr (WINDOW) {
+        const int lo_key = q_offset + q0 - window + 1;
+        t_lo = lo_key > 0 ? lo_key / BK : 0;
+    }
+    const int n_tiles = max(0, t_hi - t_lo);
 
     if (tid == 0) {
         mbar_init(bars, 1);
@@ -294,17 +313,18 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         for (int p = 0; p < C::NP; ++p)
             tma_load(qs + p * (BQ * 128), &tq, p * PANEL, q0, b * H + h,
                      bars);
-        load_kv(0, 0);
+        load_kv(0, t_lo);
     }
 
     for (int it = 0; it < n_tiles; ++it) {
         const int st = it & 1;
         // the other stage was released by the barrier closing it - 1
-        if (tid == 0 && it + 1 < n_tiles) load_kv(st ^ 1, it + 1);
+        if (tid == 0 && it + 1 < n_tiles) load_kv(st ^ 1, t_lo + it + 1);
         mbar_wait(bars + 8 * st, (it >> 1) & 1);
 
-        const int k0 = it * BK;
-        if (!(causal && k0 > wq_last)) {
+        const int k0 = (t_lo + it) * BK;
+        if (!(causal && k0 > wq_last)
+            && !(WINDOW && k0 + BK - 1 < wq_first - window + 1)) {
             const uint32_t kt = ks + st * C::KV_BYTES;
             const uint32_t vt = vs + st * C::KV_BYTES;
             float s[32];
@@ -327,7 +347,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 
             // mask, online softmax on the fragment: s[4c + 2i + j] is
             // row r0 + 8 i, key k0 + 8 c + 2 quad + j
-            const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > wq_first);
+            const bool edge = k0 + BK > Sk || (causal && k0 + BK - 1 > wq_first)
+                              || (WINDOW && k0 <= wq_last - window);
             if (edge) {
 #pragma unroll
                 for (int c = 0; c < 8; ++c)
@@ -336,7 +357,9 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
                         for (int j = 0; j < 2; ++j) {
                             const int kpos = k0 + 8 * c + 2 * quad + j;
-                            if (kpos >= Sk || (causal && qpos0 + 8 * i < kpos))
+                            const int qpos = qpos0 + 8 * i;
+                            if (kpos >= Sk || (causal && qpos < kpos)
+                                || (WINDOW && qpos - kpos >= window))
                                 s[4 * c + 2 * i + j] = neg_raw;
                         }
             }
@@ -467,23 +490,23 @@ bool encode(CUtensorMap* map, const void* base, int n, int rows, int D,
               CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, bool WINDOW>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int KH, int Sq, int Sk, int q_offset, int causal,
-           float scale, cudaStream_t stream) {
+           int window, float scale, cudaStream_t stream) {
     constexpr int smem = Cfg<D>::SMEM;
     CUtensorMap tq, tk, tv;
     if (!encode(&tq, q, B * H, Sq, D, BQ) || !encode(&tk, k, B * KH, Sk, D, BK)
         || !encode(&tv, v, B * KH, Sk, D, BK))
         return (int)cudaErrorInvalidValue;
-    auto kern = flash_attention_wgmma_kernel<D>;
+    auto kern = flash_attention_wgmma_kernel<D, WINDOW>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
     dim3 grid((Sq + BQ - 1) / BQ, H, B);
     kern<<<grid, THREADS, smem, stream>>>(
         tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, KH, Sq, Sk, q_offset,
-        causal, scale);
+        causal, window, scale);
     return (int)cudaGetLastError();
 }
 
@@ -492,16 +515,19 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // q, k, v and out are bfloat16; scale is float32(1 / sqrt(D)), as the
-// reference rounds it
+// reference rounds it; window > 0 is the sliding window (0: none)
 int pfdnn_flash_attention_bf16(const void* q, const void* k, const void* v,
                                void* o, int B, int H, int KH, int Sq,
                                int Sk, int D, int q_offset, int causal,
-                               float scale, void* stream) {
+                               int window, float scale, void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PFDNN_CASE(DD)                                                  \
     case DD:                                                            \
-        return launch<DD>(q, k, v, o, B, H, KH, Sq, Sk, q_offset,       \
-                          causal, scale, s);
+        return window > 0                                               \
+            ? launch<DD, true>(q, k, v, o, B, H, KH, Sq, Sk, q_offset,  \
+                               causal, window, scale, s)                \
+            : launch<DD, false>(q, k, v, o, B, H, KH, Sq, Sk, q_offset, \
+                                causal, 0, scale, s);
     switch (D) {
         PFDNN_CASE(16) PFDNN_CASE(32) PFDNN_CASE(48) PFDNN_CASE(64)
         PFDNN_CASE(80) PFDNN_CASE(96) PFDNN_CASE(112) PFDNN_CASE(128)

@@ -7,8 +7,11 @@ product).
 :func:`flash_attention` replaces the Pallas TPU kernel
 ``repro.kernels.flash_attention.flash_attention``: causal or
 non-causal GQA attention of ``q [B, H, Sq, D]`` over ``k/v [B, KH, Sk,
-D]``, queries at absolute positions ``q_offset + i``, with the
-reference's online-softmax semantics (``NEG_INF`` masks, the
+D]``, queries at absolute positions ``q_offset + i``, optionally over
+a sliding window (``window`` > 0 keeps the keys with ``q_pos - k_pos <
+window``, the mask of the reference's ``flash_attention_jnp``, which
+hymba's prefill computes), with the reference's online-softmax
+semantics (``NEG_INF`` masks, the
 ``0.5·NEG_INF`` clamp, ``p`` rounded to V's dtype before ``P·V``,
 ``acc / max(l, 1e-30)`` in q's dtype).  ``Sq`` and ``Sk`` need not
 divide any block size.
@@ -18,8 +21,9 @@ streams 64-key K/V tiles through two ``cp.async`` stages; a lane holds
 a 4 × 8 score tile and its rows' outputs in registers, and the softmax
 stays in the registers of one warp.  :func:`f32_plan` states
 its tiling and shared memory per head dim and :func:`f32_blocks` its
-blocks in launch order (heaviest causal query tile first), as the CUDA
-source sets them; ``chip_smoke.py`` holds the plan against the
+blocks in launch order (heaviest causal query tile first) with the
+K/V tiles each runs (a window skips the tiles below its rows' reach),
+as the CUDA source sets them; ``chip_smoke.py`` holds the plan against the
 library's ``pfdnn_flash_attention_f32_plan`` on the card.
 
 On a tensor that lies on the CPU the wrapper computes
@@ -68,7 +72,7 @@ def _declare(entry: str, plan: str | None = None
     def declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, entry)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 4 + [i] * 8 + [ctypes.c_float, p]
+        fn.argtypes = [p] * 4 + [i] * 9 + [ctypes.c_float, p]
         fn.restype = ctypes.c_int
         if plan is not None:
             fn = getattr(lib, plan)
@@ -110,22 +114,28 @@ def f32_plan(d: int) -> dict[str, int]:
 
 
 def f32_kv_tiles(first: int, rows: int, sq: int, sk: int, q_offset: int,
-                 causal: bool) -> int:
+                 causal: bool, window: int = 0) -> int:
     """K/V tiles the float32 kernel runs for query rows ``[first, first
     + rows)``: every tile of ``sk``, or (causal) those that start at or
-    before the last real row's position; 0 when no row sees a key."""
-    tiles = -(-sk // F32_BLOCK_KEYS)
+    before the last real row's position, and (``window`` > 0) from the
+    tile of the first row's lowest key, ``q_offset + first - window +
+    1``; 0 when no row sees a key."""
+    hi = -(-sk // F32_BLOCK_KEYS)
     end = min(first + rows, sq)
     if end <= first:
         return 0
     if causal:
         last = q_offset + end - 1
-        tiles = 0 if last < 0 else min(tiles, last // F32_BLOCK_KEYS + 1)
-    return tiles
+        hi = 0 if last < 0 else min(hi, last // F32_BLOCK_KEYS + 1)
+    lo = 0
+    if window > 0:
+        lo = max(0, (q_offset + first - window + 1) // F32_BLOCK_KEYS)
+    return max(0, hi - lo)
 
 
 def f32_blocks(b: int, h: int, sq: int, sk: int, q_offset: int,
-               causal: bool) -> list[tuple[int, int, int, int]]:
+               causal: bool, window: int = 0
+               ) -> list[tuple[int, int, int, int]]:
     """The float32 kernel's blocks in launch order, as ``(batch, head,
     first query row, K/V tiles)``: block ``i`` takes query tile ``n_qt -
     1 - i // (b * h)`` of (batch, head) ``i % (b * h)``, so the heaviest
@@ -136,7 +146,7 @@ def f32_blocks(b: int, h: int, sq: int, sk: int, q_offset: int,
         first = (n_qt - 1 - i // (b * h)) * F32_BLOCK_ROWS
         bi, hi = divmod(i % (b * h), h)
         blocks.append((bi, hi, first, f32_kv_tiles(
-            first, F32_BLOCK_ROWS, sq, sk, q_offset, causal)))
+            first, F32_BLOCK_ROWS, sq, sk, q_offset, causal, window)))
     return blocks
 
 
@@ -189,12 +199,16 @@ def check_cuda_operands(name: str, tensors: dict[str, torch.Tensor]
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True, q_offset: int = 0
-                    ) -> torch.Tensor:
+                    causal: bool = True, q_offset: int = 0,
+                    window: int = 0) -> torch.Tensor:
     """``q [B, H, Sq, D]`` × ``k/v [B, KH, Sk, D]`` → ``[B, H, Sq, D]``
-    in q's dtype; ``H`` a multiple of ``KH``; ``q_offset`` only matters
-    when ``causal``."""
+    in q's dtype; ``H`` a multiple of ``KH``; ``q_offset`` places the
+    queries for the causal and window masks; ``window`` > 0 keeps only
+    the keys with ``q_pos - k_pos < window`` (0: no window)."""
     name = "flash_attention"
+    window = int(window)
+    if window < 0:
+        raise ValueError(f"{name}: window must be >= 0, got {window}")
     check_attention_args(name, q, k, v, "[B, H, Sq, D]", "[B, KH, Sk, D]")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"{name}: q [B, H, Sq, D] and k/v [B, KH, Sk, D]")
@@ -205,7 +219,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
-                                     q_offset=q_offset)
+                                     q_offset=q_offset, window=window)
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     check_cuda_operands(name, dict(q=q, k=k, v=v))
@@ -219,7 +233,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     with torch.cuda.device(q.device):
         err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     out.data_ptr(), B, H, KH, Sq, Sk, D, int(q_offset),
-                    int(bool(causal)), softmax_scale(D),
+                    int(bool(causal)), window, softmax_scale(D),
                     stream_of(q.device))
     raise_on(name, err)
     LAUNCHES[name] += 1
@@ -228,7 +242,8 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
-                          q_offset: int = 0) -> torch.Tensor:
+                          q_offset: int = 0,
+                          window: int = 0) -> torch.Tensor:
     """Plain PyTorch version of :func:`flash_attention`: the full
     masked softmax in float32, with the kernel's ``NEG_INF`` masks and
     clamp and its cast points (``p`` rounded to V's dtype before
@@ -239,13 +254,26 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     kf = k.float().repeat_interleave(g, dim=1)
     vf = v.repeat_interleave(g, dim=1)
     s = torch.matmul(q.float(), kf.transpose(-1, -2)) * softmax_scale(D)
-    if causal:
-        qpos = q_offset + torch.arange(Sq, device=q.device)
-        kpos = torch.arange(Sk, device=q.device)
-        s = torch.where(qpos[:, None] >= kpos[None, :], s,
-                        torch.full_like(s, NEG_INF))
+    keep = _keep_mask(Sq, Sk, q_offset, causal, window, q.device)
+    if keep is not None:
+        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
     m = s.amax(dim=-1, keepdim=True).clamp_min(0.5 * NEG_INF)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     out = torch.matmul(p.to(v.dtype).float(), vf.float())
     return (out / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def _keep_mask(sq: int, sk: int, q_offset: int, causal: bool,
+               window: int, device) -> torch.Tensor | None:
+    """[Sq, Sk] bools: the keys each query keeps (None: all of them)."""
+    if not causal and window <= 0:
+        return None
+    qpos = q_offset + torch.arange(sq, device=device)
+    kpos = torch.arange(sk, device=device)
+    keep = torch.ones((sq, sk), dtype=torch.bool, device=device)
+    if causal:
+        keep &= qpos[:, None] >= kpos[None, :]
+    if window > 0:
+        keep &= qpos[:, None] - kpos[None, :] < window
+    return keep

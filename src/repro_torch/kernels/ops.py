@@ -20,15 +20,17 @@ from repro_torch.kernels.int8_matmul import int8_matmul
 
 
 def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                   causal: bool = True) -> torch.Tensor:
+                   causal: bool = True, window: int = 0) -> torch.Tensor:
     """``q [B, Sq, H, D]`` × ``k/v [B, Sk, KH, D]`` → ``[B, Sq, H, D]``
-    through the prefill attention kernel."""
+    through the prefill attention kernel; ``window`` > 0 keeps the keys
+    with ``q_pos - k_pos < window``."""
     qt = q.transpose(1, 2).contiguous()
     kt = k.transpose(1, 2).contiguous()
     vt = v.transpose(1, 2).contiguous()
     # queries align to the END of the KV range when lengths differ
     q_offset = kt.shape[2] - qt.shape[2] if causal else 0
-    out = flash_attention(qt, kt, vt, causal=causal, q_offset=q_offset)
+    out = flash_attention(qt, kt, vt, causal=causal, q_offset=q_offset,
+                          window=window)
     return out.transpose(1, 2)
 
 

@@ -74,14 +74,16 @@ def stacked(init: Initializer, n_layers: int) -> Initializer:
     return Initializer((n_layers, *init.shape), init.init)
 
 
-def materialize(tree: dict, generator: torch.Generator, device,
-                dtype: torch.dtype) -> dict:
-    """Draw every leaf of a (nested) dict of Initializers, in the
-    dict's order."""
-    return {key: (materialize(val, generator, device, dtype)
-                  if isinstance(val, dict)
-                  else val.materialize(generator, device, dtype))
-            for key, val in tree.items()}
+def materialize(tree, generator: torch.Generator, device,
+                dtype: torch.dtype):
+    """Draw every leaf of a (nested) dict or list of Initializers, in
+    the dict's (list's) order."""
+    if isinstance(tree, list):
+        return [materialize(val, generator, device, dtype) for val in tree]
+    if isinstance(tree, dict):
+        return {key: materialize(val, generator, device, dtype)
+                for key, val in tree.items()}
+    return tree.materialize(generator, device, dtype)
 
 
 # ---- numerics helpers shared across models ---------------------------

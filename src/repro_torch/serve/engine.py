@@ -1,12 +1,13 @@
-"""Batched serving engine with continuous batching, on the port's dense
-transformer.
+"""Batched serving engine with continuous batching, on the port's
+transformer (dense, hybrid and ssm families).
 
 Slots model: a fixed decode batch of ``max_batch`` slots; a finished
 sequence frees its slot and the next queued request is prefilled into
-it *mid-batch* without disturbing the other slots' KV state.  Per-slot
-refill prefills the new request as a batch of one and writes its decode
-state into the live batch state at the freed slot (cache batch axis 1,
-``lengths`` axis 0).
+it *mid-batch* without disturbing the other slots' state.  Per-slot
+refill prefills the new request as a batch of one and writes every
+leaf of its decode state (KV caches or rings, ``lengths``, hybrid
+``mamba`` and ssm per-layer recurrent states) into the live batch
+state at the freed slot's batch index, in place (:func:`_scatter_slot`).
 
 Token flow, exactly the reference's (``repro/serve/engine.py``): each
 live slot holds the logits of its *next* token.  A step emits one token
@@ -21,10 +22,11 @@ requests still in flight when ``max_steps`` runs out ``truncated``.
 The engine keeps every slot's cache length on the host.  A decode step
 passes the live slots (those whose request goes on) to ``decode_step``,
 so a retired slot past its cache skips its K/V write, as the reference
-drops it, and nothing is read back from the device for it.  A live
-request whose next token would need a cache row past ``cache_len``
-raises ``ValueError`` naming its slot (the reference drops that write
-silently).
+drops it, and nothing is read back from the device for it.  For the
+dense family, a live request whose next token would need a cache row
+past ``cache_len`` raises ``ValueError`` naming its slot (the reference
+drops that write silently); a hybrid ring wraps and an ssm slot has no
+cache, so those never fill.
 
 The engine runs on the device that holds the parameters.
 """
@@ -37,7 +39,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import decode_step, prefill
+from repro_torch.models.transformer import (
+    decode_step,
+    prefill,
+    state_fills,
+)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,6 +69,39 @@ class Request:
 def _host_logits(logits: torch.Tensor) -> np.ndarray:
     """A float32 host copy (bf16 → f32 is exact)."""
     return np.array(logits.float().cpu())
+
+
+def _scatter_slot(bleaf, sleaf, slot: int, max_batch: int):
+    """Write a batch-of-one state leaf into the batch state at ``slot``
+    (in place for tensors; lists and tuples of leaves leaf by leaf).
+
+    The batch axis is identified per leaf as the (unique) axis where
+    the full-batch shape and the single-request shape disagree — every
+    other dimension of a decode-state leaf is batch-independent, so
+    shapes can only differ there.  Leaves with identical shapes carry
+    no batch axis (shared constants) and pass through unchanged (with
+    ``max_batch == 1`` the single state is the batch state).
+    """
+    if isinstance(bleaf, (list, tuple)):
+        out = [_scatter_slot(b, s, slot, max_batch)
+               for b, s in zip(bleaf, sleaf)]
+        return type(bleaf)(*out) if hasattr(bleaf, "_fields") \
+            else type(bleaf)(out)
+    if isinstance(bleaf, dict):
+        return {k: _scatter_slot(bleaf[k], sleaf[k], slot, max_batch)
+                for k in bleaf}
+    if bleaf.shape == sleaf.shape:
+        return sleaf if max_batch == 1 else bleaf
+    diff = [i for i, (a, b) in enumerate(zip(bleaf.shape, sleaf.shape))
+            if a != b]
+    if len(diff) != 1 or sleaf.shape[diff[0]] != 1:
+        raise ValueError(
+            f"cannot identify the batch axis of a decode-state leaf: "
+            f"batch shape {tuple(bleaf.shape)} vs single "
+            f"{tuple(sleaf.shape)}")
+    ax = diff[0]
+    bleaf.select(ax, slot).copy_(sleaf.select(ax, 0))
+    return bleaf
 
 
 class ServingEngine:
@@ -111,16 +150,12 @@ class ServingEngine:
     def _prefill_slot(self, slot: int, r: Request) -> None:
         """Prefill one request as a batch of one and write its decode
         state into the live batch state at ``slot``: the other slots'
-        KV caches are untouched."""
+        caches and recurrent states are untouched."""
         logits, state1 = prefill(self.params, self.cfg,
                                  self._prefill_inputs(r.prompt[None, :]),
                                  cache_len=self.ecfg.cache_len)
-        if self.ecfg.max_batch == 1:
-            self.state = state1
-        else:
-            for key in ("k", "v"):                 # [L, B, C, KH, D]
-                self.state[key][:, slot] = state1[key][:, 0]
-            self.state["lengths"][slot] = state1["lengths"][0]
+        self.state = _scatter_slot(self.state, state1, slot,
+                                   self.ecfg.max_batch)
         self.active[slot] = r
         self._lengths[slot] = len(r.prompt)
         self._logits[slot] = _host_logits(logits)[0]
@@ -171,7 +206,8 @@ class ServingEngine:
                  for slot in range(ec.max_batch)]
         if any(live):
             for slot in np.flatnonzero(live):
-                if self._lengths[slot] >= ec.cache_len:
+                if state_fills(self.cfg) \
+                        and self._lengths[slot] >= ec.cache_len:
                     r = self.active[slot]
                     raise ValueError(
                         f"engine: request {r.rid} in slot {slot} needs cache "

@@ -6,8 +6,9 @@ holds ``f32_plan`` against the library's own report on the card.
 Checked here as pure functions: shared memory within what an H100 block
 may use, two CTAs an SM at the serving head dim (D = 64), the scores and
 outputs of a lane within a register budget, every query row in exactly
-one block, each block's causal K/V tile count equal to what the plain
-mask needs, and the heaviest blocks first.
+one block, each block's causal (and windowed: hymba's sliding window)
+K/V tile count equal to what the plain mask needs, and the heaviest
+blocks first.
 """
 
 import numpy as np
@@ -43,42 +44,65 @@ def test_plan_refuses_a_head_dim_the_kernel_is_not_built_for():
         fa.f32_plan(24)
 
 
-def _needed_tiles(first, sq, sk, q_offset, causal):
-    """K/V tiles up to the last one holding a key that some real row of
-    the block keeps under the plain mask."""
+def _needed_tiles(first, sq, sk, q_offset, causal, window=0):
+    """K/V tiles from the first to the last one holding a key that some
+    real row of the block keeps under the plain mask."""
     qpos = q_offset + np.arange(first, min(first + fa.F32_BLOCK_ROWS, sq))
     kpos = np.arange(sk)
     keep = (qpos[:, None] >= kpos[None, :]) if causal \
         else np.ones((len(qpos), sk), bool)
+    if window > 0:
+        keep &= qpos[:, None] - kpos[None, :] < window
     cols = np.flatnonzero(keep.any(axis=0))
-    return 0 if cols.size == 0 else int(cols.max()) // fa.F32_BLOCK_KEYS + 1
+    if cols.size == 0:
+        return 0
+    return (int(cols.max()) // fa.F32_BLOCK_KEYS + 1
+            - int(cols.min()) // fa.F32_BLOCK_KEYS)
 
 
-# (b, h, sq, sk, q_offset, causal): the serving shape, no multiple of a
-# tile, Sq < Sk (q_offset > 0), Sq > Sk (rows that see no key), a block
-# that sees no key at all, non-causal, one row
+# (b, h, sq, sk, q_offset, causal, window): the serving shape, no
+# multiple of a tile, Sq < Sk (q_offset > 0), Sq > Sk (rows that see no
+# key), a block that sees no key at all, non-causal, one row; then
+# sliding windows: hymba's prefill (window 1024 over 2048 tokens, group
+# 5), a window that is no multiple of a tile, window 1, a window past
+# Sk, a window with q_offset > 0 and with rows that see no key, and a
+# non-causal window
 BLOCK_CASES = [
-    (2, 3, 1024, 1024, 0, True),
-    (1, 2, 1000, 1000, 0, True),
-    (1, 2, 300, 1000, 700, True),
-    (2, 1, 300, 170, -130, True),
-    (1, 1, 200, 60, -140, True),
-    (1, 2, 200, 333, 0, False),
-    (3, 2, 1, 1, 0, True),
+    (2, 3, 1024, 1024, 0, True, 0),
+    (1, 2, 1000, 1000, 0, True, 0),
+    (1, 2, 300, 1000, 700, True, 0),
+    (2, 1, 300, 170, -130, True, 0),
+    (1, 1, 200, 60, -140, True, 0),
+    (1, 2, 200, 333, 0, False, 0),
+    (3, 2, 1, 1, 0, True, 0),
+    (1, 25, 2048, 2048, 0, True, 1024),
+    (1, 5, 1536, 1536, 0, True, 1000),
+    (2, 2, 300, 300, 0, True, 1),
+    (1, 2, 300, 300, 0, True, 5000),
+    (1, 2, 300, 1000, 700, True, 333),
+    (2, 1, 300, 170, -130, True, 77),
+    (1, 2, 400, 400, 0, False, 130),
 ]
 
 
-@pytest.mark.parametrize("b,h,sq,sk,q_offset,causal", BLOCK_CASES)
+@pytest.mark.parametrize("b,h,sq,sk,q_offset,causal,window", BLOCK_CASES)
 def test_blocks_cover_every_row_once_with_the_tiles_the_mask_needs(
-        b, h, sq, sk, q_offset, causal):
-    blocks = fa.f32_blocks(b, h, sq, sk, q_offset, causal)
+        b, h, sq, sk, q_offset, causal, window):
+    blocks = fa.f32_blocks(b, h, sq, sk, q_offset, causal, window)
     covered = np.zeros((b, h, sq), int)
     for bi, hi, first, tiles in blocks:
         covered[bi, hi, first:first + fa.F32_BLOCK_ROWS] += 1
-        assert tiles == _needed_tiles(first, sq, sk, q_offset, causal)
+        assert tiles == _needed_tiles(first, sq, sk, q_offset, causal,
+                                      window)
     assert (covered == 1).all()
     tiles = [t for *_, t in blocks]
-    assert tiles == sorted(tiles, reverse=True)      # heaviest first
+    if window == 0:
+        assert tiles == sorted(tiles, reverse=True)  # heaviest first
+    elif causal:
+        # a causal window bounds every block's work: its rows reach back
+        # window - 1 keys from the first row, on tiles of 64 keys
+        span = fa.F32_BLOCK_ROWS + window - 1
+        assert max(tiles) <= -(-span // fa.F32_BLOCK_KEYS) + 1
     # neighbouring blocks take neighbouring heads of one batch
     assert [(bi, hi) for bi, hi, _, _ in blocks[:b * h]] == [
         (bi, hi) for bi in range(b) for hi in range(h)]

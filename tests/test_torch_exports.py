@@ -48,25 +48,20 @@ OMITTED = {
     # repro_torch.kernels.dp_sweep under their own names
     "kernels": {"dp_multi_stacked_pallas", "kbest_multi_stacked_pallas",
                 "path_components_pallas"},
-    # the TPU adaptation (Queue 1, 5)
+    # the TPU adaptation (Queue 1, 4)
     "hw": {"TpuChipModel", "TPU_V5E"},
-    # the certifier and the determinism linter (Queue 1, 1); the
-    # package exposes its submodules lazily
-    "analysis": {"certify", "lint_determinism"},
     # the jnp attention oracles (the kernels' plain versions stand in)
-    # and the other LM families (Queue 1, 2)
+    # and M-RoPE of the VLM family (Queue 1, 1)
     "models.layers": {"AttnChunks", "decode_attention_jnp",
                       "flash_attention_jnp", "apply_mrope"},
-    # abstract shapes and parameter counts (Queue 1, 4)
+    # abstract shapes and parameter counts (Queue 1, 3)
     "models.module": {"abstract_params", "param_bytes", "param_count",
                       "stack_layer_inits"},
     # the JAX runtime (sharding constraints, abstract evaluation),
-    # training (Queue 1, 3) and the recurrent and encoder families (2)
+    # training (Queue 1, 2) and the encoder of the audio family (1)
     "models.transformer": {"Runtime", "abstract", "constrain",
                            "chunked_softmax_xent", "forward_train",
-                           "init_encoder_layer", "init_mlstm_layer",
-                           "init_slstm_layer", "mlstm_block",
-                           "slstm_block"},
+                           "init_encoder_layer"},
 }
 
 
