@@ -39,7 +39,15 @@ NVIDIA GPU:
      (``RING_SHAPES``: 1024 rows read up to min(length + 1, 1024)), each
      against its plain version with the same tolerances, the bound
      counting only the pairs the window keeps, SDPA with the same boolean
-     mask beside it;
+     mask beside it; then the moe, vlm and audio families' shapes
+     (``FAMILY_PREFILL_SHAPES``: MLA's prefill head of 192 at
+     deepseek-v2-lite's 2 x 1024 tokens and its edges in both dtypes,
+     whisper-large-v3's encoder and cross-attention, kimi-k2's 64 / 8
+     heads at D = 112), MLA's absorbed decode ``flash_decode_mla``
+     (``MLA_DECODE_SHAPES``: 16 heads of one latent head, keys of 512 +
+     64, values of 512, batch 16 over 2048 rows, lengths of 0 and S
+     among them; SDPA over the concatenated keys with V padded beside
+     it) and whisper's cross-attention decode over 1500 rows;
      prints each kernel's time (CUDA events, median of 25), its device
      time (``torch.profiler``), its plain version's time, its bound and,
      for attention, the time of ``scaled_dot_product_attention`` on the
@@ -88,6 +96,29 @@ NVIDIA GPU:
      and the card against the CPU port in float32 (every block on the
      same inputs within 1e-4, end to end within ``XLSTM_LIMIT`` beside
      the floor of one rounding);
+  7b. moe, vlm and audio phases (seed-0 weights drawn on the card, each
+     model freed before the next): deepseek-v2-lite-16b at full width
+     (27 layers, MLA, 64 experts top-6 + 2 shared, bf16): the launcher
+     (``flash_attention`` and ``flash_decode_mla`` must launch,
+     ``flash_decode`` not); the kernel path against the plain path on 2
+     x 1024-token prompts + 8 decode steps with the plain path's MoE
+     routes replayed (``moe_routes``), the limit 1.5 x the floor measured
+     in the same run, at most 0.1 x max |logits| (PERF.md section 2), a
+     free-routing run printing how many routes differ, and a planted
+     fault the limit must fail (``krope`` dropped from the MLA decode's
+     scores); the same in float32 cut to 4 layers (1e-3), a float32
+     mid-batch refill against each request alone, and a profiled batch-16
+     decode step (the MoE FFN's share, device operations a step with and
+     without it, idle share); kimi-k2-1t-a32b at full width cut to 1
+     layer (384 experts top-8), kernel vs plain in bf16; qwen2-vl-72b at
+     full width cut to 16 layers (bf16) and 4 (float32), kernel vs plain
+     on prompts whose M-RoPE grids carry a 16 x 16 stub image block, and
+     text-only grids against plain RoPE bit for bit; whisper-large-v3 at
+     full width (32 + 32 layers, 1500 frames): the launcher (zero
+     frames), kernel vs plain on seeded frames in bf16 with a planted
+     fault (prefill's cross-attention made causal) and in float32, the
+     encoder's share of a prefill and a float32 refill; the peak device
+     memory of the three phases;
   8. int8 phase (its kernel rows run right after the attention
      kernels' and its entry point after the serve phase): holds the
      int8 matmul kernels exactly (bit for bit)
@@ -168,8 +199,11 @@ NVIDIA GPU:
      farm store (OK, entries > 0); ``lockcheck --dump`` on the service
      phase's two-thread lock graph (no cycle, no barrier hazard);
  13. prints the card's name and power limit again, the ``kernels`` JSON
-     line (the hymba configurations of #4 and #5 as rows of their own,
-     with the hybrid launcher's launches) and, last, the result line.
+     line (the families' configurations of #4 and #5 as rows of their
+     own, with the launches of their launcher or, where it has none or
+     the row is float32, of their kernel-path run: ``FAMILY_ROWS``;
+     ``flash_decode_mla`` is #5's MLA kernel) and, last, the result
+     line.
 
 ``profiler_check`` runs at the start, in the int8 phase and at the end:
 it times a spin kernel of a fixed cycle count by CUDA events and under
@@ -196,9 +230,10 @@ the service phase; it prints no result line.  ``python3 chip_smoke.py
 --control`` builds the rail-sweep library alone and runs the control
 phase; it prints no result line.  ``python3 chip_smoke.py
 --lm-families`` builds the attention, decode and rail-sweep libraries
-and runs the windowed and ring kernel rows, the hybrid, ssm and
-analysis phases (without the store audit and the lock dump, which need
-the service phase); it prints no result line.  Run from a ``git
+and runs the windowed, ring and new families' kernel rows, the hybrid,
+ssm, moe, vlm, audio and analysis phases (without the store audit and
+the lock dump, which need the service phase); it prints no result
+line.  Run from a ``git
 archive`` of another commit, this script times that commit's kernels
 (a tree without the float32 plan skips its check).
 """
@@ -243,6 +278,7 @@ SOURCES = {"dp_multi_stacked": "src/repro_torch/csrc/dp_sweep.cu",
            "flash_attention": "src/repro_torch/csrc/flash_attention_wgmma.cu",
            "flash_attention_f32": "src/repro_torch/csrc/flash_attention.cu",
            "flash_decode": "src/repro_torch/csrc/flash_decode.cu",
+           "flash_decode_mla": "src/repro_torch/csrc/flash_decode_mla.cu",
            "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu"}
 REPLACES = {"dp_multi_stacked": "src/repro/kernels/dp_sweep.py:81",
             "kbest_multi_stacked": "src/repro/kernels/dp_sweep.py:148",
@@ -250,6 +286,7 @@ REPLACES = {"dp_multi_stacked": "src/repro/kernels/dp_sweep.py:81",
             "flash_attention": "src/repro/kernels/flash_attention.py:81",
             "flash_attention_f32": "src/repro/kernels/flash_attention.py:81",
             "flash_decode": "src/repro/kernels/flash_decode.py:68",
+            "flash_decode_mla": "src/repro/kernels/flash_decode.py:68",
             "int8_matmul": "src/repro/kernels/int8_matmul.py:47"}
 # (network, lanes in one call) of the kernel phase: the widest bucket
 # of each network's 3-rail sweep
@@ -970,6 +1007,7 @@ def attention_phase() -> list[dict]:
     decode_rows(rows, gen)
     window_rows(rows, gen)
     ring_rows(rows, gen)
+    family_rows(rows, gen)
     return list(rows.values())
 
 
@@ -1129,14 +1167,32 @@ WINDOW_SHAPES = (
     (1, 10, 2, 200, 150, 64, 77, "bfloat16"),
     (1, 10, 2, 200, 150, 64, 77, "float32"),
 )
-# the JSON rows of the hymba configurations, and the count each carries
-# (hybrid_phase): the bf16 rows the hymba launcher's launches (its bf16
-# prefill runs the wgmma kernel alone); the float32 row the float32
-# kernel's launches in the float32 parity runs' kernel-path prefills,
-# the only hymba run in float32
-FAMILY_ROWS = {"flash_attention_window": "flash_attention",
-               "flash_attention_window_f32": "flash_attention_f32",
-               "flash_decode_ring": "flash_decode"}
+# the JSON rows of the families' configurations, and the count each
+# carries, as (run, counter): the hymba rows (hybrid_phase) the hymba
+# launcher's launches for bf16 (its bf16 prefill runs the wgmma kernel
+# alone) and for the float32 row the float32 kernel's launches in the
+# float32 parity runs' kernel-path prefills, the only hymba run in
+# float32; the rows of the moe, vlm and audio families
+# (families_phase) the deepseek-v2-lite and whisper launchers' launches
+# for bf16, the float32 parity runs' kernel paths for float32, and
+# kimi-k2's bf16 parity run's kernel path (it has no launcher run).  The
+# whisper launcher's bf16 rows take the launches of their own use
+# (``launches_by_use``: encoder, cross-attention); the float32 row, the
+# float32 kernel's total in that parity run
+FAMILY_ROWS = {"flash_attention_window": ("hybrid", "flash_attention"),
+               "flash_attention_window_f32": ("hybrid",
+                                              "flash_attention_f32"),
+               "flash_decode_ring": ("hybrid", "flash_decode"),
+               "flash_attention_mla": ("moe", "flash_attention"),
+               "flash_attention_mla_f32": ("moe f32", "flash_attention"),
+               "flash_decode_mla": ("moe", "flash_decode_mla"),
+               "flash_attention_kimi": ("kimi", "flash_attention"),
+               "flash_attention_whisper": ("audio",
+                                           "flash_attention encoder"),
+               "flash_attention_whisper_f32": ("audio f32",
+                                               "flash_attention"),
+               "flash_attention_cross": ("audio", "flash_attention cross"),
+               "flash_decode_cross": ("audio", "flash_decode cross")}
 # (b, h, kh, d, dtype, lengths): hymba-1.5b's ring decode, a ring of
 # window = 1024 rows read up to min(length + 1, 1024) rows: a batch of 8
 # whose rings have all wrapped, then a batch of 8 with lengths short of
@@ -1249,6 +1305,192 @@ def ring_rows(rows: dict, gen) -> None:
         kernel = lambda: fd.flash_decode(q, k, v, valid)  # noqa: E731
         _kernel_row(rows, "flash_decode_ring", label, time_ms(kernel),
                     time_ms(lambda: fd.flash_decode_plain(q, k, v, valid)),
+                    bound, by, err, time_ms(library), device_ms(kernel),
+                    kernel="flash_decode")
+        print(f"  bytes {nbytes}  operations {ops}  library max abs err "
+              f"vs plain {_max_abs_err(library(), want)}", flush=True)
+        del q, k, v, got, want
+
+
+# (b, h, kh, sq, sk, d, causal, dtype) of the slice's new prefill shapes,
+# each row under its JSON name: MLA's head (hd + dr = 192, V padded to
+# it) at deepseek-v2-lite's parity prefill (2 x 1024 tokens, 16 heads)
+# in bf16 and float32, then its edges in both dtypes: Sq = Sk = 1000 (no
+# multiple of a tile), Sq < Sk, Sq > Sk (rows that see no key), one
+# query and one key, one query over 333 keys, one key non-causal with
+# GQA; whisper-large-v3's encoder (1500 frames, 20 heads of 64,
+# non-causal) and its cross-attention (448 decoder positions over the
+# 1500 frames); kimi-k2's prefill (64 query heads over 8 KV heads, D =
+# 112) at its parity run's 2 x 512 tokens
+FAMILY_PREFILL_SHAPES = (
+    ("flash_attention_mla", (2, 16, 16, 1024, 1024, 192, True, "bfloat16")),
+    ("flash_attention_mla_f32",
+     (2, 16, 16, 1024, 1024, 192, True, "float32")),
+    ("flash_attention_mla", (1, 16, 16, 1000, 1000, 192, True, "bfloat16")),
+    ("flash_attention_mla_f32",
+     (1, 16, 16, 1000, 1000, 192, True, "float32")),
+    ("flash_attention_mla", (1, 4, 4, 300, 1000, 192, True, "bfloat16")),
+    ("flash_attention_mla_f32", (1, 4, 4, 300, 1000, 192, True, "float32")),
+    ("flash_attention_mla", (1, 4, 4, 100, 60, 192, True, "bfloat16")),
+    ("flash_attention_mla_f32", (1, 4, 4, 100, 60, 192, True, "float32")),
+    ("flash_attention_mla", (1, 4, 4, 1, 1, 192, True, "bfloat16")),
+    ("flash_attention_mla_f32", (1, 4, 4, 1, 1, 192, True, "float32")),
+    ("flash_attention_mla", (1, 4, 4, 1, 333, 192, True, "bfloat16")),
+    ("flash_attention_mla_f32", (1, 4, 4, 1, 333, 192, True, "float32")),
+    ("flash_attention_mla", (2, 4, 2, 130, 1, 192, False, "bfloat16")),
+    ("flash_attention_mla_f32", (2, 4, 2, 130, 1, 192, False, "float32")),
+    ("flash_attention_whisper",
+     (2, 20, 20, 1500, 1500, 64, False, "bfloat16")),
+    ("flash_attention_whisper_f32",
+     (2, 20, 20, 1500, 1500, 64, False, "float32")),
+    ("flash_attention_cross", (2, 20, 20, 448, 1500, 64, False, "bfloat16")),
+    ("flash_attention_kimi", (2, 64, 8, 512, 512, 112, True, "bfloat16")),
+)
+# (b, s, h, dtype, lengths): MLA's absorbed decode (16 query heads of one
+# latent head, keys of 512 + 64, values of 512) at batch 16 over a
+# 2048-row cache, lengths drawn from [1, S] with one full cache and one
+# empty (its output must be zeros), in bf16 and float32; then S = 1001
+# (no chunk boundary) with short lengths
+MLA_DECODE_SHAPES = (
+    (16, 2048, 16, "bfloat16", None),
+    (16, 2048, 16, "float32", None),
+    (3, 1001, 16, "bfloat16", (1, 31, 1001)),
+)
+# (b, s, h, kh, d, dtype): whisper's cross-attention decode, every
+# query reads all 1500 encoder rows (group 1)
+CROSS_DECODE_SHAPES = ((8, 1500, 20, 20, 64, "bfloat16"),)
+
+
+def family_rows(rows: dict, gen) -> None:
+    """The slice's new kernel shapes against their plain versions with
+    the attention tolerances: ``flash_attention`` at
+    FAMILY_PREFILL_SHAPES (SDPA beside it, with ``enable_gqa`` and the
+    same causal mask), ``flash_decode_mla`` at MLA_DECODE_SHAPES (SDPA
+    over the concatenated keys with V zero-padded to 576 beside it) and
+    ``flash_decode`` over whisper's encoder rows."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    for name, (b, h, kh, sq, sk, d, causal, dtype) in FAMILY_PREFILL_SHAPES:
+        q = _randn(gen, b, h, sq, d, dtype=dtype)
+        k = _randn(gen, b, kh, sk, d, dtype=dtype)
+        v = _randn(gen, b, kh, sk, d, dtype=dtype)
+        q_offset = sk - sq if causal else 0
+        args = dict(causal=causal, q_offset=q_offset)
+        got = fa.flash_attention(q, k, v, **args)
+        want = fa.flash_attention_plain(q, k, v, **args)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        label = _attn_label(b, h, kh, sq, sk, d, causal, dtype)
+        check(err <= ATTN_TOL[dtype], f"flash_attention != plain at "
+              f"{label}: max abs err {err}")
+        if q_offset < 0:
+            check(bool((got[:, :, :-q_offset] == 0).all()),
+                  f"flash_attention at {label}: rows that see no key are "
+                  "not zero")
+        mask = None
+        if causal:
+            qpos = q_offset + torch.arange(sq, device=DEVICE)
+            mask = qpos[:, None] >= torch.arange(sk, device=DEVICE)[None]
+
+        def library():
+            return F.scaled_dot_product_attention(q, k, v, attn_mask=mask,
+                                                  enable_gqa=True)
+
+        seen = slice(max(0, -q_offset), None)
+        lib_err = _max_abs_err(library()[:, :, seen], want[:, :, seen])
+        bound, by, nbytes, ops = attention_bound(b, h, kh, sq, sk, d,
+                                                 causal, q_offset, dtype)
+        kernel = lambda: fa.flash_attention(q, k, v, **args)  # noqa: E731
+        _kernel_row(rows, name, label, time_ms(kernel),
+                    time_ms(lambda: fa.flash_attention_plain(q, k, v,
+                                                             **args)),
+                    bound, by, err, time_ms(library), device_ms(kernel),
+                    kernel="flash_attention" if dtype == "bfloat16"
+                    else "flash_attention_f32")
+        print(f"  bytes {nbytes}  operations {ops}  library max abs err "
+              f"vs plain {lib_err}", flush=True)
+        del q, k, v, got, want
+
+    r, dr = fd.MLA_WIDTHS
+    lrng = np.random.default_rng(1)
+    for b, s, h, dtype, lengths in MLA_DECODE_SHAPES:
+        q_lat = _randn(gen, b, h, r, dtype=dtype)
+        q_rope = _randn(gen, b, h, dr, dtype=dtype)
+        ckv = _randn(gen, b, s, r, dtype=dtype)
+        krope = _randn(gen, b, s, dr, dtype=dtype)
+        if lengths is None:
+            lens_np = lrng.integers(1, s + 1, size=b).astype(np.int32)
+            lens_np[0], lens_np[-1] = s, 0      # a full and an empty cache
+        else:
+            lens_np = np.asarray(lengths, np.int32)
+        lens = torch.from_numpy(lens_np).to(DEVICE)
+        args = (q_lat, q_rope, ckv, krope, lens)
+        got = fd.flash_decode_mla(*args)
+        want = fd.flash_decode_mla_plain(*args)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        n_split = fd.decode_splits(
+            s, torch.cuda.get_device_properties(0).multi_processor_count)
+        label = (f"B={b} S={s} {h}/1 heads K={r}+{dr} V={r} {dtype} "
+                 f"lengths {lens_np.min()}-{lens_np.max()} "
+                 f"splits={n_split}")
+        check(err <= ATTN_TOL[dtype], f"flash_decode_mla != plain at "
+              f"{label}: max abs err {err}")
+        check(bool((got[lens == 0] == 0).all()), f"flash_decode_mla at "
+              f"{label}: a length of 0 does not give zeros")
+        qs = torch.cat([q_lat, q_rope], dim=-1)[:, :, None]
+        ks = torch.cat([ckv, krope], dim=-1)[:, None]
+        vs = F.pad(ckv, (0, dr))[:, None]
+        mask = (torch.arange(s, device=DEVICE)[None, :]
+                < lens[:, None])[:, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True)[:, :, 0, :r]
+
+        live = lens > 0
+        lib_err = _max_abs_err(library()[live], want[live])
+        valid = int(lens_np.sum())
+        elt = 2 if dtype == "bfloat16" else 4
+        nbytes = (b * h * (r + dr) + b * h * r + valid * (r + dr)) * elt \
+            + 4 * b
+        bound, by, _, ops = _bound_typed(
+            nbytes, 2 * (2 * r + dr) * h * valid, dtype)
+        kernel = lambda: fd.flash_decode_mla(*args)  # noqa: E731
+        _kernel_row(rows, "flash_decode_mla", label, time_ms(kernel),
+                    time_ms(lambda: fd.flash_decode_mla_plain(*args)),
+                    bound, by, err, time_ms(library), device_ms(kernel))
+        print(f"  bytes {nbytes}  operations {ops}  library (V padded to "
+              f"{r + dr}) max abs err vs plain {lib_err}", flush=True)
+        del q_lat, q_rope, ckv, krope, got, want
+
+    for b, s, h, kh, d, dtype in CROSS_DECODE_SHAPES:
+        q = _randn(gen, b, h, d, dtype=dtype)
+        k = _randn(gen, b, s, kh, d, dtype=dtype)
+        v = _randn(gen, b, s, kh, d, dtype=dtype)
+        lens = torch.full((b,), s, dtype=torch.int32, device=DEVICE)
+        got = fd.flash_decode(q, k, v, lens)
+        want = fd.flash_decode_plain(q, k, v, lens)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        label = f"cross B={b} S={s} {h}/{kh} heads D={d} {dtype} all rows"
+        check(err <= ATTN_TOL[dtype], f"flash_decode != plain at {label}: "
+              f"max abs err {err}")
+        qs = q[:, :, None, :]
+        ks, vs = k.permute(0, 2, 1, 3), v.permute(0, 2, 1, 3)
+
+        def library():
+            return F.scaled_dot_product_attention(qs, ks, vs)[:, :, 0]
+
+        bound, by, nbytes, ops = decode_bound(h, kh, d, [s] * b, dtype)
+        kernel = lambda: fd.flash_decode(q, k, v, lens)  # noqa: E731
+        _kernel_row(rows, "flash_decode_cross", label, time_ms(kernel),
+                    time_ms(lambda: fd.flash_decode_plain(q, k, v, lens)),
                     bound, by, err, time_ms(library), device_ms(kernel),
                     kernel="flash_decode")
         print(f"  bytes {nbytes}  operations {ops}  library max abs err "
@@ -1538,12 +1780,19 @@ def _counts() -> dict:
             for name, n in mod.LAUNCHES.items()}
 
 
-def cli_run(argv: list[str] = CLI_ARGS, attention: bool = True) -> dict:
+#: the attention kernels a launcher's model runs (MLA decodes on its own
+#: kernel; an ssm model runs none)
+ATTENTION_KERNELS = ("flash_attention", "flash_decode")
+MLA_KERNELS = ("flash_attention", "flash_decode_mla")
+
+
+def cli_run(argv: list[str] = CLI_ARGS,
+            kernels: tuple[str, ...] = ATTENTION_KERNELS) -> dict:
     """The entry point as users run it, in-process, with the launch
     counts set to 0 just before and read just after: 8 requests of 16
-    tokens served, the attention kernels launched (or, for a family
-    without attention, not launched), the power compile's sweep kernels
-    launched on the card and its 10 replayed periods without a miss."""
+    tokens served, the attention kernels of ``kernels`` launched and the
+    others not, the power compile's sweep kernels launched on the card
+    and its 10 replayed periods without a miss."""
     from repro_torch.launch import serve as launch
 
     _reset_counts()
@@ -1558,8 +1807,8 @@ def cli_run(argv: list[str] = CLI_ARGS, attention: bool = True) -> dict:
     check(len(done) == 8 and all(len(r.generated) == 16 and not
                                  r.truncated for r in done),
           f"the launcher ({arch}) did not serve 8 requests of 16 tokens")
-    for name in ("flash_attention", "flash_decode"):
-        if attention:
+    for name in ("flash_attention", "flash_decode", "flash_decode_mla"):
+        if name in kernels:
             check(counts[name] > 0, f"kernel {name} was not launched by "
                   f"the {arch} launcher")
         else:
@@ -1618,29 +1867,73 @@ def tiled_plain_attention(q, k, v, *, causal: bool = True,
 
 
 @contextlib.contextmanager
+def launches_by_use(uses: dict, cross_rows: int):
+    """For the duration, add the launches that each call of
+    ``ops.flash_attention`` and ``ops.flash_decode`` makes (the rise of
+    its wrapper's count over the call) to ``uses["<counter> <use>"]``.
+    The use comes from the call's shapes: a prefill is ``self`` (causal),
+    ``encoder`` (non-causal, as many queries as keys) or ``cross``
+    (non-causal, fewer queries than keys); a decode is ``cross`` over a
+    cache of ``cross_rows`` rows and ``self`` over any other."""
+    from repro_torch.kernels import ops
+
+    def tallied(name, fn, use_of):
+        def call(*args, **kwargs):
+            before = _counts()[name]
+            out = fn(*args, **kwargs)
+            key = f"{name} {use_of(*args, **kwargs)}"
+            uses[key] = uses.get(key, 0) + _counts()[name] - before
+            return out
+        return call
+
+    def prefill_use(q, k, v, *, causal=True, **_):
+        return ("self" if causal else "encoder" if q.shape[2] == k.shape[2]
+                else "cross")
+
+    def decode_use(q, k, v, length):
+        return "cross" if k.shape[1] == cross_rows else "self"
+
+    saved = ops.flash_attention, ops.flash_decode
+    ops.flash_attention = tallied("flash_attention", ops.flash_attention,
+                                  prefill_use)
+    ops.flash_decode = tallied("flash_decode", ops.flash_decode, decode_use)
+    try:
+        yield
+    finally:
+        ops.flash_attention, ops.flash_decode = saved
+
+
+@contextlib.contextmanager
 def plain_attention(n_split: int | None = None):
     """Route the transformer's attention through the kernels' plain
     versions (on the same card tensors) for the duration; with
     ``n_split``, through the kernels' algorithms in plain PyTorch
     instead: prefill over 64-key tiles (``tiled_plain_attention``) and
-    decode in two passes over ``n_split`` chunks."""
+    decode (MLA's too) in two passes over ``n_split`` chunks."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
 
-    saved = ops.flash_attention, ops.flash_decode
+    saved = ops.flash_attention, ops.flash_decode, ops.flash_decode_mla
     ops.flash_attention = fa.flash_attention_plain
     ops.flash_decode = fd.flash_decode_plain
+    ops.flash_decode_mla = fd.flash_decode_mla_plain
     if n_split is not None:
         def two_pass(q, k, v, length):
             return fd.flash_decode_split_plain(q, k, v, length, n_split)
 
+        def mla_two_pass(q_lat, q_rope, ckv, krope, length):
+            return fd.flash_decode_split_plain(
+                *fd.mla_operands(q_lat, q_rope, ckv, krope), length,
+                n_split)
+
         ops.flash_attention = tiled_plain_attention
         ops.flash_decode = two_pass
+        ops.flash_decode_mla = mla_two_pass
     try:
         yield
     finally:
-        ops.flash_attention, ops.flash_decode = saved
+        ops.flash_attention, ops.flash_decode, ops.flash_decode_mla = saved
 
 
 def parity_run(dtype: str, arch: str = ARCH,
@@ -1976,29 +2269,37 @@ def window_fault_run(n_prompts: int, prompt_len: int) -> None:
 
 
 def hybrid_refill_check() -> None:
-    """A mid-batch refill of a hymba slot through ``ServingEngine`` on
-    the card, in float32: two slots, request A prefilled alone, and one
-    step later B prefilled into the free slot (``_prefill_slot``
-    scatters its rings and mamba state into the live batch state); after
-    every step each live slot's next-token logits against its request
-    prefilled and decoded alone (1e-3 x max |logits|, as the float32
-    parity), and the greedy tokens equal.  Both prompts pass the window,
-    so both rings have wrapped."""
+    """A mid-batch refill of a hymba slot (``refill_check``): both
+    prompts pass the window, so both rings have wrapped."""
+    cfg, params = _hymba("float32")
+    refill_check("hybrid", cfg, params, HYMBA_REFILL, HYMBA_REFILL_NEW)
+
+
+def refill_check(phase: str, cfg, params, lengths: tuple[int, int],
+                 new: int) -> None:
+    """A mid-batch refill through ``ServingEngine`` on the card, in
+    float32: two slots, request A prefilled alone, and one step later B
+    prefilled into the free slot (``_prefill_slot`` scatters its whole
+    decode state into the live batch state); after every step each live
+    slot's next-token logits against its request prefilled and decoded
+    alone (1e-3 x max |logits|, as the float32 parity), and the greedy
+    tokens equal.  ``lengths``: the two prompts' tokens."""
     import numpy as np
     import torch
 
     from repro_torch.models.transformer import decode_step, prefill
     from repro_torch.serve import EngineConfig, ServingEngine
 
-    cfg, params = _hymba("float32")
     rng = np.random.default_rng(1)
     prompts = [rng.integers(1, cfg.vocab_size, n).astype(np.int32)
-               for n in HYMBA_REFILL]
-    new = HYMBA_REFILL_NEW
+               for n in lengths]
+    engine = ServingEngine(cfg, params, EngineConfig(
+        max_batch=2, cache_len=max(lengths) + new, eos_token=-1,
+        max_new_tokens=new))
     alone = []                     # each request's logits, step by step
     for prompt in prompts:
-        logits, st = prefill(params, cfg, {"tokens": torch.from_numpy(
-            prompt[None].astype(np.int64)).to(DEVICE)}, len(prompt) + new)
+        logits, st = prefill(params, cfg, engine._prefill_inputs(
+            prompt[None]), len(prompt) + new)
         seq = [logits[0].float().cpu().numpy()]
         for _ in range(new - 1):
             tok = int(np.argmax(seq[-1])) % cfg.vocab_size
@@ -2006,9 +2307,7 @@ def hybrid_refill_check() -> None:
                 [tok], device=DEVICE))
             seq.append(logits[0].float().cpu().numpy())
         alone.append(seq)
-    engine = ServingEngine(cfg, params, EngineConfig(
-        max_batch=2, cache_len=max(HYMBA_REFILL) + new, eos_token=-1,
-        max_new_tokens=new))
+        del st
     worst = 0.0
 
     def hold() -> float:
@@ -2034,16 +2333,17 @@ def hybrid_refill_check() -> None:
     want_tokens = [[int(np.argmax(x)) % cfg.vocab_size for x in seq]
                    for seq in alone]
     same = all(done.get(i) == want_tokens[i] for i in range(2))
-    print(f"hybrid refill: {HYMBA} float32, 2 slots, prompts "
-          f"{HYMBA_REFILL[0]} and {HYMBA_REFILL[1]} tokens (the second "
-          f"prefilled into the free slot one step later: {refilled}), "
-          f"{new} tokens each: every step's logits against each request "
-          f"alone, max |dlogits| / max |logits| {worst!r} (limit "
-          f"{PARITY_LIMIT['float32']}); tokens equal {same}", flush=True)
-    check(refilled, "the hymba engine did not refill the free slot "
+    print(f"{phase} refill: {cfg.name} float32 ({cfg.n_layers} layers), 2 "
+          f"slots, prompts {lengths[0]} and {lengths[1]} tokens (the "
+          f"second prefilled into the free slot one step later: "
+          f"{refilled}), {new} tokens each: every step's logits against "
+          f"each request alone, max |dlogits| / max |logits| {worst!r} "
+          f"(limit {PARITY_LIMIT['float32']}); tokens equal {same}",
+          flush=True)
+    check(refilled, f"the {cfg.name} engine did not refill the free slot "
           "mid-batch")
     check(worst <= PARITY_LIMIT["float32"] and same,
-          f"a refilled hymba batch differs from its requests alone "
+          f"a refilled {cfg.name} batch differs from its requests alone "
           f"({worst}, tokens equal {same})")
 
 
@@ -2191,7 +2491,7 @@ def ssm_phase() -> dict:
     from repro_torch.models import transformer as tf
 
     tic = time.perf_counter()
-    counts = cli_run(XLSTM_ARGS, attention=False)
+    counts = cli_run(XLSTM_ARGS, kernels=())
     print(f"phase ssm cli: {time.perf_counter() - tic:.3f} s", flush=True)
 
     cfg = get_config(XLSTM)
@@ -2328,6 +2628,565 @@ def ssm_phase() -> dict:
           f"{time.perf_counter() - tic:.3f} s", flush=True)
     check(worst <= XLSTM_LIMIT, f"{XLSTM} card vs CPU end to end: {worst} "
           f"> {XLSTM_LIMIT}")
+    return counts
+
+
+# ------------------------------------------- moe, vlm and audio phases
+
+DEEPSEEK = "deepseek-v2-lite-16b"
+KIMI = "kimi-k2-1t-a32b"
+QWEN_VL = "qwen2-vl-72b"
+WHISPER = "whisper-large-v3"
+DEEPSEEK_ARGS = ["--arch", DEEPSEEK, "--requests", "8", "--max-new", "16",
+                 "--rate", "30", "--policy", "pfdnn"]
+WHISPER_ARGS = ["--arch", WHISPER, "--requests", "8", "--max-new", "16",
+                "--rate", "30", "--policy", "pfdnn"]
+# kernel vs plain runs: (prompts, tokens, decode steps)
+DEEPSEEK_PARITY = (2, 1024, 8)
+KIMI_PARITY = (2, 512, 4)
+QWEN_VL_PARITY = (2, 512, 8)
+WHISPER_PARITY = (2, 448, 8)
+# depth cuts (full width): deepseek's float32 run, kimi-k2 (61 layers,
+# ~19.4 B parameters a layer with its 384 experts), qwen2-vl-72b (80
+# layers of ~1.76 GB in bf16) and its float32 run
+DEEPSEEK_F32_LAYERS = 4
+KIMI_LAYERS = 1
+QWEN_VL_LAYERS = 16
+QWEN_VL_F32_LAYERS = 4
+QWEN_VL_IMAGE = 16                  # a 16 x 16 patch block after 8 tokens
+# the float32 refills: (prompt tokens of the two requests), 6 new each
+DEEPSEEK_REFILL = (300, 500)
+WHISPER_REFILL = (60, 90)
+REFILL_NEW = 6
+MOE_PROFILE = (16, 1024, 16)        # prompts, tokens, decode steps (bf16)
+MOE_PROFILED = 2                    # decode steps under the profiler
+# the bf16 limit of the new families, fixed before their first chip run
+# (PERF.md section 2): 1.5 x the floor measured in the same run (the
+# plain path against the kernels' algorithms in plain PyTorch, with the
+# MoE routes replayed), capped at 0.1 x max |logits|
+BF16_FLOOR_FACTOR, BF16_LIMIT_CAP = 1.5, 0.1
+
+
+def _free() -> None:
+    """Return the memory of a phase's weights to the card before the
+    next model is drawn."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _model(arch: str, dtype: str, n_layers: int | None = None):
+    """(config, seed-0 weights on the card) of ``arch`` at full width in
+    ``dtype``, cut to ``n_layers`` where given."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(get_config(arch), dtype=dtype)
+    if n_layers is not None:
+        cfg = dataclasses.replace(cfg, n_layers=n_layers)
+    return cfg, init_params(
+        cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+
+
+@contextlib.contextmanager
+def moe_routes(record: list | None = None, replay: list | None = None):
+    """Record the experts ``router_topk`` picks, call by call (``record``),
+    or replay recorded ones (``replay``): the path then takes the
+    recorded experts and weighs them with its own router probabilities,
+    renormalized as ``router_topk`` does.  MoE routing is discontinuous:
+    a near-tie between the k-th and the (k+1)-th expert flips on any
+    rounding difference upstream, so two paths are compared on the same
+    routes."""
+    import torch
+
+    from repro_torch.models import moe
+
+    inner = moe.router_topk
+    replayed = iter(replay) if replay is not None else None
+
+    def routed(x, w_router, dims):
+        if replayed is None:
+            idx, cw = inner(x, w_router, dims)
+            record.append(idx)
+            return idx, cw
+        idx = next(replayed)
+        probs = torch.softmax(x.float() @ w_router.float(), dim=-1)
+        top_p = probs.gather(-1, idx)
+        top_p = top_p / top_p.sum(-1, keepdim=True).clamp_min(1e-9)
+        return idx, top_p.to(x.dtype)
+
+    moe.router_topk = routed
+    try:
+        yield
+    finally:
+        moe.router_topk = inner
+
+
+def _path(cfg, params, batch, cache: int, steps: int, contexts,
+          feed=None) -> tuple[list, list]:
+    """Prefill + ``steps`` decode steps under ``contexts``: every step's
+    logits (float32) and the tokens fed (``feed``, or this path's greedy
+    tokens)."""
+    import torch
+
+    from repro_torch.models.transformer import decode_step, prefill
+
+    with contextlib.ExitStack() as stack:
+        for ctx in contexts:
+            stack.enter_context(ctx)
+        logits, st = prefill(params, cfg, batch, cache)
+        out, fed = [logits.float()], []
+        for step in range(steps):
+            tok = feed[step] if feed is not None else logits.argmax(-1)
+            fed.append(tok)
+            logits, st = decode_step(params, cfg, st, tok)
+            out.append(logits.float())
+        torch.cuda.synchronize()
+    del st
+    return out, fed
+
+
+def _rel(a: list, b: list) -> float:
+    """max over steps of max |a - b| / max |a|."""
+    return max(float((x - y).abs().max()) / float(x.abs().max())
+               for x, y in zip(a, b))
+
+
+def family_parity(phase: str, cfg, params, batch, steps: int,
+                  fault=None, fault_label: str = "") -> dict:
+    """Kernel path against plain path on the same weights and prompts,
+    prefill + ``steps`` decode steps, the plain path's greedy tokens fed
+    to every path; a MoE model's routes are the plain path's, replayed
+    (``moe_routes``).  The floor: the plain path against the kernels'
+    algorithms in plain PyTorch (prefill over 64-key tiles, decode in
+    two passes at the kernel's split count), which differ only in where
+    p is rounded.  The limit: 1e-3 x max |logits| in float32; in bf16
+    ``BF16_FLOOR_FACTOR`` x the floor, at most ``BF16_LIMIT_CAP``.  A
+    MoE model also runs the kernel path with free routing (the routes
+    that differ are printed, with no limit); ``fault`` (a context) plants
+    a fault in the kernel path, which must then fail the limit.
+    Returns the floor, the worst difference, the limit and the kernel
+    path's launch counts (set to 0 just before it, read just after)."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+
+    tic = time.perf_counter()
+    cache = batch["tokens"].shape[1] + steps
+    n_split = fd.decode_splits(
+        cache, torch.cuda.get_device_properties(0).multi_processor_count)
+    moe = cfg.is_moe
+    routes: list = []
+
+    def replay():
+        return [moe_routes(replay=routes)] if moe else []
+
+    plain, feed = _path(cfg, params, batch, cache, steps,
+                        [plain_attention()]
+                        + ([moe_routes(record=routes)] if moe else []))
+    _reset_counts()
+    t0 = time.perf_counter()
+    kern, _ = _path(cfg, params, batch, cache, steps, replay(), feed)
+    kernel_s = time.perf_counter() - t0
+    counts = _counts()
+    tiled, _ = _path(cfg, params, batch, cache, steps,
+                     [plain_attention(n_split)] + replay(), feed)
+    worst, floor = _rel(kern, plain), _rel(tiled, plain)
+    dtype = cfg.dtype
+    limit = (PARITY_LIMIT["float32"] if dtype == "float32"
+             else min(BF16_LIMIT_CAP, BF16_FLOOR_FACTOR * floor))
+    same = sum(int((k.argmax(-1) == p.argmax(-1)).sum())
+               for k, p in zip(kern, plain))
+    b, s = batch["tokens"].shape
+    free = ""
+    if moe:
+        picked: list = []
+        fr, _ = _path(cfg, params, batch, cache, steps,
+                      [moe_routes(record=picked)], feed)
+        moved = sum(int((x.sort(-1).values != y.sort(-1).values)
+                        .any(-1).sum()) for x, y in zip(picked, routes))
+        total = sum(x.shape[0] for x in routes)
+        free = (f"; free routing: {moved} of {total} (token, layer) "
+                f"expert sets differ from the plain path's, max |dlogits| "
+                f"/ max |logits| {_rel(fr, plain)!r} (no limit)")
+    print(f"{phase} parity: {cfg.name} {dtype} ({cfg.n_layers} layers), "
+          f"{b} prompts of {s} tokens, prefill + {steps} decode steps"
+          f"{', routes replayed' if moe else ''}: max |dlogits| / max "
+          f"|logits| {worst!r} (limit {limit!r}); floor (plain vs tiled "
+          f"plain prefill and two-pass plain decode, {n_split} splits) "
+          f"{floor!r}; identical greedy tokens {same}/{b * (steps + 1)}; "
+          f"kernel path {kernel_s:.3f} s, launches {json.dumps(counts)}"
+          f"{free}; wall {time.perf_counter() - tic:.3f} s", flush=True)
+    check(worst <= limit, f"{phase}: kernel vs plain logits ({cfg.name} "
+          f"{dtype}) {worst} > {limit}")
+    if fault is not None:
+        bad, _ = _path(cfg, params, batch, cache, steps,
+                       [fault()] + replay(), feed)
+        wrong = _rel(bad, plain)
+        print(f"{phase} parity: planted fault ({fault_label}), {cfg.name} "
+              f"{dtype}: max |dlogits| / max |logits| {wrong!r} against "
+              f"the limit {limit!r}", flush=True)
+        check(wrong > limit, f"{phase}: the limit {limit} passes a planted "
+              f"fault ({fault_label}: {wrong})")
+    return {"floor": floor, "worst": worst, "limit": limit,
+            "counts": counts}
+
+
+def _tokens(cfg, n: int, length: int, seed: int = 0):
+    import numpy as np
+    import torch
+
+    rng = np.random.default_rng(seed)
+    return torch.from_numpy(rng.integers(1, cfg.vocab_size,
+                                         (n, length))).to(DEVICE)
+
+
+@contextlib.contextmanager
+def mla_rope_fault():
+    """The planted MLA fault: the absorbed decode scores without the
+    decoupled RoPE columns (``q_rope`` zeroed, so ``krope`` drops out)."""
+    import torch
+
+    from repro_torch.kernels import ops
+
+    inner = ops.flash_decode_mla
+
+    def no_rope(q_lat, q_rope, ckv, krope, length):
+        return inner(q_lat, torch.zeros_like(q_rope), ckv, krope, length)
+
+    ops.flash_decode_mla = no_rope
+    try:
+        yield
+    finally:
+        ops.flash_decode_mla = inner
+
+
+@contextlib.contextmanager
+def causal_cross_fault():
+    """The planted whisper fault: prefill's cross-attention (the one
+    non-causal call with fewer queries than keys) made causal."""
+    from repro_torch.kernels import ops
+
+    inner = ops.flash_attention
+
+    def causal_cross(q, k, v, **kw):
+        if q.shape[2] != k.shape[2] and not kw.get("causal", True):
+            kw = {**kw, "causal": True}
+        return inner(q, k, v, **kw)
+
+    ops.flash_attention = causal_cross
+    try:
+        yield
+    finally:
+        ops.flash_attention = inner
+
+
+def moe_phase() -> dict:
+    """deepseek-v2-lite-16b at full width (27 layers, MLA, 64 experts
+    top-6 + 2 shared, bf16): the launcher; kernel vs plain path (bf16,
+    then float32 cut to DEEPSEEK_F32_LAYERS) with the MLA fault planted;
+    a float32 mid-batch refill; a profiled batch-16 decode step; then
+    kimi-k2-1t-a32b at full width cut to KIMI_LAYERS (384 experts top-8,
+    GQA 64 / 8 at D = 112), kernel vs plain in bf16.  Returns the launch
+    counts by run."""
+    tic = time.perf_counter()
+    counts = {"moe": cli_run(DEEPSEEK_ARGS, MLA_KERNELS)}
+    print(f"phase moe cli: {time.perf_counter() - tic:.3f} s", flush=True)
+    _free()
+    tic = time.perf_counter()
+    n, length, steps = DEEPSEEK_PARITY
+    cfg, params = _model(DEEPSEEK, "bfloat16")
+    toks = _tokens(cfg, n, length)
+    family_parity("moe", cfg, params, {"tokens": toks}, steps,
+                  mla_rope_fault, "the MLA decode drops krope from the "
+                  "scores")
+    print(f"phase moe parity bf16: {time.perf_counter() - tic:.3f} s",
+          flush=True)
+    tic = time.perf_counter()
+    moe_profile(cfg, params)
+    print(f"phase moe profile: {time.perf_counter() - tic:.3f} s",
+          flush=True)
+    del params
+    _free()
+    tic = time.perf_counter()
+    cfg, params = _model(DEEPSEEK, "float32", DEEPSEEK_F32_LAYERS)
+    f32 = family_parity("moe", cfg, params, {"tokens": toks}, steps)
+    counts["moe f32"] = f32["counts"]
+    refill_check("moe", cfg, params, DEEPSEEK_REFILL, REFILL_NEW)
+    print(f"phase moe float32: {time.perf_counter() - tic:.3f} s",
+          flush=True)
+    del params
+    _free()
+    tic = time.perf_counter()
+    n, length, steps = KIMI_PARITY
+    cfg, params = _model(KIMI, "bfloat16", KIMI_LAYERS)
+    kimi = family_parity("moe", cfg, params,
+                         {"tokens": _tokens(cfg, n, length)}, steps)
+    counts["kimi"] = kimi["counts"]
+    print(f"phase moe kimi: {time.perf_counter() - tic:.3f} s", flush=True)
+    del params
+    _free()
+    return counts
+
+
+def moe_profile(cfg, params) -> None:
+    """Where a deepseek-v2-lite bf16 serving step goes: MOE_PROFILE
+    prompts prefilled, then decode steps at batch 16 timed (host clock,
+    synchronized), the MoE FFN's share of them (synchronized around each
+    call), then PROFILED_DECODE steps under ``torch.profiler`` (device
+    busy, idle share, device operations a step, device time by kind),
+    and the same steps with the MoE FFN replaced by zeros: the
+    difference in device operations is the MoE's launches a step (each
+    profiled window MOE_PROFILED steps: a step launches ~10^4 device
+    operations, and the profiler's events take a minute to read at
+    PROFILED_DECODE steps)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import transformer as tf
+
+    n, length, steps = MOE_PROFILE
+    toks = _tokens(cfg, n, length, seed=2)
+    feed = _tokens(cfg, steps, n, seed=3)
+    cache = length + steps + PROFILED_DECODE + 2 * MOE_PROFILED
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    _, state = tf.prefill(params, cfg, {"tokens": toks}, cache)
+    torch.cuda.synchronize()
+    pre = time.perf_counter() - t0
+    inner = tf._moe_ffn
+    spent = [0.0]
+
+    def timed(*args, **kwargs):
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        out = inner(*args, **kwargs)
+        torch.cuda.synchronize()
+        spent[0] += time.perf_counter() - t1
+        return out
+
+    walls = []
+    for step in range(steps):
+        t0 = time.perf_counter()
+        logits, state = tf.decode_step(params, cfg, state, feed[step])
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+    check(bool(torch.isfinite(logits.float()).all()),
+          f"{cfg.name}: non-finite decode logits")
+    tf._moe_ffn = timed
+    try:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for step in range(PROFILED_DECODE):
+            _, state = tf.decode_step(params, cfg, state, feed[step])
+        torch.cuda.synchronize()
+        timed_wall = time.perf_counter() - t0
+    finally:
+        tf._moe_ffn = inner
+    med = statistics.median(walls)
+    print(f"moe serve: {cfg.name} bf16, {n} x {length} prompt tokens: "
+          f"prefill {pre * 1e3:.3f} ms ({n * length / pre:.1f} tokens/s); "
+          f"decode step at batch {n} median {med * 1e3:.3f} ms over "
+          f"{steps} (min {min(walls) * 1e3:.3f}, max "
+          f"{max(walls) * 1e3:.3f}): {n / med:.1f} decode tokens/s; the "
+          f"MoE FFN {spent[0] * 1e3:.3f} ms of {PROFILED_DECODE} "
+          f"synchronized steps of {timed_wall * 1e3:.3f} ms "
+          f"({spent[0] / timed_wall:.4f})", flush=True)
+    ops_a_step = {}
+    for label, ffn in (("decode", inner),
+                       ("decode without the MoE FFN",
+                        lambda p, c, x: torch.zeros_like(x))):
+        tf._moe_ffn = ffn
+        try:
+            torch.cuda.synchronize()
+            with profile(activities=[ProfilerActivity.CPU,
+                                     ProfilerActivity.CUDA]) as prof:
+                t0 = time.perf_counter()
+                for step in range(MOE_PROFILED):
+                    _, state = tf.decode_step(params, cfg, state,
+                                              feed[step])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+        finally:
+            tf._moe_ffn = inner
+        found = device_busy(prof)
+        ops_a_step[label] = (None if found is None else
+                             sum(k for _, (k, _) in found[1])
+                             / MOE_PROFILED)
+        _print_busy(f"profile moe {label} ({MOE_PROFILED} steps)", prof,
+                    wall * 1e6)
+        print(f"profile moe {label} by kind: {_by_kind(prof)}", flush=True)
+        if label == "decode":
+            _print_host(f"profile moe {label}", prof)
+    full, bare = ops_a_step["decode"], ops_a_step["decode without the MoE FFN"]
+    moe_ops = "not measured" if None in (full, bare) else f"{full - bare:.1f}"
+    print(f"moe serve: device operations a decode step {full}, without the "
+          f"MoE FFN {bare}: the MoE's {moe_ops} a step", flush=True)
+
+
+def _mrope_grid(n: int, length: int, side: int):
+    """M-RoPE grids ``[3, n, length]`` of a prompt with a stub image: 8
+    text tokens, a ``side`` x ``side`` patch block (temporal position 8,
+    heights and widths 8 + row, 8 + column), then text from the block's
+    largest position + 1, as Qwen2-VL numbers them."""
+    import torch
+
+    t = torch.arange(length)
+    grid = torch.stack([t, t, t])
+    start, patches = 8, side * side
+    rows = torch.arange(patches) // side
+    cols = torch.arange(patches) % side
+    grid[0, start:start + patches] = start
+    grid[1, start:start + patches] = start + rows
+    grid[2, start:start + patches] = start + cols
+    rest = length - start - patches
+    grid[:, start + patches:] = start + side + torch.arange(rest)
+    return grid[:, None].expand(3, n, length).contiguous().to(DEVICE)
+
+
+def vlm_phase() -> dict:
+    """qwen2-vl-72b at full width, cut to QWEN_VL_LAYERS (bf16) and
+    QWEN_VL_F32_LAYERS (float32): kernel vs plain path on prompts whose
+    M-RoPE grids carry a stub image block; text-only grids against the
+    same model with plain RoPE, which must be equal bit for bit."""
+    import torch
+
+    from repro_torch.models.transformer import decode_step, prefill
+
+    counts = {}
+    n, length, steps = QWEN_VL_PARITY
+    for dtype, layers in (("bfloat16", QWEN_VL_LAYERS),
+                          ("float32", QWEN_VL_F32_LAYERS)):
+        tic = time.perf_counter()
+        cfg, params = _model(QWEN_VL, dtype, layers)
+        toks = _tokens(cfg, n, length)
+        batch = {"tokens": toks,
+                 "positions": _mrope_grid(n, length, QWEN_VL_IMAGE)}
+        got = family_parity("vlm", cfg, params, batch, steps)
+        counts["vlm" if dtype == "bfloat16" else "vlm f32"] = got["counts"]
+        if dtype == "bfloat16":
+            plain_rope = dataclasses.replace(cfg, mrope_sections=())
+            a, sa = prefill(params, cfg, {"tokens": toks}, length + 2)
+            b, sb = prefill(params, plain_rope, {"tokens": toks},
+                            length + 2)
+            same = [bool(torch.equal(a, b))]
+            for _ in range(2):
+                tok = a.argmax(-1)
+                a, sa = decode_step(params, cfg, sa, tok)
+                b, sb = decode_step(params, plain_rope, sb, tok)
+                same.append(bool(torch.equal(a, b)))
+            print(f"vlm text grid: {cfg.name} bf16, text-only M-RoPE grids "
+                  f"against plain RoPE on the same weights, prefill + 2 "
+                  f"decode steps, logits equal bit for bit: {same}",
+                  flush=True)
+            check(all(same), "text-only M-RoPE grids differ from plain "
+                  "RoPE on the card")
+            del sa, sb
+        print(f"phase vlm {dtype}: {time.perf_counter() - tic:.3f} s",
+              flush=True)
+        del params
+        _free()
+    return counts
+
+
+def audio_phase() -> dict:
+    """whisper-large-v3 at full width (32 encoder and 32 decoder layers,
+    1500 frames): the launcher (zero frames, as the engine gives them);
+    kernel vs plain path on seeded random frames in bf16, with the
+    causal-cross-attention fault planted, and in float32; the encoder's
+    share of a prefill; a float32 mid-batch refill."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.models import transformer as tf
+
+    tic = time.perf_counter()
+    uses: dict = {}
+    with launches_by_use(uses, get_config(WHISPER).encoder_seq):
+        counts = {"audio": cli_run(WHISPER_ARGS, ATTENTION_KERNELS)}
+    print(f"serve cli: {WHISPER} launches by use {json.dumps(uses)}",
+          flush=True)
+    for name in ("flash_attention", "flash_decode"):
+        check(sum(n for key, n in uses.items() if key.startswith(name))
+              == counts["audio"][name], f"the {WHISPER} launcher's {name} "
+              f"launches by use {uses} do not add up to its count")
+    for key in ("flash_attention encoder", "flash_attention self",
+                "flash_attention cross", "flash_decode self",
+                "flash_decode cross"):
+        check(uses.get(key, 0) > 0, f"the {WHISPER} launcher launched no "
+              f"{key} attention")
+    counts["audio"].update(uses)
+    print(f"phase audio cli: {time.perf_counter() - tic:.3f} s", flush=True)
+    _free()
+    n, length, steps = WHISPER_PARITY
+    for dtype in ("bfloat16", "float32"):
+        tic = time.perf_counter()
+        cfg, params = _model(WHISPER, dtype)
+        gen = torch.Generator(device=DEVICE).manual_seed(1)
+        frames = _randn(gen, n, cfg.encoder_seq, cfg.d_model, dtype=dtype)
+        batch = {"tokens": _tokens(cfg, n, length),
+                 "encoder_frames": frames}
+        if dtype == "bfloat16":
+            family_parity("audio", cfg, params, batch, steps,
+                          causal_cross_fault, "prefill's cross-attention "
+                          "made causal")
+            inner, spent = tf._encode_audio, [0.0]
+
+            def timed(*args):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                out = inner(*args)
+                torch.cuda.synchronize()
+                spent[0] += time.perf_counter() - t0
+                return out
+
+            tf.prefill(params, cfg, batch, length)       # warm
+            tf._encode_audio = timed
+            try:
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                tf.prefill(params, cfg, batch, length)
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+            finally:
+                tf._encode_audio = inner
+            print(f"audio serve: {cfg.name} bf16, {n} x {length} prompt "
+                  f"tokens over {cfg.encoder_seq} frames: synchronized "
+                  f"prefill {wall * 1e3:.3f} ms, of it the encoder "
+                  f"{spent[0] * 1e3:.3f} ms ({spent[0] / wall:.4f})",
+                  flush=True)
+        else:
+            got = family_parity("audio", cfg, params, batch, steps)
+            counts["audio f32"] = got["counts"]
+            refill_check("audio", cfg, params, WHISPER_REFILL, REFILL_NEW)
+        print(f"phase audio {dtype}: {time.perf_counter() - tic:.3f} s",
+              flush=True)
+        del params, frames, batch
+        _free()
+    return counts
+
+
+def families_phase() -> dict:
+    """The moe, vlm and audio phases; their launch counts by run."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    tic = time.perf_counter()
+    counts = moe_phase()
+    print(f"phase moe: {time.perf_counter() - tic:.3f} s", flush=True)
+    tic = time.perf_counter()
+    counts.update(vlm_phase())
+    print(f"phase vlm: {time.perf_counter() - tic:.3f} s", flush=True)
+    tic = time.perf_counter()
+    counts.update(audio_phase())
+    print(f"phase audio: {time.perf_counter() - tic:.3f} s", flush=True)
+    print(f"families: peak device memory "
+          f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return counts
 
 
@@ -3741,7 +4600,11 @@ def build_all() -> None:
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as im
 
-    libs = [m.LIBRARY for m in _kernel_modules()] + [fa.WGMMA_LIBRARY]
+    from repro_torch.kernels import flash_decode as fd
+
+    libs = ([m.LIBRARY for m in _kernel_modules()]
+            + [fa.WGMMA_LIBRARY, fd.MLA_LIBRARY])
+    reported = (fa.LIBRARY, fa.WGMMA_LIBRARY, fd.MLA_LIBRARY)
 
     def build(lib):
         tic = time.perf_counter()
@@ -3749,11 +4612,13 @@ def build_all() -> None:
         return path.name, time.perf_counter() - tic
 
     tic = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(libs) + 1) as pool:
-        usage = pool.submit(ptxas_usage, fa.LIBRARY)
+    with concurrent.futures.ThreadPoolExecutor(
+            len(libs) + len(reported)) as pool:
+        usage = [pool.submit(ptxas_usage, lib) for lib in reported]
         for name, secs in pool.map(build, libs):
             print(f"build: {name} in {secs:.2f} s", flush=True)
-        print(usage.result(), flush=True)
+        for report in usage:
+            print(report.result(), flush=True)
     for lib in libs:
         lib.load()
     print(f"build: all in {time.perf_counter() - tic:.2f} s", flush=True)
@@ -3856,16 +4721,17 @@ def service_only() -> int:
 
 def lm_families_only() -> int:
     """``--lm-families``: build the attention, decode and rail-sweep
-    libraries, run the windowed and ring kernel rows, the hybrid and ssm
-    phases and the analysis phase without the service phase's store and
-    dump; no result line."""
+    libraries, run the windowed, ring and new families' kernel rows, the
+    hybrid, ssm, moe, vlm and audio phases and the analysis phase
+    without the service phase's store and dump; no result line."""
     import torch
 
     from repro_torch.kernels import dp_sweep as ks
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
 
-    libs = (fa.LIBRARY, fa.WGMMA_LIBRARY, fd.LIBRARY, ks.LIBRARY)
+    libs = (fa.LIBRARY, fa.WGMMA_LIBRARY, fd.LIBRARY, fd.MLA_LIBRARY,
+            ks.LIBRARY)
     tic = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for path in pool.map(lambda lib: lib.build(), libs):
@@ -3877,11 +4743,14 @@ def lm_families_only() -> int:
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     window_rows(rows, gen)
     ring_rows(rows, gen)
-    counts = hybrid_phase()
+    family_rows(rows, gen)
+    counts = {"hybrid": hybrid_phase()}
     ssm_phase()
+    counts.update(families_phase())
     analysis_phase(None)
     for name, row in rows.items():
-        row["launches"] = counts[FAMILY_ROWS[name]]
+        run, counter = FAMILY_ROWS[name]
+        row["launches"] = counts[run][counter]
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     return 0
 
@@ -3959,8 +4828,9 @@ def main(argv: list[str]) -> int:
     profile_phase(KERNEL_SHAPES[0][0])
     print(f"phase path: {time.perf_counter() - tic:.3f} s", flush=True)
     serve_counts = serve_phase()
-    hybrid_counts = hybrid_phase()
+    family_counts = {"hybrid": hybrid_phase()}
     ssm_phase()
+    family_counts.update(families_phase())
     tic = time.perf_counter()
     int8_counts = int8_path_phase()
     print(f"phase int8: {time.perf_counter() - tic:.3f} s", flush=True)
@@ -3980,7 +4850,8 @@ def main(argv: list[str]) -> int:
     for row in rows:
         name = row["name"]
         if name in FAMILY_ROWS:
-            row["launches"] = hybrid_counts[FAMILY_ROWS[name]]
+            run, counter = FAMILY_ROWS[name]
+            row["launches"] = family_counts[run][counter]
         else:
             row["launches"] = (serve_counts if name.startswith("flash")
                                else int8_counts if name == "int8_matmul"

@@ -2,7 +2,7 @@
 
 The 10 assigned architectures (exact published configurations), the
 same data as the JAX package's registry.  The port's transformer runs
-the dense ones (see :mod:`repro_torch.models.transformer`).
+all of them (see :mod:`repro_torch.models.transformer`).
 """
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ MoE, MLA, SSM, hybrid, enc-dec audio, VLM).  Each ``configs/<arch>.py``
 instantiates the exact published configuration; ``reduced()`` derives the
 CPU-smoke-test variant of the same family.  The fields are the JAX
 package's, field for field; ``torch_dtype`` takes the place of its
-``jnp_dtype``.  The port's transformer runs the dense family
+``jnp_dtype``.  The port's transformer runs every family
 (``repro_torch.models.transformer``).
 """
 

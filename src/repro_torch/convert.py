@@ -9,9 +9,11 @@ the port reads what the reference writes without importing it:
   - :func:`padded_from_numpy` — the arrays of a reference
     ``PaddedArrays`` → one-lane tensors in the layout the kernels take;
   - :func:`lm_params_from_numpy` — a reference LM parameter tree (from
-    ``repro.models.transformer.init_params``, as numpy; dense and hybrid
-    stacked, ssm a list of per-layer dicts of two kinds) → the port's
-    parameters, so both packages compute with the same weights.
+    ``repro.models.transformer.init_params``, as numpy; stacked layers,
+    with routed experts ``[L, E, d, f]``, MLA's latent projections and
+    whisper's stacked ``enc_layers``, ``enc_lnf`` and cross projections;
+    ssm a list of per-layer dicts of two kinds) → the port's parameters,
+    so both packages compute with the same weights.
 
 A reference ``PowerSchedule.to_json`` payload is read by the port's own
 :meth:`~repro_torch.core.schedule.PowerSchedule.from_json` (same schema,

@@ -19,7 +19,8 @@
 //   * out = acc / max(l, 1e-30);
 //   * KV tiles that lie wholly above the causal diagonal, or wholly
 //     below the window of every row of the CTA, are skipped.
-// Any Sq, Sk and q_offset (negative too) and every D in 16..128, step 16.
+// Any Sq, Sk and q_offset (negative too), every D in 16..128 (step 16)
+// and D = 192 (MLA's prefill head, hd + dr = 128 + 64).
 //
 // What bounds it on an H100: about 4 * D operations per unmasked (q, k)
 // pair against 16 * D bytes per row of q, k, v and out, so the function
@@ -36,9 +37,12 @@
 // loaded K/V synchronously and ran causal tiles light first):
 //   * one CTA of 8 warps owns a (batch, head, 128-row query tile); a
 //     warp owns 16 rows, and a lane the 4 rows 4 tr .. 4 tr + 3 and, of
-//     each 64-key tile, the 8 keys tc + 8 j and the D / 8 output columns
-//     of group tc (tr = lane % 4, tc = lane / 4).  Each lane pair
-//     shares its keys and columns, so the K and V loads cost half;
+//     each BK-key tile, the BK / 8 keys tc + 8 j and the D / 8 output
+//     columns of group tc (tr = lane % 4, tc = lane / 4).  Each lane
+//     pair shares its keys and columns, so the K and V loads cost half.
+//     BK is 64, and 32 at D = 192: there two stages of 64-key K and V
+//     tiles beside the Q tile would take 305 KB of shared memory, more
+//     than a block may have (227 KB), and 32-key tiles take 206 KB;
 //   * S = Q K^T: Q is stored transposed ([D][128], one float4 gives a
 //     lane its 4 rows at one d), K row-major with rows padded by 16
 //     bytes (float4 along d; the 8 keys of a load hit distinct banks).
@@ -51,8 +55,8 @@
 //     the 8 lanes of its tr, so its maximum takes three shuffles and no
 //     barrier, and l is kept per lane and summed over them once, at the
 //     end;
-//   * P goes to shared memory once, a quarter of the keys at a time (16
-//     keys; the warp's own region, a __syncwarp around each), key-major
+//   * P goes to shared memory once, 16 keys at a time (a quarter of a
+//     64-key tile; the warp's own region, a __syncwarp around each), key-major
 //     so a lane reads its 4 rows of a key with one float4; P.V reads V
 //     rows along D (float4 where D is a multiple of 32, else float2);
 //   * K and V tiles arrive by 16-byte cp.async (rows past Sk as zeros)
@@ -91,19 +95,21 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 constexpr float LOG2E = 1.4426950408889634f;
 constexpr int BQ = 128;     // query rows per CTA
-constexpr int BK = 64;      // keys per K/V tile
 constexpr int RM = 4;       // rows per lane
 constexpr int TR = 4;       // row groups of a warp (lane % 4)
 constexpr int TC = 8;       // key / column groups of a warp (lane / 4)
 constexpr int WR = TR * RM; // rows per warp
 constexpr int WARPS = BQ / WR;
 constexpr int THREADS = 32 * WARPS;
-constexpr int PK = BK / 4;  // keys of a P quarter
+constexpr int PK = 16;      // keys of a P part (two keys a lane)
 // shared memory an SM holds, and what the runtime keeps per CTA
 constexpr int SM_SMEM = 233472, CTA_RESERVED = 1024;
 
 template <int D>
 struct Cfg {
+    static constexpr int BK = D > 128 ? 32 : 64;       // keys per K/V tile
+    static constexpr int KJ = BK / TC;                 // keys a lane a tile
+    static constexpr int NPART = BK / PK;              // P parts a tile
     static constexpr int NCH = D / 4;                  // 16-byte chunks a row
     static constexpr int LD = D + 4;                   // K row stride, floats
     static constexpr int VEC = D % 32 == 0 ? 4 : 2;    // V/O floats an access
@@ -144,11 +150,11 @@ __device__ __forceinline__ float ex2(float x) {
     return y;
 }
 
-// p of keys tc + 8 j (j = J, J + 1) into the warp's P quarter, key-major:
+// p of keys tc + 8 j (j = J, J + 1) into the warp's P part, key-major:
 // the lane's 4 rows of a key side by side
-template <int J>
+template <int J, int KJ>
 __device__ __forceinline__ void store_p(float* p_lane, int tc,
-                                        const float (&s)[RM][8]) {
+                                        const float (&s)[RM][KJ]) {
 #pragma unroll
     for (int jj = 0; jj < 2; ++jj)
         *reinterpret_cast<float4*>(p_lane + (tc + 8 * jj) * WR) =
@@ -206,7 +212,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                            int Sq, int Sk, int q_offset, int causal,
                            int window, float scale, int n_qt) {
     using C = Cfg<D>;
-    constexpr int LD = C::LD;
+    constexpr int LD = C::LD, BK = C::BK, KJ = C::KJ;
     constexpr int VEC = C::VEC, NV = C::NV, NO = C::NO;
     extern __shared__ __align__(16) float smem[];
     float* qs = smem;                  // [D][BQ]: Q transposed
@@ -310,16 +316,16 @@ flash_attention_f32_kernel(const float* __restrict__ q,
         const float* vt = vs + (t & 1) * C::V_FL + tc * VEC;
 
         // S = Q K^T on rows 4 tr + i, keys tc + 8 j
-        float s[RM][8];
+        float s[RM][KJ];
 #pragma unroll
         for (int i = 0; i < RM; ++i)
 #pragma unroll
-            for (int j = 0; j < 8; ++j) s[i][j] = 0.f;
+            for (int j = 0; j < KJ; ++j) s[i][j] = 0.f;
 #pragma unroll 1
         for (int c = 0; c < C::NCH; ++c) {
-            float4 kf[8];
+            float4 kf[KJ];
 #pragma unroll
-            for (int j = 0; j < 8; ++j)
+            for (int j = 0; j < KJ; ++j)
                 kf[j] = *reinterpret_cast<const float4*>(
                     kt + j * 8 * LD + c * 4);
 #pragma unroll
@@ -327,7 +333,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                 const float4 qv = *reinterpret_cast<const float4*>(
                     qcol + (c * 4 + e) * BQ);
 #pragma unroll
-                for (int j = 0; j < 8; ++j) {
+                for (int j = 0; j < KJ; ++j) {
                     const float kv = part(kf[j], e);
                     s[0][j] = fmaf(qv.x, kv, s[0][j]);
                     s[1][j] = fmaf(qv.y, kv, s[1][j]);
@@ -348,7 +354,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
                 const int lim = causal ? min(qpos, Sk - 1) : Sk - 1;
                 const int lo = WINDOW ? qpos - window : INT_MIN;
 #pragma unroll
-                for (int j = 0; j < 8; ++j) {
+                for (int j = 0; j < KJ; ++j) {
                     const int kp = k0 + tc + 8 * j;
                     if (kp > lim || kp <= lo) s[i][j] = mask_raw;
                 }
@@ -361,7 +367,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
         for (int i = 0; i < RM; ++i) {
             float mt = s[i][0];
 #pragma unroll
-            for (int j = 1; j < 8; ++j) mt = fmaxf(mt, s[i][j]);
+            for (int j = 1; j < KJ; ++j) mt = fmaxf(mt, s[i][j]);
             mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 4));
             mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 8));
             mt = fmaxf(mt, __shfl_xor_sync(0xffffffffu, mt, 16));
@@ -371,7 +377,7 @@ flash_attention_f32_kernel(const float* __restrict__ q,
             const float mc = m_sub * c2;
             float sum = 0.f;
 #pragma unroll
-            for (int j = 0; j < 8; ++j) {
+            for (int j = 0; j < KJ; ++j) {
                 s[i][j] = ex2(fmaf(s[i][j], c2, -mc));
                 sum += s[i][j];
             }
@@ -381,16 +387,21 @@ flash_attention_f32_kernel(const float* __restrict__ q,
             for (int n = 0; n < NO; ++n) acc[i][n] *= corr;
         }
 
-        // acc += P V, a quarter of the keys (keys tc + 8 j of j = 2 hf,
-        // 2 hf + 1 from each lane) at a time through shared memory
+        // acc += P V, 16 keys (keys tc + 8 j of j = 2 hf, 2 hf + 1 from
+        // each lane) at a time through shared memory
 #pragma unroll 1
-        for (int hf = 0; hf < 4; ++hf) {
+        for (int hf = 0; hf < C::NPART; ++hf) {
             __syncwarp();               // the lanes are done with the last one
-            switch (hf) {
-                case 0: store_p<0>(p_lane, tc, s); break;
-                case 1: store_p<2>(p_lane, tc, s); break;
-                case 2: store_p<4>(p_lane, tc, s); break;
-                default: store_p<6>(p_lane, tc, s); break;
+            if constexpr (KJ == 8) {
+                switch (hf) {
+                    case 0: store_p<0>(p_lane, tc, s); break;
+                    case 1: store_p<2>(p_lane, tc, s); break;
+                    case 2: store_p<4>(p_lane, tc, s); break;
+                    default: store_p<6>(p_lane, tc, s); break;
+                }
+            } else {
+                if (hf == 0) store_p<0>(p_lane, tc, s);
+                else store_p<2>(p_lane, tc, s);
             }
             __syncwarp();
             const float* vh = vt + hf * PK * D;
@@ -484,7 +495,7 @@ int plan(int* out) {
         Cfg<D>::SMEM);
     if (occ != cudaSuccess) return (int)occ;
     out[0] = BQ;
-    out[1] = BK;
+    out[1] = Cfg<D>::BK;
     out[2] = THREADS;
     out[3] = RM;
     out[4] = Cfg<D>::SMEM;
@@ -494,7 +505,8 @@ int plan(int* out) {
 
 }  // namespace
 
-#define PFDNN_HEAD_DIMS(X) X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128)
+#define PFDNN_HEAD_DIMS(X) \
+    X(16) X(32) X(48) X(64) X(80) X(96) X(112) X(128) X(192)
 
 extern "C" {
 

@@ -63,9 +63,11 @@
 //     kernel without one is the windowless kernel, instruction for
 //     instruction (a runtime window test cost ~8 % at the serving shape
 //     on the H100).
-// Every D in 16..128 (step 16) is taken: the columns of a panel past D
-// are zeros; S reads only the first D / 16 k-steps, and the P.V columns
-// at or past D are never stored.
+// Every D in 16..128 (step 16) is taken, and D = 192 (MLA's prefill
+// head, hd + dr = 128 + 64: three panels, 145 KB of shared memory and
+// 96 accumulator registers a thread for O): the columns of a panel past
+// D are zeros; S reads only the first D / 16 k-steps, and the P.V
+// columns at or past D are never stored.
 //
 // This version has no producer warpgroup, runs S, the softmax and P.V
 // of a warpgroup in turn (overlapping S of the next tile with them
@@ -531,6 +533,7 @@ int pfdnn_flash_attention_bf16(const void* q, const void* k, const void* v,
     switch (D) {
         PFDNN_CASE(16) PFDNN_CASE(32) PFDNN_CASE(48) PFDNN_CASE(64)
         PFDNN_CASE(80) PFDNN_CASE(96) PFDNN_CASE(112) PFDNN_CASE(128)
+        PFDNN_CASE(192)
         default: return (int)cudaErrorInvalidValue;
     }
 #undef PFDNN_CASE

@@ -4,9 +4,11 @@ PyTorch version and launch count:
   - :mod:`~repro_torch.kernels.dp_sweep` — the subset-stacked rail
     sweep's three solver kernels (``csrc/dp_sweep.cu``);
   - :mod:`~repro_torch.kernels.flash_attention` — prefill attention
-    (``csrc/flash_attention.cu``);
+    (``csrc/flash_attention_wgmma.cu`` in bf16,
+    ``csrc/flash_attention.cu`` in float32);
   - :mod:`~repro_torch.kernels.flash_decode` — decode attention over
-    the KV cache (``csrc/flash_decode.cu``);
+    the KV cache (``csrc/flash_decode.cu``), and MLA's absorbed decode
+    over its latent cache (``csrc/flash_decode_mla.cu``);
   - :mod:`~repro_torch.kernels.int8_matmul` — the int8 × int8 → int32
     product with its float32 dequantization (``csrc/int8_matmul.cu``);
   - :mod:`~repro_torch.kernels.ops` — the model-layout wrappers the

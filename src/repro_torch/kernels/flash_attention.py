@@ -17,9 +17,10 @@ semantics (``NEG_INF`` masks, the
 divide any block size.
 
 The float32 kernel gives each CTA of 8 warps 128 query rows and
-streams 64-key K/V tiles through two ``cp.async`` stages; a lane holds
-a 4 × 8 score tile and its rows' outputs in registers, and the softmax
-stays in the registers of one warp.  :func:`f32_plan` states
+streams 64-key K/V tiles (32-key at D = 192, MLA's prefill head) through
+two ``cp.async`` stages; a lane holds a 4 × 8 (4 × 4) score tile and its
+rows' outputs in registers, and the softmax stays in the registers of
+one warp.  :func:`f32_plan` states
 its tiling and shared memory per head dim and :func:`f32_blocks` its
 blocks in launch order (heaviest causal query tile first) with the
 K/V tiles each runs (a window skips the tiles below its rows' reach),
@@ -27,8 +28,9 @@ as the CUDA source sets them; ``chip_smoke.py`` holds the plan against the
 library's ``pfdnn_flash_attention_f32_plan`` on the card.
 
 On a tensor that lies on the CPU the wrapper computes
-:func:`flash_attention_plain`; on a CUDA tensor it launches the kernel
-of its dtype or raises.  Every launch adds one to :data:`LAUNCHES`.
+:func:`flash_attention_plain`, at any head dim; on a CUDA tensor it
+launches the kernel of its dtype, built for :data:`HEAD_DIMS`, or
+raises.  Every launch adds one to :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -49,8 +51,8 @@ from repro_torch.kernels._nvcc import (
 )
 
 NEG_INF = -1e30
-#: head dims the kernel is built for
-HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
+#: head dims the kernels are built for (192: MLA's prefill head)
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128, 192)
 #: element types the kernel takes (q, k, v and the output share one)
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
@@ -91,62 +93,70 @@ WGMMA_LIBRARY = CudaLibrary(WGMMA_SOURCE, NVCC_FLAGS,
                             _declare("pfdnn_flash_attention_bf16"))
 
 
-#: query rows a CTA of the float32 kernel owns, keys a K/V tile
-F32_BLOCK_ROWS, F32_BLOCK_KEYS = 128, 64
+#: query rows a CTA of the float32 kernel owns; keys a K/V tile (the
+#: head dims past 128 take half as many, see :func:`f32_plan`); keys of
+#: a part of P through shared memory
+F32_BLOCK_ROWS, F32_BLOCK_KEYS, F32_P_KEYS = 128, 64, 16
 
 
 def f32_plan(d: int) -> dict[str, int]:
     """The float32 kernel's tiling at head dim ``d``, as
-    ``csrc/flash_attention.cu`` sets it: a lane owns 4 query rows (and 8
-    keys of a tile), a warp 16 rows, a CTA of 8 warps 128 rows; shared
-    memory holds the Q tile (transposed), two stages of K (rows padded
-    by 4 floats) and V, and each warp's quarter tile of P."""
+    ``csrc/flash_attention.cu`` sets it: a lane owns 4 query rows (and
+    ``block_keys / 8`` keys of a tile), a warp 16 rows, a CTA of 8 warps
+    128 rows; a K/V tile holds 64 keys, 32 at ``d`` > 128 (two stages of
+    64 keys would not fit a block at 192); shared memory holds the Q
+    tile (transposed), two stages of K (rows padded by 4 floats) and V,
+    and each warp's 16-key part of P."""
     if d not in HEAD_DIMS:
         raise ValueError(f"f32_plan: head dim {d} not in {HEAD_DIMS}")
     rows_per_lane, warps = 4, 8
+    keys = F32_BLOCK_KEYS // 2 if d > 128 else F32_BLOCK_KEYS
     warp_rows = F32_BLOCK_ROWS // warps
-    floats = (F32_BLOCK_ROWS * d + 2 * F32_BLOCK_KEYS * (d + 4)
-              + 2 * F32_BLOCK_KEYS * d
-              + warps * (F32_BLOCK_KEYS // 4) * warp_rows)
-    return {"block_rows": F32_BLOCK_ROWS, "block_keys": F32_BLOCK_KEYS,
+    floats = (F32_BLOCK_ROWS * d + 2 * keys * (d + 4) + 2 * keys * d
+              + warps * F32_P_KEYS * warp_rows)
+    return {"block_rows": F32_BLOCK_ROWS, "block_keys": keys,
             "threads": 32 * warps, "rows_per_lane": rows_per_lane,
             "smem_bytes": 4 * floats}
 
 
 def f32_kv_tiles(first: int, rows: int, sq: int, sk: int, q_offset: int,
-                 causal: bool, window: int = 0) -> int:
-    """K/V tiles the float32 kernel runs for query rows ``[first, first
-    + rows)``: every tile of ``sk``, or (causal) those that start at or
-    before the last real row's position, and (``window`` > 0) from the
-    tile of the first row's lowest key, ``q_offset + first - window +
-    1``; 0 when no row sees a key."""
-    hi = -(-sk // F32_BLOCK_KEYS)
+                 causal: bool, window: int = 0,
+                 keys: int = F32_BLOCK_KEYS) -> int:
+    """K/V tiles of ``keys`` keys the float32 kernel runs for query rows
+    ``[first, first + rows)``: every tile of ``sk``, or (causal) those
+    that start at or before the last real row's position, and
+    (``window`` > 0) from the tile of the first row's lowest key,
+    ``q_offset + first - window + 1``; 0 when no row sees a key."""
+    hi = -(-sk // keys)
     end = min(first + rows, sq)
     if end <= first:
         return 0
     if causal:
         last = q_offset + end - 1
-        hi = 0 if last < 0 else min(hi, last // F32_BLOCK_KEYS + 1)
+        hi = 0 if last < 0 else min(hi, last // keys + 1)
     lo = 0
     if window > 0:
-        lo = max(0, (q_offset + first - window + 1) // F32_BLOCK_KEYS)
+        lo = max(0, (q_offset + first - window + 1) // keys)
     return max(0, hi - lo)
 
 
 def f32_blocks(b: int, h: int, sq: int, sk: int, q_offset: int,
-               causal: bool, window: int = 0
+               causal: bool, window: int = 0, d: int = 64
                ) -> list[tuple[int, int, int, int]]:
-    """The float32 kernel's blocks in launch order, as ``(batch, head,
-    first query row, K/V tiles)``: block ``i`` takes query tile ``n_qt -
-    1 - i // (b * h)`` of (batch, head) ``i % (b * h)``, so the heaviest
-    causal tiles start first and neighbouring blocks share a KV head."""
+    """The float32 kernel's blocks at head dim ``d`` in launch order, as
+    ``(batch, head, first query row, K/V tiles)``: block ``i`` takes
+    query tile ``n_qt - 1 - i // (b * h)`` of (batch, head) ``i % (b *
+    h)``, so the heaviest causal tiles start first and neighbouring
+    blocks share a KV head."""
+    keys = f32_plan(d)["block_keys"]
     n_qt = -(-sq // F32_BLOCK_ROWS)
     blocks = []
     for i in range(n_qt * b * h):
         first = (n_qt - 1 - i // (b * h)) * F32_BLOCK_ROWS
         bi, hi = divmod(i % (b * h), h)
         blocks.append((bi, hi, first, f32_kv_tiles(
-            first, F32_BLOCK_ROWS, sq, sk, q_offset, causal, window)))
+            first, F32_BLOCK_ROWS, sq, sk, q_offset, causal, window,
+            keys)))
     return blocks
 
 
@@ -157,11 +167,12 @@ def softmax_scale(d: int) -> float:
 
 
 def check_attention_args(name: str, q: torch.Tensor, k: torch.Tensor,
-                         v: torch.Tensor, q_layout: str,
-                         kv_layout: str) -> None:
+                         v: torch.Tensor, q_layout: str, kv_layout: str,
+                         head_dims: tuple[int, ...] = HEAD_DIMS) -> None:
     """Types, devices, head counts and head dim shared by the two
     attention kernels (``q_layout``/``kv_layout`` name the dims for the
-    error messages)."""
+    error messages); the head dim must be one the kernels are built for
+    only on a CUDA tensor (the plain versions take any)."""
     for key, t in (("q", q), ("k", k), ("v", v)):
         if not isinstance(t, torch.Tensor):
             raise TypeError(f"{name}: {key} must be a torch.Tensor")
@@ -181,9 +192,9 @@ def check_attention_args(name: str, q: torch.Tensor, k: torch.Tensor,
     if k.shape[-1] != d:
         raise ValueError(f"{name}: q {q_layout} and k/v {kv_layout} "
                          f"disagree on D ({d} vs {k.shape[-1]})")
-    if d not in HEAD_DIMS:
+    if q.device.type != "cpu" and d not in head_dims:
         raise ValueError(f"{name}: head dim {d} not supported; the "
-                         f"kernel takes {HEAD_DIMS}")
+                         f"kernel takes {head_dims}")
 
 
 def check_cuda_operands(name: str, tensors: dict[str, torch.Tensor]

@@ -15,9 +15,16 @@ combines the chunks' float32 partials in a second pass;
 :func:`flash_decode_split_plain` is that two-pass algorithm in plain
 PyTorch.
 
-On a tensor that lies on the CPU the wrapper computes
-:func:`flash_decode_plain`; on a CUDA tensor it launches the kernel or
-raises.  Every launch adds one to :data:`LAUNCHES`.
+MLA's absorbed decode has a kernel of its own,
+``repro_torch/csrc/flash_decode_mla.cu`` behind :func:`flash_decode_mla`:
+the reference's ``decode_attention_jnp`` over keys ``[ckv | krope]``
+(576 columns) of one latent head with values ``ckv`` (512), every query
+head of the latent in one CTA, split over the sequence the same way.
+Its plain version is :func:`flash_decode_mla_plain`.
+
+On a tensor that lies on the CPU each wrapper computes its plain
+version; on a CUDA tensor it launches its kernel or raises.  Every
+launch adds one to :data:`LAUNCHES`.
 """
 
 from __future__ import annotations
@@ -43,21 +50,27 @@ from repro_torch.kernels.flash_attention import (
 )
 
 SOURCE = CSRC / "flash_decode.cu"
+MLA_SOURCE = CSRC / "flash_decode_mla.cu"
 # held by tolerance, so FMA contraction stays on
 NVCC_FLAGS = BASE_FLAGS
+#: head dims the decode kernel is built for
+HEAD_DIMS = (16, 32, 48, 64, 80, 96, 112, 128)
 #: query heads per KV head (``H / KH``) the kernel takes
 MAX_GROUP = 16
+#: the MLA kernel's latent and rope widths (deepseek-v2's r and dr)
+MLA_WIDTHS = (512, 64)
 #: fewest cache positions worth a chunk of their own (one kernel tile)
 MIN_CHUNK = 64
 #: SMs per split: the splits of 16 (batch, KV head) pairs fill the card
 SMS_PER_SPLIT = 16
 
 #: kernel launches since the last :func:`reset_launch_counts`
-LAUNCHES = {"flash_decode": 0}
+LAUNCHES = {"flash_decode": 0, "flash_decode_mla": 0}
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES["flash_decode"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _declare(lib: ctypes.CDLL) -> None:
@@ -67,7 +80,16 @@ def _declare(lib: ctypes.CDLL) -> None:
     lib.pfdnn_flash_decode.restype = ctypes.c_int
 
 
+def _declare_mla(lib: ctypes.CDLL) -> None:
+    p, i = ctypes.c_void_p, ctypes.c_int
+    lib.pfdnn_flash_decode_mla.argtypes = ([p] * 7 + [i] * 7
+                                           + [ctypes.c_float, p])
+    lib.pfdnn_flash_decode_mla.restype = ctypes.c_int
+
+
 LIBRARY = CudaLibrary(SOURCE, NVCC_FLAGS, _declare)
+#: MLA's absorbed decode (``pfdnn_flash_decode_mla``)
+MLA_LIBRARY = CudaLibrary(MLA_SOURCE, NVCC_FLAGS, _declare_mla)
 
 
 def decode_splits(capacity: int, n_sms: int) -> int:
@@ -89,7 +111,8 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     int32 → ``[B, H, D]`` in q's dtype.  A length past ``S`` counts as
     ``S``; a length of 0 gives zeros."""
     name = "flash_decode"
-    check_attention_args(name, q, k, v, "[B, H, D]", "[B, S, KH, D]")
+    check_attention_args(name, q, k, v, "[B, H, D]", "[B, S, KH, D]",
+                         HEAD_DIMS)
     if q.dim() != 3 or k.dim() != 4:
         raise ValueError(f"{name}: q [B, H, D] and k/v [B, S, KH, D]")
     B, H, D = q.shape
@@ -134,12 +157,12 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                        length: torch.Tensor) -> torch.Tensor:
     """Plain PyTorch version of :func:`flash_decode`: the full masked
     softmax in float32 with the kernel's ``NEG_INF`` mask and clamp and
-    its cast points."""
+    its cast points.  V may be narrower than K (MLA's values)."""
     B, H, D = q.shape
     S, KH = k.shape[1], k.shape[2]
     g = H // KH
     kf = k.float().permute(0, 2, 3, 1)                     # [B, KH, D, S]
-    vf = v.permute(0, 2, 1, 3)                             # [B, KH, S, D]
+    vf = v.permute(0, 2, 1, 3)                             # [B, KH, S, Dv]
     s = torch.matmul(q.float().view(B, KH, g, D), kf) * softmax_scale(D)
     valid = (torch.arange(S, device=q.device)[None, :]
              < length.to(q.device)[:, None])               # [B, S]
@@ -147,8 +170,8 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = s.amax(dim=-1, keepdim=True).clamp_min(0.5 * NEG_INF)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
-    out = torch.matmul(p.to(v.dtype).float(), vf.float())  # [B, KH, g, D]
-    return (out / l.clamp_min(1e-30)).reshape(B, H, D).to(q.dtype)
+    out = torch.matmul(p.to(v.dtype).float(), vf.float())  # [B, KH, g, Dv]
+    return (out / l.clamp_min(1e-30)).reshape(B, H, -1).to(q.dtype)
 
 
 def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
@@ -159,7 +182,8 @@ def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
     float32 partial ``(m, l, acc)`` per chunk (``p`` rounded to V's
     dtype before ``P·V``; a chunk wholly past ``length`` gives ``m =
     NEG_INF, l = 0, acc = 0``), then the partials combined in chunk order
-    with the clamp and ``acc / max(l, 1e-30)``."""
+    with the clamp and ``acc / max(l, 1e-30)``.  V may be narrower than
+    K (MLA's values)."""
     B, H, D = q.shape
     S, KH = k.shape[1], k.shape[2]
     g = H // KH
@@ -168,7 +192,7 @@ def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
     kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
     vf = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
     kf = kf.view(B, n_split, chunk, KH, D).permute(0, 3, 1, 4, 2)
-    vf = vf.view(B, n_split, chunk, KH, D).permute(0, 3, 1, 2, 4)
+    vf = vf.view(B, n_split, chunk, KH, -1).permute(0, 3, 1, 2, 4)
     # s [B, KH, n_split, g, chunk]
     s = torch.matmul(q.float().view(B, KH, 1, g, D), kf) * softmax_scale(D)
     pos = torch.arange(n_split * chunk, device=q.device).view(n_split, chunk)
@@ -182,4 +206,88 @@ def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
     m_all = m.amax(dim=2, keepdim=True).clamp_min(0.5 * NEG_INF)
     w = torch.exp(m.clamp_min(0.5 * NEG_INF) - m_all)
     out = (acc * w).sum(dim=2) / (l * w).sum(dim=2).clamp_min(1e-30)
-    return out.reshape(B, H, D).to(q.dtype)
+    return out.reshape(B, H, -1).to(q.dtype)
+
+
+def flash_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                     ckv: torch.Tensor, krope: torch.Tensor,
+                     length: torch.Tensor) -> torch.Tensor:
+    """MLA's absorbed decode: ``q_lat [B, H, R]`` and ``q_rope [B, H,
+    DR]`` over one latent head's cache ``ckv [B, S, R]`` and ``krope [B,
+    S, DR]``, ``length [B]`` int32 → ``[B, H, R]`` in q's dtype: decode
+    attention with keys ``[ckv | krope]``, values ``ckv`` and the scale
+    ``1/sqrt(R + DR)``.  A length past ``S`` counts as ``S``; a length of
+    0 gives zeros.  The kernel takes ``(R, DR) = MLA_WIDTHS``; the plain
+    version any widths."""
+    name = "flash_decode_mla"
+    tensors = dict(q_lat=q_lat, q_rope=q_rope, ckv=ckv, krope=krope)
+    for key, t in tensors.items():
+        if not isinstance(t, torch.Tensor):
+            raise TypeError(f"{name}: {key} must be a torch.Tensor")
+        if t.device != q_lat.device:
+            raise ValueError(f"{name}: {key} is on {t.device}, expected "
+                             f"{q_lat.device}")
+        if t.dtype not in DTYPES or t.dtype != q_lat.dtype:
+            raise TypeError(f"{name}: {key} has dtype {t.dtype}; all four "
+                            f"share one of {sorted(map(str, DTYPES))}")
+        if t.dim() != 3:
+            raise ValueError(f"{name}: q_lat/q_rope [B, H, R/DR] and "
+                             f"ckv/krope [B, S, R/DR]")
+    B, H, R = q_lat.shape
+    S, DR = ckv.shape[1], krope.shape[2]
+    if (q_rope.shape != (B, H, DR) or ckv.shape != (B, S, R)
+            or krope.shape != (B, S, DR)):
+        raise ValueError(f"{name}: shapes disagree: q_lat "
+                         f"{tuple(q_lat.shape)}, q_rope "
+                         f"{tuple(q_rope.shape)}, ckv {tuple(ckv.shape)}, "
+                         f"krope {tuple(krope.shape)}")
+    if (not isinstance(length, torch.Tensor) or length.dtype != torch.int32
+            or tuple(length.shape) != (B,)
+            or length.device != q_lat.device):
+        raise ValueError(f"{name}: length must be an int32 tensor [B] "
+                         f"on {q_lat.device}")
+    if q_lat.device.type == "cpu":
+        return flash_decode_mla_plain(q_lat, q_rope, ckv, krope, length)
+    if q_lat.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q_lat.device}")
+    if (R, DR) != MLA_WIDTHS:
+        raise ValueError(f"{name}: widths (R, DR) = {(R, DR)}; the kernel "
+                         f"is built for {MLA_WIDTHS}")
+    check_cuda_operands(name, dict(tensors, length=length))
+    out = torch.empty_like(q_lat)
+    if out.numel() == 0:
+        return out
+    lib = MLA_LIBRARY.load()
+    index = q_lat.device.index
+    n_split = decode_splits(S, _sm_count(
+        torch.cuda.current_device() if index is None else index))
+    part = torch.empty(B * H * n_split * (R + 2), dtype=torch.float32,
+                       device=q_lat.device)
+    with torch.cuda.device(q_lat.device):
+        err = lib.pfdnn_flash_decode_mla(
+            q_lat.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(),
+            krope.data_ptr(), length.data_ptr(), part.data_ptr(),
+            out.data_ptr(), B, H, S, R, DR, n_split, DTYPES[q_lat.dtype],
+            softmax_scale(R + DR), stream_of(q_lat.device))
+    raise_on(name, err)
+    LAUNCHES[name] += 1
+    return out
+
+
+def mla_operands(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                 ckv: torch.Tensor, krope: torch.Tensor
+                 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """MLA's decode as :func:`flash_decode`'s operands: ``q [B, H, R +
+    DR]``, keys ``[ckv | krope]`` and values ``ckv`` as one KV head ``[B,
+    S, 1, R + DR]`` and ``[B, S, 1, R]``."""
+    return (torch.cat([q_lat, q_rope], dim=-1),
+            torch.cat([ckv, krope], dim=-1)[:, :, None], ckv[:, :, None])
+
+
+def flash_decode_mla_plain(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                           ckv: torch.Tensor, krope: torch.Tensor,
+                           length: torch.Tensor) -> torch.Tensor:
+    """Plain PyTorch version of :func:`flash_decode_mla`:
+    :func:`flash_decode_plain` over :func:`mla_operands`."""
+    return flash_decode_plain(*mla_operands(q_lat, q_rope, ckv, krope),
+                              length)

@@ -15,7 +15,7 @@ from __future__ import annotations
 import torch
 
 from repro_torch.kernels.flash_attention import flash_attention
-from repro_torch.kernels.flash_decode import flash_decode
+from repro_torch.kernels.flash_decode import flash_decode, flash_decode_mla
 from repro_torch.kernels.int8_matmul import int8_matmul
 
 
@@ -40,6 +40,17 @@ def decode_bshd(q: torch.Tensor, k_cache: torch.Tensor,
     """``q [B, 1, H, D]`` × cache ``[B, S, KH, D]`` with ``lengths [B]``
     valid entries → ``[B, 1, H, D]`` through the decode kernel."""
     return flash_decode(q[:, 0], k_cache, v_cache, lengths)[:, None]
+
+
+def decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
+               ckv: torch.Tensor, krope: torch.Tensor,
+               lengths: torch.Tensor) -> torch.Tensor:
+    """MLA's absorbed decode: ``q_lat [B, H, R]`` and ``q_rope [B, H,
+    DR]`` over one latent head's cache ``ckv [B, S, R]``, ``krope [B, S,
+    DR]`` with ``lengths [B]`` valid entries → ``[B, H, R]`` through the
+    MLA decode kernel."""
+    return flash_decode_mla(q_lat.contiguous(), q_rope.contiguous(), ckv,
+                            krope, lengths)
 
 
 def quantize_int8(x: torch.Tensor, axis: int = -1

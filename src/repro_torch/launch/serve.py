@@ -3,8 +3,10 @@
     PYTHONPATH=src python -m repro_torch.launch.serve --arch tinyllama-1.1b \
         --requests 8 --max-new 16 --rate 30 --policy pfdnn
 
-Runs the continuous-batching engine on a dense LM (full width, random
-weights from seed 0; ``--reduced`` for the small same-family config)
+Runs the continuous-batching engine on any LM of ``configs/`` (full
+width, random weights from seed 0; ``--reduced`` for the small
+same-family config; whisper's encoder sees zero frames, as the
+reference's engine gives them)
 AND compiles a PF-DNN power schedule for the co-hosted edge workload at
 the target inference rate, executing it on the power runtime for 10
 periods: the JAX package's ``repro.launch.serve`` with the same prints.

@@ -1,5 +1,5 @@
-"""Transformer building blocks of the port: RoPE and the attention
-constants.
+"""Transformer building blocks of the port: RoPE, the VLM's M-RoPE and
+the attention constants.
 
 The attention math itself lives in the kernel modules
 (:mod:`repro_torch.kernels.flash_attention`,
@@ -13,7 +13,7 @@ import torch
 
 from repro_torch.kernels.flash_attention import NEG_INF
 
-__all__ = ["NEG_INF", "rope_angles", "apply_rope"]
+__all__ = ["NEG_INF", "rope_angles", "apply_rope", "apply_mrope"]
 
 
 def rope_angles(positions: torch.Tensor, head_dim: int,
@@ -34,6 +34,34 @@ def apply_rope(x: torch.Tensor, positions: torch.Tensor,
     cos, sin = rope_angles(positions, x.shape[-1], theta)
     cos = cos[:, :, None, :]
     sin = sin[:, :, None, :]
+    x1, x2 = torch.chunk(x, 2, dim=-1)
+    dt = x.dtype
+    x1, x2 = x1.float(), x2.float()
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin],
+                     dim=-1).to(dt)
+
+
+def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
+                sections: tuple[int, ...], theta: float = 1e6
+                ) -> torch.Tensor:
+    """Multimodal RoPE (Qwen2-VL): ``x [B, S, H, D]``, ``positions [3,
+    B, S]`` (temporal, height, width grids); the ``D/2`` frequency slots
+    are split into ``sections``, each driven by its grid.  Text-only
+    streams (three equal grids) reduce to :func:`apply_rope`."""
+    half = x.shape[-1] // 2
+    if sum(sections) != half:
+        raise ValueError(f"apply_mrope: sections {sections} do not sum to "
+                         f"{half}")
+    idx = torch.arange(0, half, dtype=torch.float32, device=x.device)
+    freqs = torch.pow(float(theta), -idx / half)
+    # per-frequency-slot section id → which position grid drives it
+    sec_id = torch.repeat_interleave(
+        torch.arange(len(sections), device=x.device),
+        torch.tensor(sections, device=x.device))
+    pos = positions.float()[sec_id]                   # [half, B, S]
+    ang = pos.movedim(0, -1) * freqs                  # [B, S, half]
+    cos = torch.cos(ang)[:, :, None, :]
+    sin = torch.sin(ang)[:, :, None, :]
     x1, x2 = torch.chunk(x, 2, dim=-1)
     dt = x.dtype
     x1, x2 = x1.float(), x2.float()

@@ -1,12 +1,19 @@
-"""The decoder-only LMs on PyTorch: parameters, prefill and one decode
-step, as ``repro.models.transformer`` computes them for the dense
-family (tinyllama, qwen2 with its QKV bias, phi3, deepseek-7b), the
-hybrid family (hymba: attention and Mamba/SSD heads in every block,
-sliding-window attention over a ring-buffer cache) and the ssm family
-(xLSTM: mLSTM and sLSTM blocks, a per-layer recurrent state).
+"""The LM zoo on PyTorch: parameters, prefill and one decode step, as
+``repro.models.transformer`` computes them on one device, for every
+family of ``configs/``: dense (tinyllama, qwen2 with its QKV bias,
+phi3, deepseek-7b); moe (kimi-k2: GQA attention and routed experts;
+deepseek-v2-lite: MLA, a latent-compressed KV with a decoupled RoPE
+head, and routed plus shared experts); vlm (qwen2-vl: the dense loop
+with M-RoPE position grids); audio (whisper: an encoder over frame
+embeddings, a decoder with sinusoidal positions and cross-attention);
+hybrid (hymba: attention and Mamba/SSD heads in every block,
+sliding-window attention over a ring-buffer cache) and ssm (xLSTM:
+mLSTM and sLSTM blocks, a per-layer recurrent state).
 
   - ``prefill``: full-sequence forward that also emits the decode state
-    (the reference's layout and names: dense ``k``/``v`` ``[L, B, C,
+    (the reference's layout and names: ``k``/``v`` ``[L, B, C, KH,
+    D]``; MLA ``ckv [L, B, C, r]`` and ``krope [L, B, C, 1, dr]``;
+    audio adds the cross-attention cache ``xk``/``xv`` ``[L, B, S_enc,
     KH, D]``; hybrid ``k``/``v`` rings ``[L, B, window, KH, D]`` and
     ``mamba``, a :class:`~repro_torch.models.ssm.GlsState` stacked on
     the layer axis; ssm ``layers``, one recurrent state a layer; and
@@ -14,25 +21,31 @@ sliding-window attention over a ring-buffer cache) and the ssm family
   - ``decode_step``: one token per sequence through the cached state.
 
 Attention goes through the hand-written CUDA kernels behind the
-``[B, S, H, D]`` wrappers of :mod:`repro_torch.kernels.ops` (prefill →
-``flash_attention``, with hymba's window; decode → ``flash_decode``,
-over the ring's valid rows for hymba), or their plain versions on CPU
-tensors.  The other products are ``torch.matmul``, as the reference
-leaves them to XLA, and the recurrent mixers are the plain PyTorch of
-:mod:`repro_torch.models.ssm`.  Layers are a Python loop over the
-stacked per-layer tensors (the reference's ``lax.scan``), or over the
-list of per-layer dicts for the ssm family, whose layers differ in
-kind; there is no mesh, because one card holds the model.
+wrappers of :mod:`repro_torch.kernels.ops` (prefill, the encoder and
+cross-attention → ``flash_attention``, with hymba's window and MLA's
+192-wide heads; decode → ``flash_decode``, over the ring's valid rows
+for hymba and over the encoder's 1500 rows for whisper's cross
+attention; MLA's absorbed decode → ``flash_decode_mla``), or their
+plain versions on CPU tensors.  The other products are
+``torch.matmul``, as the reference leaves them to XLA (the routed
+experts of :mod:`repro_torch.models.moe` too), and the recurrent
+mixers are the plain PyTorch of :mod:`repro_torch.models.ssm`.  Layers
+are a Python loop over the stacked per-layer tensors (the reference's
+``lax.scan``), or over the list of per-layer dicts for the ssm family,
+whose layers differ in kind; there is no mesh, because one card holds
+the model, so MoE layers take the reference's one-device path
+(``moe_ffn_dense``) and ``moe_impl="ep"`` raises
+``NotImplementedError`` (expert parallelism is a four-card item,
+``ROADMAP.md``).
 
-Other families (MoE, MLA, audio, VLM) and tied embeddings raise
-``NotImplementedError``: they are still to port (``ROADMAP.md``).
-
-Deliberate difference from the reference: for the dense family,
-``decode_step`` writes the cache in place, and a write past the
-cache's end raises ``ValueError`` naming the slot, where JAX drops an
-out-of-range ``.at[].set`` silently.  Within ``prompt + new tokens <=
-cache_len`` the two agree.  A hybrid slot never fills (its ring wraps)
-and an ssm slot has no cache, so neither raises.
+Deliberate difference from the reference: where a slot's cache ends at
+``cache_len`` (dense, moe, vlm and audio; not the encoder's cross
+cache, which is written once), ``decode_step`` writes it in place, and
+a write past the cache's end raises ``ValueError`` naming the slot,
+where JAX drops an out-of-range ``.at[].set`` silently.  Within
+``prompt + new tokens <= cache_len`` the two agree.  A hybrid slot
+never fills (its ring wraps) and an ssm slot has no cache, so neither
+raises.
 """
 
 from __future__ import annotations
@@ -42,8 +55,9 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
-from repro_torch.models.layers import apply_rope
+from repro_torch.models.layers import apply_mrope, apply_rope
 from repro_torch.models.module import (
     Initializer,
     dense,
@@ -58,19 +72,14 @@ from repro_torch.models.module import (
 )
 
 
-#: the families the port runs
-FAMILIES = ("dense", "hybrid", "ssm")
-
-
 def check_supported(cfg: ModelConfig) -> None:
-    """The port runs the dense, hybrid and ssm families without MoE,
-    MLA or tied embeddings."""
-    if cfg.family not in FAMILIES or cfg.is_moe or cfg.is_mla \
-            or cfg.tie_embeddings:
+    """The port runs every family on one device; the expert-parallel
+    MoE path (``moe_impl="ep"``) needs a mesh of cards."""
+    if cfg.is_moe and cfg.moe_impl == "ep":
         raise NotImplementedError(
-            f"{cfg.name}: the port's transformer runs the dense, hybrid "
-            f"and ssm families (no MoE, MLA or tied embeddings); family "
-            f"{cfg.family!r} is still to port (see ROADMAP.md)")
+            f"{cfg.name}: moe_impl='ep' shards the experts over a mesh "
+            "of cards, which the port does not run yet (see ROADMAP.md); "
+            "'auto' or 'dense' runs them on one card")
 
 
 # ======================================================================
@@ -84,18 +93,29 @@ def _norm_params(cfg: ModelConfig, name: str) -> dict:
     return {f"{name}_g": Initializer((cfg.d_model,), ones_init())}
 
 
-def _attn_params(cfg: ModelConfig) -> dict:
+def _attn_params(cfg: ModelConfig, *, cross: bool = False) -> dict:
+    """Self-attention (MLA's latent projections where the config has a
+    KV rank), or with ``cross`` whisper's cross-attention (``x``
+    prefix)."""
     d, hd = cfg.d_model, cfg.hd
     h, kh = cfg.n_heads, cfg.n_kv_heads
+    pre = "x" if cross else ""
     p = {}
-    p.update(dense("wq", (d, h * hd)))
-    p.update(dense("wk", (d, kh * hd)))
-    p.update(dense("wv", (d, kh * hd)))
-    if cfg.qkv_bias:
-        p["bq"] = Initializer((h * hd,), zeros_init())
-        p["bk"] = Initializer((kh * hd,), zeros_init())
-        p["bv"] = Initializer((kh * hd,), zeros_init())
-    p.update(dense("wo", (h * hd, d), fan_in=h * hd))
+    if cfg.is_mla and not cross:
+        r, dr = cfg.kv_lora_rank, cfg.rope_head_dim
+        p.update(dense("wq", (d, h * (hd + dr))))
+        p.update(dense("wdkv", (d, r + dr)))
+        p.update(dense("wuk", (r, kh * hd), fan_in=r))
+        p.update(dense("wuv", (r, kh * hd), fan_in=r))
+    else:
+        p.update(dense(f"{pre}wq", (d, h * hd)))
+        p.update(dense(f"{pre}wk", (d, kh * hd)))
+        p.update(dense(f"{pre}wv", (d, kh * hd)))
+        if cfg.qkv_bias:
+            p[f"{pre}bq"] = Initializer((h * hd,), zeros_init())
+            p[f"{pre}bk"] = Initializer((kh * hd,), zeros_init())
+            p[f"{pre}bv"] = Initializer((kh * hd,), zeros_init())
+    p.update(dense(f"{pre}wo", (h * hd, d), fan_in=h * hd))
     return p
 
 
@@ -105,6 +125,20 @@ def _ffn_params(cfg: ModelConfig) -> dict:
         return {**dense("w1", (d, f)), **dense("w3", (d, f)),
                 **dense("w2", (f, d), fan_in=f)}
     return {**dense("w1", (d, f)), **dense("w2", (f, d), fan_in=f)}
+
+
+def _moe_params(cfg: ModelConfig) -> dict:
+    d, fe, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
+    p = {"router": Initializer((d, e), normal_init(0.02))}
+    p.update(dense("ew1", (e, d, fe), fan_in=d))
+    p.update(dense("ew3", (e, d, fe), fan_in=d))
+    p.update(dense("ew2", (e, fe, d), fan_in=fe))
+    if cfg.n_shared_experts:
+        fs = cfg.n_shared_experts * fe
+        p.update(dense("sw1", (d, fs)))
+        p.update(dense("sw3", (d, fs)))
+        p.update(dense("sw2", (fs, d), fan_in=fs))
+    return p
 
 
 def _mamba_params(cfg: ModelConfig) -> dict:
@@ -124,11 +158,21 @@ def _mamba_params(cfg: ModelConfig) -> dict:
 def init_decoder_layer(cfg: ModelConfig) -> dict:
     p = {**_norm_params(cfg, "ln1"), **_attn_params(cfg),
          **_norm_params(cfg, "ln2")}
-    if cfg.d_ff:
+    if cfg.family == "audio":       # decoder layer: + cross attention
+        p.update(_norm_params(cfg, "lnx"))
+        p.update(_attn_params(cfg, cross=True))
+    if cfg.is_moe:
+        p.update(_moe_params(cfg))
+    elif cfg.d_ff:
         p.update(_ffn_params(cfg))
     if cfg.family == "hybrid":
         p.update(_mamba_params(cfg))
     return p
+
+
+def init_encoder_layer(cfg: ModelConfig) -> dict:
+    return {**_norm_params(cfg, "ln1"), **_attn_params(cfg),
+            **_norm_params(cfg, "ln2"), **_ffn_params(cfg)}
 
 
 def init_mlstm_layer(cfg: ModelConfig) -> dict:
@@ -171,8 +215,9 @@ def init_lm(cfg: ModelConfig) -> dict:
     tree: dict = {
         "embed": Initializer((vp, d), normal_init(0.02)),
         **_norm_params(cfg, "lnf"),
-        **dense("head", (d, vp)),
     }
+    if not cfg.tie_embeddings:
+        tree.update(dense("head", (d, vp)))
     if cfg.family == "ssm":
         tree["layers"] = [init_slstm_layer(cfg) if _is_slstm(cfg, i)
                           else init_mlstm_layer(cfg)
@@ -180,6 +225,11 @@ def init_lm(cfg: ModelConfig) -> dict:
     else:
         tree["layers"] = {key: stacked(init, cfg.n_layers)
                           for key, init in init_decoder_layer(cfg).items()}
+    if cfg.family == "audio":
+        tree["enc_layers"] = {
+            key: stacked(init, cfg.n_encoder_layers)
+            for key, init in init_encoder_layer(cfg).items()}
+        tree.update(_norm_params(cfg, "enc_lnf"))
     return tree
 
 
@@ -203,10 +253,11 @@ def init_params(cfg: ModelConfig, generator: torch.Generator,
                        cfg.torch_dtype)
 
 
-def layer_params(params: dict, i: int) -> dict:
+def layer_params(params: dict, i: int, key: str = "layers") -> dict:
     """Layer ``i``'s parameters: its slice of the stacked per-layer
-    tensors (views), or its dict of the ssm family's list."""
-    layers = params["layers"]
+    tensors (views; ``key="enc_layers"``: whisper's encoder), or its
+    dict of the ssm family's list."""
+    layers = params[key]
     if isinstance(layers, list):
         return layers[i]
     return {k: v[i] for k, v in layers.items()}
@@ -230,6 +281,10 @@ def _norm(p: dict, name: str, x: torch.Tensor,
 
 def _rope(cfg: ModelConfig, x: torch.Tensor,
           positions: torch.Tensor) -> torch.Tensor:
+    if cfg.family == "audio":
+        return x                     # whisper: sinusoidal at embedding
+    if cfg.mrope_sections:
+        return apply_mrope(x, positions, cfg.mrope_sections, cfg.rope_theta)
     return apply_rope(x, positions, cfg.rope_theta)
 
 
@@ -248,21 +303,78 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor
             v.reshape(b, s, kh, hd))
 
 
-def _attention_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                    positions: torch.Tensor, *, window: int = 0,
-                    return_kv: bool = False):
-    """Full-sequence causal attention (prefill), through
-    ``flash_attention``; ``window`` > 0 keeps the keys of the last
-    ``window`` positions of each query (hymba)."""
+def _mla_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
+             positions: torch.Tensor):
+    """MLA (DeepSeek-V2): latent-compressed KV + decoupled RoPE head.
+    Returns (q_nope [B,S,H,hd], q_rope [B,S,H,dr], c_kv [B,S,r], k_rope
+    [B,S,1,dr])."""
     b, s, _ = x.shape
-    q, k, v = _qkv(p, cfg, x)
-    q = _rope(cfg, q, positions)
-    k = _rope(cfg, k, positions)
-    out = ops.attention_bshd(q, k, v, causal=True, window=window)
+    h, hd = cfg.n_heads, cfg.hd
+    r = cfg.kv_lora_rank
+    q = (x @ p["wq"]).reshape(b, s, h, -1)
+    q_nope, q_rope = q[..., :hd], _rope(cfg, q[..., hd:], positions)
+    ckv_full = x @ p["wdkv"]
+    c_kv = ckv_full[..., :r]
+    k_rope = _rope(cfg, ckv_full[:, :, None, r:], positions)  # one head
+    return q_nope, q_rope, c_kv, k_rope
+
+
+def _mla_expand_kv(p: dict, cfg: ModelConfig, c_kv: torch.Tensor):
+    b, s, _ = c_kv.shape
+    kh, hd = cfg.n_kv_heads, cfg.hd
+    return ((c_kv @ p["wuk"]).reshape(b, s, kh, hd),
+            (c_kv @ p["wuv"]).reshape(b, s, kh, hd))
+
+
+def _attention_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                    positions: torch.Tensor, *, causal: bool = True,
+                    window: int = 0, return_kv: bool = False):
+    """Full-sequence attention (prefill, whisper's encoder with
+    ``causal=False``), through ``flash_attention``; ``window`` > 0 keeps
+    the keys of the last ``window`` positions of each query (hymba).
+    MLA folds the decoupled RoPE head into an extended head of hd + dr
+    (its 1/sqrt(hd + dr) scale is MLA's definition), with V zero-padded
+    to it and the output cut back to hd, as the reference does; its
+    ``kv`` is the latent cache's (c_kv, k_rope)."""
+    b, s, _ = x.shape
+    if cfg.is_mla:
+        q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
+        k_nope, v = _mla_expand_kv(p, cfg, c_kv)
+        dr = cfg.rope_head_dim
+        q = torch.cat([q_nope, q_rope], dim=-1)
+        k = torch.cat([k_nope, k_rope.expand(b, s, cfg.n_kv_heads, dr)],
+                      dim=-1)
+        v_pad = F.pad(v, (0, dr))
+        out = ops.attention_bshd(q, k, v_pad, causal=causal,
+                                 window=window)[..., :cfg.hd]
+        kv = (c_kv, k_rope)
+    else:
+        q, k, v = _qkv(p, cfg, x)
+        q = _rope(cfg, q, positions)
+        k = _rope(cfg, k, positions)
+        out = ops.attention_bshd(q, k, v, causal=causal, window=window)
+        kv = (k, v)
     out = out.reshape(b, s, -1) @ p["wo"]
     if return_kv:
-        return out, (k, v)
+        return out, kv
     return out
+
+
+def _attention_cross(p: dict, cfg: ModelConfig, x: torch.Tensor,
+                     k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+    """Whisper's cross-attention of the decoder's positions over the
+    encoder's (non-causal, Sq != Sk)."""
+    b, s, _ = x.shape
+    q = (x @ p["xwq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    out = ops.attention_bshd(q, k, v, causal=False)
+    return out.reshape(b, s, -1) @ p["xwo"]
+
+
+def _cross_kv(p: dict, cfg: ModelConfig, enc_out: torch.Tensor):
+    b, s, _ = enc_out.shape
+    kh, hd = cfg.n_kv_heads, cfg.hd
+    return ((enc_out @ p["xwk"]).reshape(b, s, kh, hd),
+            (enc_out @ p["xwv"]).reshape(b, s, kh, hd))
 
 
 def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
@@ -271,6 +383,24 @@ def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     else:
         h = F.gelu(x @ p["w1"], approximate="tanh")
     return h @ p["w2"]
+
+
+def _moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """Routed experts on one device (the reference's ``moe_ffn_dense``
+    branch, which it takes without a mesh), plus the shared experts."""
+    b, s, d = x.shape
+    dims = moe_lib.MoeDims(cfg.n_experts, cfg.moe_top_k, d,
+                           cfg.d_ff_expert)
+    out = moe_lib.moe_ffn_dense(x.reshape(b * s, d), p["router"], p["ew1"],
+                                p["ew3"], p["ew2"], dims).reshape(b, s, d)
+    if cfg.n_shared_experts:
+        out = out + swiglu(x @ p["sw1"], x @ p["sw3"]) @ p["sw2"]
+    return out
+
+
+def _mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+    """The block's feed-forward: routed experts or the dense FFN."""
+    return _moe_ffn(p, cfg, x) if cfg.is_moe else _ffn(p, cfg, x)
 
 
 def _mamba_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -306,8 +436,9 @@ def _fuse_hybrid(p: dict, attn: torch.Tensor,
 
 
 def decoder_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                  positions: torch.Tensor, *, return_kv: bool = False,
-                  mamba_state=None):
+                  positions: torch.Tensor, *,
+                  enc_out: torch.Tensor | None = None,
+                  return_kv: bool = False, mamba_state=None):
     """One decoder block, full-sequence mode.  Returns (x, extras)."""
     h = _norm(p, "ln1", x, cfg)
     window = cfg.window if cfg.family == "hybrid" else 0
@@ -325,8 +456,13 @@ def decoder_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
         x = x + _fuse_hybrid(p, attn, my)
     else:
         x = x + attn
-    if cfg.d_ff:
-        x = x + _ffn(p, cfg, _norm(p, "ln2", x, cfg))
+    if cfg.family == "audio" and enc_out is not None:
+        hx = _norm(p, "lnx", x, cfg)
+        xk, xv = _cross_kv(p, cfg, enc_out)
+        x = x + _attention_cross(p, cfg, hx, xk, xv)
+        extras["cross_kv"] = (xk, xv)
+    if cfg.is_moe or cfg.d_ff:
+        x = x + _mlp(p, cfg, _norm(p, "ln2", x, cfg))
     return x, extras
 
 
@@ -389,10 +525,59 @@ def embed_tokens(params: dict, cfg: ModelConfig,
     return params["embed"][tokens.long()].to(cfg.torch_dtype)
 
 
+def _sinusoidal(positions: torch.Tensor, d: int,
+                dtype: torch.dtype) -> torch.Tensor:
+    """Whisper's sinusoidal embedding ``[n, d]`` of ``positions`` ``[n]``,
+    computed in float32 as the reference computes its table, cast to
+    ``dtype``.  Any position has a row: a retired slot that has run past
+    its cache still gets one (its output is discarded)."""
+    device = positions.device
+    pos = positions.to(torch.float32)[:, None]
+    step = -torch.log(torch.tensor(10000.0, dtype=torch.float32)) / d
+    div = torch.exp(torch.arange(0, d, 2, dtype=torch.float32,
+                                 device=device) * step.to(device))
+    pe = torch.zeros((pos.shape[0], d), dtype=torch.float32, device=device)
+    pe[:, 0::2] = torch.sin(pos * div)
+    pe[:, 1::2] = torch.cos(pos * div)
+    return pe.to(dtype)
+
+
 def lm_head(params: dict, cfg: ModelConfig,
             x: torch.Tensor) -> torch.Tensor:
-    """Full logits ``[B, S, V_padded]`` in the model dtype."""
-    return _norm(params, "lnf", x, cfg) @ params["head"]
+    """Full logits ``[B, S, V_padded]`` in the model dtype (the
+    embedding's transpose where the config ties them)."""
+    w = params["embed"].t() if cfg.tie_embeddings else params["head"]
+    return _norm(params, "lnf", x, cfg) @ w
+
+
+def _positions_for(cfg: ModelConfig, tokens: torch.Tensor,
+                   positions: torch.Tensor | None) -> torch.Tensor:
+    """The given positions, or ``arange(S)`` per sequence (``[3, B, S]``
+    text-only grids for M-RoPE)."""
+    if positions is not None:
+        return positions.to(tokens.device)
+    b, s = tokens.shape
+    pos = torch.arange(s, device=tokens.device)[None].expand(b, s)
+    if cfg.mrope_sections:
+        pos = pos[None].expand(3, b, s)
+    return pos
+
+
+def _encode_audio(params: dict, cfg: ModelConfig,
+                  frames: torch.Tensor) -> torch.Tensor:
+    """Whisper's encoder over stub frame embeddings ``[B, S_enc, d]``:
+    sinusoidal positions, non-causal attention blocks, a final norm."""
+    x = frames.to(device=params["embed"].device, dtype=cfg.torch_dtype)
+    x = x + _sinusoidal(torch.arange(x.shape[1], device=x.device),
+                        cfg.d_model, x.dtype)[None]
+    pos = torch.arange(x.shape[1], device=x.device)[None].expand(
+        x.shape[0], -1)
+    for i in range(cfg.n_encoder_layers):
+        lp = layer_params(params, i, "enc_layers")
+        x = x + _attention_full(lp, cfg, _norm(lp, "ln1", x, cfg), pos,
+                                causal=False)
+        x = x + _ffn(lp, cfg, _norm(lp, "ln2", x, cfg))
+    return _norm(params, "enc_lnf", x, cfg)
 
 
 # ======================================================================
@@ -400,10 +585,15 @@ def lm_head(params: dict, cfg: ModelConfig,
 # ======================================================================
 
 def state_fills(cfg: ModelConfig) -> bool:
-    """Whether a slot's decode state can run out of rows: the dense KV
-    cache ends at ``cache_len``; a hybrid ring wraps and an ssm state
-    has no rows."""
-    return cfg.family == "dense"
+    """Whether a slot's decode state can run out of rows: the self-
+    attention cache of the dense, moe, vlm and audio families ends at
+    ``cache_len``; a hybrid ring wraps and an ssm state has no rows."""
+    return cfg.family not in ("hybrid", "ssm")
+
+
+def _cache_len(state: dict) -> int:
+    """Rows of the self-attention cache (MLA's latent, or K)."""
+    return state["ckv" if "ckv" in state else "k"].shape[2]
 
 
 def _write_prefix(rows: torch.Tensor, k: torch.Tensor, s: int) -> None:
@@ -424,24 +614,35 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict,
             cache_len: int) -> tuple[torch.Tensor, dict]:
     """Full-sequence forward that also builds the decode state.
 
-    ``batch["tokens"]`` is ``[B, S]``.  Returns (last-position logits
-    ``[B, V_padded]``, state) with state ``{"lengths": [B] int32 (= S),
-    ...}``: dense ``"k"``/``"v"`` ``[L, B, cache_len, KH, D]``, zeros
-    past ``S`` (a prompt longer than ``cache_len`` raises); hybrid
-    ``"k"``/``"v"`` rings ``[L, B, window, KH, D]`` holding the last
-    ``window`` positions at ``t % window`` and ``"mamba"`` (its
-    :class:`GlsState` leaves stacked on the layer axis); ssm
-    ``"layers"``, one state a layer.  ``cache_len`` only sizes the dense
-    cache.
+    ``batch["tokens"]`` is ``[B, S]``; ``batch["positions"]`` (optional)
+    the M-RoPE grids ``[3, B, S]`` of the vlm family (default: text-only
+    grids); ``batch["encoder_frames"]`` the audio family's frame
+    embeddings ``[B, S_enc, d]``.  Returns (last-position logits ``[B,
+    V_padded]``, state) with state ``{"lengths": [B] int32 (= S),
+    ...}``: ``"k"``/``"v"`` ``[L, B, cache_len, KH, D]`` (MLA:
+    ``"ckv"`` ``[L, B, cache_len, r]`` and ``"krope"`` ``[L, B,
+    cache_len, 1, dr]``), zeros past ``S`` (a prompt longer than
+    ``cache_len`` raises); audio adds ``"xk"``/``"xv"`` ``[L, B, S_enc,
+    KH, D]``; hybrid ``"k"``/``"v"`` rings ``[L, B, window, KH, D]``
+    holding the last ``window`` positions at ``t % window`` and
+    ``"mamba"`` (its :class:`GlsState` leaves stacked on the layer
+    axis); ssm ``"layers"``, one state a layer.  ``cache_len`` sizes
+    the self-attention cache only.
     """
     check_supported(cfg)
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = params["embed"].device
-    pos = torch.arange(s, device=dev)[None].expand(b, s)
-    x = embed_tokens(params, cfg, tokens.to(dev))
+    tokens = tokens.to(dev)
+    pos = _positions_for(cfg, tokens, batch.get("positions"))
+    x = embed_tokens(params, cfg, tokens)
     state: dict = {"lengths": torch.full((b,), s, dtype=torch.int32,
                                          device=dev)}
+    enc_out = None
+    if cfg.family == "audio":
+        x = x + _sinusoidal(torch.arange(s, device=dev), cfg.d_model,
+                            x.dtype)[None]
+        enc_out = _encode_audio(params, cfg, batch["encoder_frames"])
     if cfg.family == "ssm":
         states = []
         for i in range(cfg.n_layers):
@@ -451,30 +652,66 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict,
         state["layers"] = states
     else:
         hybrid = cfg.family == "hybrid"
-        # rows a layer's K/V state holds: the cache, or hymba's ring;
-        # position t lives at row t % rows (dense: t, since S <= rows)
+        # rows a layer's self-attention state holds: the cache, or
+        # hymba's ring; position t lives at row t % rows (t, since S <=
+        # rows, where the cache ends)
         rows = cfg.window if hybrid else cache_len
         if not hybrid and s > cache_len:
             raise ValueError(f"prefill: {s} prompt tokens do not fit a "
                              f"cache of {cache_len}")
-        shape = (cfg.n_layers, b, rows, cfg.n_kv_heads, cfg.hd)
-        k_cache = torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
-        v_cache = torch.zeros(shape, dtype=cfg.torch_dtype, device=dev)
-        msts = []
-        for i in range(cfg.n_layers):
+        dt, nl = cfg.torch_dtype, cfg.n_layers
+        if cfg.is_mla:
+            names = ("ckv", "krope")
+            shapes = ((nl, b, rows, cfg.kv_lora_rank),
+                      (nl, b, rows, 1, cfg.rope_head_dim))
+        else:
+            names = ("k", "v")
+            shapes = ((nl, b, rows, cfg.n_kv_heads, cfg.hd),) * 2
+        caches = [torch.zeros(shape, dtype=dt, device=dev)
+                  for shape in shapes]
+        cross, msts = [], []
+        for i in range(nl):
             x, extras = decoder_block(layer_params(params, i), cfg, x, pos,
-                                      return_kv=True)
-            k, v = extras["kv"]
-            _write_prefix(k_cache[i], k, s)
-            _write_prefix(v_cache[i], v, s)
+                                      enc_out=enc_out, return_kv=True)
+            for cache, t in zip(caches, extras["kv"]):
+                _write_prefix(cache[i], t, s)
             if hybrid:
                 msts.append(extras["mamba_state"])
-        state["k"], state["v"] = k_cache, v_cache
+            if enc_out is not None:
+                cross.append(extras["cross_kv"])
+        state.update(zip(names, caches))
         if hybrid:
             state["mamba"] = ssm_lib.GlsState(
                 *(torch.stack(leaf) for leaf in zip(*msts)))
+        if enc_out is not None:
+            state["xk"] = torch.stack([xk for xk, _ in cross])
+            state["xv"] = torch.stack([xv for _, xv in cross])
     logits = lm_head(params, cfg, x[:, -1:])[:, 0]
     return logits, state
+
+
+def _write_row(cache: torch.Tensor, new: torch.Tensor,
+               lengths: torch.Tensor, room: torch.Tensor | None) -> None:
+    """Write one new row a sequence into ``cache [B, C, ...]`` at
+    ``lengths``, in place; with ``room`` ([B] bool), a row without room
+    keeps its cache as it is (its write goes to row C - 1 unchanged)."""
+    ar = torch.arange(cache.shape[0], device=cache.device)
+    if room is None:
+        cache[ar, lengths.long()] = new
+        return
+    idx = lengths.long().clamp(max=cache.shape[1] - 1)
+    keep = room.view(-1, *([1] * (new.dim() - 1)))
+    cache[ar, idx] = torch.where(keep, new, cache[ar, idx])
+
+
+def _decode_positions(cfg: ModelConfig, lengths: torch.Tensor
+                      ) -> torch.Tensor:
+    """A decode step's positions ``[B, 1]`` (``[3, B, 1]`` for M-RoPE:
+    the reference's text-only grids at ``lengths``)."""
+    positions = lengths[:, None]
+    if cfg.mrope_sections:
+        positions = positions[None].expand(3, -1, -1)
+    return positions
 
 
 def _decode_attn_dense(p: dict, cfg: ModelConfig, h: torch.Tensor,
@@ -488,12 +725,12 @@ def _decode_attn_dense(p: dict, cfg: ModelConfig, h: torch.Tensor,
     ``lengths % window`` and attention reads ``min(lengths + 1,
     window)`` rows."""
     b = h.shape[0]
-    positions = lengths[:, None]
+    positions = _decode_positions(cfg, lengths)
     q, k, v = _qkv(p, cfg, h)
     q = _rope(cfg, q, positions)
     k = _rope(cfg, k, positions)
-    ar = torch.arange(b, device=h.device)
     if cfg.family == "hybrid":                     # ring buffer
+        ar = torch.arange(b, device=h.device)
         window = state_k.shape[1]
         slot = (lengths % window).long()
         state_k[ar, slot] = k[:, 0]
@@ -502,40 +739,69 @@ def _decode_attn_dense(p: dict, cfg: ModelConfig, h: torch.Tensor,
         out = ops.decode_bshd(q, state_k, state_v, valid)
         out = out.reshape(b, 1, -1) @ p["wo"]
         return out, state_k, state_v
-    if room is None:
-        idx = lengths.long()
-        state_k[ar, idx] = k[:, 0]
-        state_v[ar, idx] = v[:, 0]
-    else:
-        idx = lengths.long().clamp(max=state_k.shape[1] - 1)
-        keep = room[:, None, None]
-        state_k[ar, idx] = torch.where(keep, k[:, 0], state_k[ar, idx])
-        state_v[ar, idx] = torch.where(keep, v[:, 0], state_v[ar, idx])
+    _write_row(state_k, k[:, 0], lengths, room)
+    _write_row(state_v, v[:, 0], lengths, room)
     out = ops.decode_bshd(q, state_k, state_v, lengths + 1)
     out = out.reshape(b, 1, -1) @ p["wo"]
     return out, state_k, state_v
+
+
+def _decode_attn_mla(p: dict, cfg: ModelConfig, h: torch.Tensor,
+                     ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
+                     lengths: torch.Tensor, room: torch.Tensor | None):
+    """Absorbed MLA decode: scores in latent space, no K/V expansion.
+    Writes the new latent rows at ``lengths`` IN PLACE (``room`` as in
+    :func:`_decode_attn_dense`).  W_uk is absorbed into q (each latent
+    head repeated over its query group), and q is rescaled by
+    ``sqrt((r + dr) / (hd + dr))`` rounded to q's dtype, in q's dtype,
+    as the reference does before the decode attention's own
+    ``1/sqrt(r + dr)``."""
+    b = h.shape[0]
+    r, dr, hd, nh = (cfg.kv_lora_rank, cfg.rope_head_dim, cfg.hd,
+                     cfg.n_heads)
+    kh = cfg.n_kv_heads
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, h, lengths[:, None])
+    _write_row(ckv_cache, c_kv[:, 0], lengths, room)
+    _write_row(krope_cache, k_rope[:, 0], lengths, room)
+    g = nh // kh
+    wuk = p["wuk"].reshape(r, kh, hd).repeat_interleave(g, dim=1)
+    q_eff = torch.einsum("bshe,rhe->bshr", q_nope, wuk)    # [B,1,H,r]
+    # rounded to q's dtype on the host; the product rounds in q's dtype
+    scale = float(torch.sqrt(torch.tensor((r + dr) / (hd + dr),
+                                          dtype=h.dtype)))
+    out_lat = ops.decode_mla((q_eff * scale)[:, 0], (q_rope * scale)[:, 0],
+                             ckv_cache, krope_cache[:, :, 0],
+                             lengths + 1)                  # [B,H,r]
+    wuv = p["wuv"].reshape(r, kh, hd).repeat_interleave(g, dim=1)
+    out = torch.einsum("bhr,rhe->bhe", out_lat, wuv)
+    out = out.reshape(b, 1, -1) @ p["wo"]
+    return out, ckv_cache, krope_cache
 
 
 def decode_step(params: dict, cfg: ModelConfig, state: dict,
                 tokens: torch.Tensor, live=None) -> tuple[torch.Tensor, dict]:
     """One serving step: tokens ``[B]`` → (logits ``[B, V_padded]``,
     state).  The returned state holds the same (updated in place)
-    ``k``/``v`` tensors (and hybrid ``mamba`` leaves), new ``lengths``
-    and, for the ssm family, new per-layer states.
+    caches (``k``/``v`` or MLA's ``ckv``/``krope``; audio's ``xk``/``xv``
+    are only read; hybrid ``mamba`` leaves), new ``lengths`` and, for
+    the ssm family, new per-layer states.
 
     ``live`` ([B] bools on the host; default: every slot) marks the
-    slots whose output the caller reads.  For the dense family without
-    it, a slot whose cache is full raises ``ValueError`` naming it,
-    which reads ``lengths`` back from the device.  With it nothing is
-    read back: the caller vouches that live slots have room
-    (``ServingEngine`` checks this from the lengths it keeps on the
-    host), and a slot outside ``live`` that is past its cache skips its
-    K/V write on the device, as the JAX reference drops such writes.
-    Hybrid rings and ssm states never fill."""
+    slots whose output the caller reads.  Where the cache ends at
+    ``cache_len`` (every family but hybrid and ssm), without it a slot
+    whose cache is full raises ``ValueError`` naming it, which reads
+    ``lengths`` back from the device.  With it nothing is read back: the
+    caller vouches that live slots have room (``ServingEngine`` checks
+    this from the lengths it keeps on the host), and a slot outside
+    ``live`` that is past its cache skips its cache write on the device,
+    as the JAX reference drops such writes.  Hybrid rings and ssm states
+    never fill."""
     check_supported(cfg)
     lengths = state["lengths"]
     new_state = dict(state)
     x = embed_tokens(params, cfg, tokens.to(lengths.device)[:, None])
+    if cfg.family == "audio":
+        x = x + _sinusoidal(lengths, cfg.d_model, x.dtype)[:, None]
     if cfg.family == "ssm":
         new_layers = []
         for i, st in enumerate(state["layers"]):
@@ -547,7 +813,7 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
     else:
         room = None
         if state_fills(cfg):
-            cache_len = state["k"].shape[2]
+            cache_len = _cache_len(state)
             if live is None:
                 full = lengths >= cache_len
                 if bool(full.any()):
@@ -560,11 +826,18 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
             elif not all(live):
                 room = lengths < cache_len
         mamba = state.get("mamba")
+        if "xk" in state:
+            enc_len = torch.full_like(lengths, state["xk"].shape[2])
         for i in range(cfg.n_layers):
             lp = layer_params(params, i)
             h = _norm(lp, "ln1", x, cfg)
-            attn, _, _ = _decode_attn_dense(lp, cfg, h, state["k"][i],
-                                            state["v"][i], lengths, room)
+            if cfg.is_mla:
+                attn, _, _ = _decode_attn_mla(
+                    lp, cfg, h, state["ckv"][i], state["krope"][i],
+                    lengths, room)
+            else:
+                attn, _, _ = _decode_attn_dense(
+                    lp, cfg, h, state["k"][i], state["v"][i], lengths, room)
             if mamba is not None:
                 mst = ssm_lib.GlsState(*(leaf[i] for leaf in mamba))
                 my, mst2 = _mamba_mix(lp, cfg, h, mst, decode=True)
@@ -572,7 +845,14 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
                     leaf.copy_(new)
                 attn = _fuse_hybrid(lp, attn, my)
             x = x + attn
-            x = x + _ffn(lp, cfg, _norm(lp, "ln2", x, cfg))
+            if "xk" in state:
+                hx = _norm(lp, "lnx", x, cfg)
+                q = (hx @ lp["xwq"]).reshape(-1, 1, cfg.n_heads, cfg.hd)
+                xatt = ops.decode_bshd(q, state["xk"][i], state["xv"][i],
+                                       enc_len)
+                x = x + xatt.reshape(x.shape[0], 1, -1) @ lp["xwo"]
+            if cfg.is_moe or cfg.d_ff:
+                x = x + _mlp(lp, cfg, _norm(lp, "ln2", x, cfg))
     new_state["lengths"] = lengths + 1
     logits = lm_head(params, cfg, x)[:, 0]
     return logits, new_state

@@ -1,13 +1,16 @@
 """Batched serving engine with continuous batching, on the port's
-transformer (dense, hybrid and ssm families).
+transformer (every family: dense, moe, vlm, audio, hybrid, ssm).
 
 Slots model: a fixed decode batch of ``max_batch`` slots; a finished
 sequence frees its slot and the next queued request is prefilled into
 it *mid-batch* without disturbing the other slots' state.  Per-slot
 refill prefills the new request as a batch of one and writes every
-leaf of its decode state (KV caches or rings, ``lengths``, hybrid
-``mamba`` and ssm per-layer recurrent states) into the live batch
-state at the freed slot's batch index, in place (:func:`_scatter_slot`).
+leaf of its decode state (KV caches or rings, MLA's ``ckv``/``krope``,
+whisper's cross cache ``xk``/``xv``, ``lengths``, hybrid ``mamba`` and
+ssm per-layer recurrent states) into the live batch state at the freed
+slot's batch index, in place (:func:`_scatter_slot`).  The audio family
+prefills over zero encoder frames ``[B, encoder_seq, d_model]``, as the
+reference's engine gives them.
 
 Token flow, exactly the reference's (``repro/serve/engine.py``): each
 live slot holds the logits of its *next* token.  A step emits one token
@@ -21,11 +24,12 @@ requests still in flight when ``max_steps`` runs out ``truncated``.
 
 The engine keeps every slot's cache length on the host.  A decode step
 passes the live slots (those whose request goes on) to ``decode_step``,
-so a retired slot past its cache skips its K/V write, as the reference
-drops it, and nothing is read back from the device for it.  For the
-dense family, a live request whose next token would need a cache row
-past ``cache_len`` raises ``ValueError`` naming its slot (the reference
-drops that write silently); a hybrid ring wraps and an ssm slot has no
+so a retired slot past its cache skips its cache write, as the
+reference drops it, and nothing is read back from the device for it.
+Where the self-attention cache ends at ``cache_len`` (dense, moe, vlm
+and audio), a live request whose next token would need a cache row
+past it raises ``ValueError`` naming its slot (the reference drops
+that write silently); a hybrid ring wraps and an ssm slot has no
 cache, so those never fill.
 
 The engine runs on the device that holds the parameters.
@@ -128,8 +132,13 @@ class ServingEngine:
 
     # -- internals -----------------------------------------------------
     def _prefill_inputs(self, toks: np.ndarray) -> dict:
-        return {"tokens": torch.from_numpy(
+        batch = {"tokens": torch.from_numpy(
             np.ascontiguousarray(toks, np.int64)).to(self.device)}
+        if self.cfg.family == "audio":
+            batch["encoder_frames"] = torch.zeros(
+                (toks.shape[0], self.cfg.encoder_seq, self.cfg.d_model),
+                dtype=self.cfg.torch_dtype, device=self.device)
+        return batch
 
     def _prefill_batch(self, requests: list[Request]) -> None:
         """Prefill a fresh batch (uniform right-aligned padding)."""

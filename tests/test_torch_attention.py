@@ -192,10 +192,24 @@ def test_flash_decode_zero_length_gives_zeros():
     assert torch.all(out[0] == 0) and torch.all(out[1].abs().sum(-1) > 0)
 
 
+@pytest.mark.filterwarnings("ignore::UserWarning")
 def test_wrappers_reject_what_the_kernels_do_not_take():
+    """A head dim the kernels are not built for is refused for the
+    kernel (on a CUDA tensor, a fake one here); the plain version on the
+    CPU takes it (MLA's reduced prefill head, hd + dr = 24)."""
     z = torch.zeros
-    with pytest.raises(ValueError, match="head dim"):
-        fa.flash_attention(z(1, 2, 4, 24), z(1, 2, 4, 24), z(1, 2, 4, 24))
+    with FakeTensorMode():
+        x = torch.empty(1, 2, 4, 24, device="cuda")
+        with pytest.raises(ValueError, match="head dim"):
+            fa.flash_attention(x, x, x)
+        with pytest.raises(ValueError, match="head dim"):
+            fd.flash_decode(torch.empty(1, 2, 192, device="cuda"),
+                            torch.empty(1, 4, 2, 192, device="cuda"),
+                            torch.empty(1, 4, 2, 192, device="cuda"),
+                            torch.ones(1, dtype=torch.int32,
+                                       device="cuda"))
+    assert fa.flash_attention(z(1, 2, 4, 24), z(1, 2, 4, 24),
+                              z(1, 2, 4, 24)).shape == (1, 2, 4, 24)
     with pytest.raises(TypeError, match="dtype"):
         fa.flash_attention(z(1, 2, 4, 16, dtype=torch.float16),
                            z(1, 2, 4, 16), z(1, 2, 4, 16))

@@ -7,8 +7,8 @@ Checked here as pure functions: shared memory within what an H100 block
 may use, two CTAs an SM at the serving head dim (D = 64), the scores and
 outputs of a lane within a register budget, every query row in exactly
 one block, each block's causal (and windowed: hymba's sliding window)
-K/V tile count equal to what the plain mask needs, and the heaviest
-blocks first.
+K/V tile count equal to what the plain mask needs (on 32-key tiles at
+MLA's prefill head, D = 192), and the heaviest blocks first.
 """
 
 import numpy as np
@@ -28,8 +28,11 @@ def test_plan_fits_a_block_and_the_registers(d):
     assert plan["smem_bytes"] <= BLOCK_SMEM
     # four lanes' rows a warp, the warps cover the block's rows
     assert plan["threads"] == 32 * rows // (4 * lane_rows)
-    # a lane's scores (8 keys a row) and outputs (D / 8 columns a row)
-    assert lane_rows * (8 + d // 8) <= 128
+    # a lane's scores (block_keys / 8 keys a row) and outputs (D / 8
+    # columns a row); 64-key tiles below D = 192, 32-key tiles there
+    keys = plan["block_keys"]
+    assert keys == (32 if d == 192 else 64)
+    assert lane_rows * (keys // 8 + d // 8) <= 128
 
 
 @pytest.mark.parametrize("d", (16, 32, 48, 64))
@@ -44,9 +47,10 @@ def test_plan_refuses_a_head_dim_the_kernel_is_not_built_for():
         fa.f32_plan(24)
 
 
-def _needed_tiles(first, sq, sk, q_offset, causal, window=0):
-    """K/V tiles from the first to the last one holding a key that some
-    real row of the block keeps under the plain mask."""
+def _needed_tiles(first, sq, sk, q_offset, causal, window=0,
+                  keys=fa.F32_BLOCK_KEYS):
+    """K/V tiles of ``keys`` keys from the first to the last one holding
+    a key that some real row of the block keeps under the plain mask."""
     qpos = q_offset + np.arange(first, min(first + fa.F32_BLOCK_ROWS, sq))
     kpos = np.arange(sk)
     keep = (qpos[:, None] >= kpos[None, :]) if causal \
@@ -56,8 +60,7 @@ def _needed_tiles(first, sq, sk, q_offset, causal, window=0):
     cols = np.flatnonzero(keep.any(axis=0))
     if cols.size == 0:
         return 0
-    return (int(cols.max()) // fa.F32_BLOCK_KEYS + 1
-            - int(cols.min()) // fa.F32_BLOCK_KEYS)
+    return int(cols.max()) // keys + 1 - int(cols.min()) // keys
 
 
 # (b, h, sq, sk, q_offset, causal, window): the serving shape, no
@@ -83,17 +86,39 @@ BLOCK_CASES = [
     (2, 1, 300, 170, -130, True, 77),
     (1, 2, 400, 400, 0, False, 130),
 ]
+# MLA's prefill head (D = 192, 32-key tiles): deepseek-v2-lite's prefill,
+# a ragged one, Sq < Sk, Sq > Sk, one row, non-causal
+MLA_BLOCK_CASES = [
+    (2, 16, 1024, 1024, 0, True, 0),
+    (1, 3, 1000, 1000, 0, True, 0),
+    (1, 2, 300, 1000, 700, True, 0),
+    (2, 1, 300, 170, -130, True, 0),
+    (3, 2, 1, 1, 0, True, 0),
+    (1, 2, 200, 333, 0, False, 0),
+]
 
 
 @pytest.mark.parametrize("b,h,sq,sk,q_offset,causal,window", BLOCK_CASES)
 def test_blocks_cover_every_row_once_with_the_tiles_the_mask_needs(
         b, h, sq, sk, q_offset, causal, window):
-    blocks = fa.f32_blocks(b, h, sq, sk, q_offset, causal, window)
+    _check_blocks(b, h, sq, sk, q_offset, causal, window, 64)
+
+
+@pytest.mark.parametrize("b,h,sq,sk,q_offset,causal,window",
+                         MLA_BLOCK_CASES)
+def test_mla_head_blocks_run_the_32_key_tiles_the_mask_needs(
+        b, h, sq, sk, q_offset, causal, window):
+    _check_blocks(b, h, sq, sk, q_offset, causal, window, 192)
+
+
+def _check_blocks(b, h, sq, sk, q_offset, causal, window, d):
+    keys = fa.f32_plan(d)["block_keys"]
+    blocks = fa.f32_blocks(b, h, sq, sk, q_offset, causal, window, d)
     covered = np.zeros((b, h, sq), int)
     for bi, hi, first, tiles in blocks:
         covered[bi, hi, first:first + fa.F32_BLOCK_ROWS] += 1
         assert tiles == _needed_tiles(first, sq, sk, q_offset, causal,
-                                      window)
+                                      window, keys)
     assert (covered == 1).all()
     tiles = [t for *_, t in blocks]
     if window == 0:
@@ -102,7 +127,7 @@ def test_blocks_cover_every_row_once_with_the_tiles_the_mask_needs(
         # a causal window bounds every block's work: its rows reach back
         # window - 1 keys from the first row, on tiles of 64 keys
         span = fa.F32_BLOCK_ROWS + window - 1
-        assert max(tiles) <= -(-span // fa.F32_BLOCK_KEYS) + 1
+        assert max(tiles) <= -(-span // keys) + 1
     # neighbouring blocks take neighbouring heads of one batch
     assert [(bi, hi) for bi, hi, _, _ in blocks[:b * h]] == [
         (bi, hi) for bi in range(b) for hi in range(h)]

@@ -8,8 +8,9 @@ slots to ``decode_step``, which skips the write of a slot outside them.
 A live request that would need a cache row past ``cache_len`` raises
 naming its slot (the reference drops that write too; the port refuses).
 
-Weights: the reference's seeded ``init_params`` of reduced tinyllama-1.1b,
-handed to the port as numpy.  Tolerance: engine tokens identical; logits
+Weights: the reference's seeded ``init_params`` of reduced tinyllama-1.1b
+(and of reduced whisper-large-v3, whose decode step embeds each slot's
+length, for a retired slot run past it), handed to the port as numpy.  Tolerance: engine tokens identical; logits
 and cache leaves within 1e-5 absolute (float32, attention summed in
 another order).
 """
@@ -44,12 +45,12 @@ PROBE_LENGTHS = (12, 12, 2)
 
 
 @functools.lru_cache(maxsize=None)
-def _weights():
+def _weights(arch=ARCH):
     """(reference config, numpy tree, port config, port params)."""
-    rcfg = ref_get_config(ARCH).reduced()
+    rcfg = ref_get_config(arch).reduced()
     params, _ = ref_init_params(rcfg, jax.random.PRNGKey(0))
     tree = jax.tree.map(np.asarray, params)
-    cfg = get_config(ARCH).reduced()
+    cfg = get_config(arch).reduced()
     return rcfg, tree, cfg, lm_params_from_numpy(tree, cfg, "cpu")
 
 
@@ -71,6 +72,38 @@ def test_retired_slot_past_its_cache_serves_like_the_reference():
                            RefEngineConfig(**PROBE)), prompts)
     got = _serve(ServingEngine(cfg, params, EngineConfig(**PROBE)), prompts)
     assert [len(ref[rid]) for rid in range(3)] == [2, 6, 6]
+    assert got == ref
+
+
+def _serve_staggered(engine):
+    """Request 0 (16 tokens) retires at the end of its 18-row cache after
+    3 tokens; request 1, submitted two steps later, keeps the batch
+    decoding, so slot 0 runs on past ``cache_len + 1``."""
+    engine.submit(_prompts((16,))[0])
+    engine.step()
+    engine.step()
+    engine.submit(_prompts((2,))[0])
+    longest = 0
+    while engine.queue or engine.active:
+        engine.step()
+        if engine.state is not None:
+            longest = max(longest, int(np.asarray(engine.state["lengths"])[0]))
+    done = {r.rid: r.generated for r in engine.run_to_completion()}
+    return done, longest
+
+
+def test_retired_audio_slot_past_its_positions_serves_like_the_reference():
+    """Whisper's decode step adds the sinusoidal embedding of each slot's
+    length; a retired slot past ``cache_len`` still gets one, as in the
+    reference, whose out-of-range row does not raise either."""
+    rcfg, tree, cfg, params = _weights("whisper-large-v3")
+    ecfg = dict(max_batch=2, cache_len=18, max_new_tokens=3, eos_token=-1)
+    ref, ref_len = _serve_staggered(RefEngine(
+        rcfg, jax.tree.map(jnp.asarray, tree), RefEngineConfig(**ecfg)))
+    got, got_len = _serve_staggered(
+        ServingEngine(cfg, params, EngineConfig(**ecfg)))
+    assert got_len == ref_len > ecfg["cache_len"] + 1
+    assert [len(ref[rid]) for rid in range(2)] == [3, 3]
     assert got == ref
 
 

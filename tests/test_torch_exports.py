@@ -51,17 +51,18 @@ OMITTED = {
     # the TPU adaptation (Queue 1, 4)
     "hw": {"TpuChipModel", "TPU_V5E"},
     # the jnp attention oracles (the kernels' plain versions stand in)
-    # and M-RoPE of the VLM family (Queue 1, 1)
     "models.layers": {"AttnChunks", "decode_attention_jnp",
-                      "flash_attention_jnp", "apply_mrope"},
+                      "flash_attention_jnp"},
     # abstract shapes and parameter counts (Queue 1, 3)
     "models.module": {"abstract_params", "param_bytes", "param_count",
                       "stack_layer_inits"},
-    # the JAX runtime (sharding constraints, abstract evaluation),
-    # training (Queue 1, 2) and the encoder of the audio family (1)
+    # expert parallelism over a mesh of cards (moe_ffn_ep, with its
+    # dispatch and quantized all_to_all helpers): the four-card item
+    "models.moe": {"moe_ffn_ep"},
+    # the JAX runtime (sharding constraints, abstract evaluation) and
+    # training (Queue 1, 2)
     "models.transformer": {"Runtime", "abstract", "constrain",
-                           "chunked_softmax_xent", "forward_train",
-                           "init_encoder_layer"},
+                           "chunked_softmax_xent", "forward_train"},
 }
 
 

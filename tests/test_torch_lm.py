@@ -131,19 +131,28 @@ def test_init_params_shapes_and_seeded_draws():
 
 
 def test_families_other_than_dense_are_still_to_port():
-    """MoE/MLA, audio and VLM are still to port; the dense, hybrid and
-    ssm families run (``tests/test_torch_ssm.py``)."""
-    refused = []
+    """None is left: every config of ``configs/`` (dense, moe with and
+    without MLA, vlm, audio, hybrid, ssm) initialises and prefills on the
+    CPU; the four-card expert-parallel MoE path alone is refused
+    (``tests/test_torch_families.py`` holds the new families against the
+    reference)."""
+    families = set()
     for arch in ARCH_IDS:
         cfg = get_config(arch).reduced()
-        ported = cfg.family in ("dense", "hybrid", "ssm") \
-            and not cfg.is_moe and not cfg.is_mla
-        if ported:
-            continue
-        refused.append(cfg.family)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            init_params(cfg, torch.Generator().manual_seed(0), "cpu")
-    assert sorted(set(refused)) == ["audio", "moe", "vlm"]
+        params = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+        batch = {"tokens": torch.ones((2, 4), dtype=torch.int64)}
+        if cfg.family == "audio":
+            batch["encoder_frames"] = torch.zeros(
+                (2, cfg.encoder_seq, cfg.d_model))
+        logits, state = prefill(params, cfg, batch, 6)
+        assert logits.shape == (2, cfg.padded_vocab), arch
+        assert list(state["lengths"]) == [4, 4]
+        families.add(cfg.family)
+    assert families == {"dense", "moe", "vlm", "audio", "hybrid", "ssm"}
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        init_params(dataclasses.replace(
+            get_config("deepseek-v2-lite-16b").reduced(), moe_impl="ep"),
+            torch.Generator().manual_seed(0), "cpu")
 
 
 # ---------------------------------------------------- prefill / decode

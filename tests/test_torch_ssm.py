@@ -343,14 +343,32 @@ def test_hybrid_and_ssm_never_fill_a_cache():
 
 
 def test_families_still_to_port_are_refused():
-    for arch in ("deepseek-v2-lite-16b", "kimi-k2-1t-a32b",
-                 "whisper-large-v3", "qwen2-vl-72b"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            tf.init_lm(get_config(arch).reduced())
+    """No family is left to port: all ten configs of ``configs/``
+    initialise and prefill, hymba with tied embeddings too (the
+    embedding's transpose is its head); only ``moe_impl="ep"``, which
+    shards experts over a mesh of cards, is refused."""
+    from repro_torch.configs import ARCH_IDS
+
+    for arch in ARCH_IDS:
+        cfg = get_config(arch).reduced()
+        params = tf.init_params(cfg, torch.Generator().manual_seed(1), "cpu")
+        batch = {"tokens": torch.full((1, 9), 3, dtype=torch.int64)}
+        if cfg.family == "audio":
+            batch["encoder_frames"] = torch.ones(
+                (1, cfg.encoder_seq, cfg.d_model))
+        logits, _ = tf.prefill(params, cfg, batch, 12)
+        assert bool(torch.isfinite(logits).all()), arch
     tied = dataclasses.replace(get_config("hymba-1.5b").reduced(),
                                tie_embeddings=True)
-    with pytest.raises(NotImplementedError, match="tied"):
-        tf.check_supported(tied)
+    tf.check_supported(tied)
+    params = tf.init_params(tied, torch.Generator().manual_seed(1), "cpu")
+    assert "head" not in params
+    logits, _ = tf.prefill(params, tied, {"tokens": torch.ones(
+        (1, 9), dtype=torch.int64)}, 12)
+    assert logits.shape == (1, tied.padded_vocab)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        tf.check_supported(dataclasses.replace(
+            get_config("kimi-k2-1t-a32b").reduced(), moe_impl="ep"))
 
 
 # ------------------------------------------------------------- engine
