@@ -5,10 +5,11 @@ NVIDIA GPU:
   1. prints the card's name and power limit, builds the CUDA kernels
      from ``src/repro_torch/csrc/`` (one ``nvcc`` per source, all
      started together), prints each build's time and the count of
-     ``HGMMA`` instructions in the bf16 attention library's SASS and of
-     ``IGMMA`` in the int8 library's (``cuobjdump -sass``; each must be
-     > 0), and the float32 attention kernel's registers and spills
-     (``ptxas -v``);
+     ``HGMMA`` instructions in the bf16 attention library's SASS, of
+     ``IGMMA`` in the int8 library's and of ``HMMA`` in the MLA decode's
+     (``cuobjdump -sass``; each must be > 0), and the registers and
+     spills of the float32 attention kernel and of the MLA decode's
+     kernels (``ptxas -v``; the MLA decode's must spill nothing);
   2. kernel phase: calls each rail-sweep kernel's wrapper on the card
      at the shapes the rail sweep gives it (lanes of real rail-subset
      problems) and holds the result against its plain PyTorch version
@@ -46,8 +47,11 @@ NVIDIA GPU:
      heads at D = 112), MLA's absorbed decode ``flash_decode_mla``
      (``MLA_DECODE_SHAPES``: 16 heads of one latent head, keys of 512 +
      64, values of 512, batch 16 over 2048 rows, lengths of 0 and S
-     among them; SDPA over the concatenated keys with V padded beside
-     it) and whisper's cross-attention decode over 1500 rows;
+     among them, batch 32 over 8192 rows, and the edges: 8 and 32
+     heads, lengths around the 32-key tile, S = 1; bf16 on the tensor
+     cores, float32 on the CUDA cores; SDPA over the concatenated keys
+     with V padded beside it) and whisper's cross-attention decode over
+     1500 rows;
      prints each kernel's time (CUDA events, median of 25), its device
      time (``torch.profiler``), its plain version's time, its bound and,
      for attention, the time of ``scaled_dot_product_attention`` on the
@@ -233,7 +237,10 @@ phase; it prints no result line.  ``python3 chip_smoke.py
 and runs the windowed, ring and new families' kernel rows, the hybrid,
 ssm, moe, vlm, audio and analysis phases (without the store audit and
 the lock dump, which need the service phase); it prints no result
-line.  Run from a ``git
+line.  ``python3 chip_smoke.py --mla-decode`` builds the MLA decode
+library alone, prints its ``ptxas -v`` report (no spills) and its
+``HMMA`` count (> 0), and runs the MLA_DECODE_SHAPES rows; it prints no
+result line.  Run from a ``git
 archive`` of another commit, this script times that commit's kernels
 (a tree without the float32 plan skips its check).
 """
@@ -1186,6 +1193,7 @@ FAMILY_ROWS = {"flash_attention_window": ("hybrid", "flash_attention"),
                "flash_attention_mla": ("moe", "flash_attention"),
                "flash_attention_mla_f32": ("moe f32", "flash_attention"),
                "flash_decode_mla": ("moe", "flash_decode_mla"),
+               "flash_decode_mla_f32": ("moe f32", "flash_decode_mla"),
                "flash_attention_kimi": ("kimi", "flash_attention"),
                "flash_attention_whisper": ("audio",
                                            "flash_attention encoder"),
@@ -1350,11 +1358,25 @@ FAMILY_PREFILL_SHAPES = (
 # latent head, keys of 512 + 64, values of 512) at batch 16 over a
 # 2048-row cache, lengths drawn from [1, S] with one full cache and one
 # empty (its output must be zeros), in bf16 and float32; then S = 1001
-# (no chunk boundary) with short lengths
+# (no chunk boundary) with short lengths; the long-context row (batch 32
+# over 8192 rows, lengths drawn the same way); deepseek-v2-lite's
+# profiled decode step (moe_profile: 16 sequences of 1040 positions, all
+# alike, in a 1052-row cache); then the edges in both dtypes: 8 and 32
+# heads (half a head group, two groups) with lengths 0, 1, at the 32-key
+# tile's and the 64-position edges and full, and S = 1
+MLA_EDGE_LENGTHS = (0, 1, 63, 64, 65)
 MLA_DECODE_SHAPES = (
     (16, 2048, 16, "bfloat16", None),
     (16, 2048, 16, "float32", None),
     (3, 1001, 16, "bfloat16", (1, 31, 1001)),
+    (32, 8192, 16, "bfloat16", None),
+    (16, 1052, 16, "bfloat16", (1040,) * 16),
+    (6, 2048, 8, "bfloat16", MLA_EDGE_LENGTHS + (2048,)),
+    (6, 2048, 32, "bfloat16", MLA_EDGE_LENGTHS + (2048,)),
+    (6, 1001, 8, "float32", MLA_EDGE_LENGTHS + (1001,)),
+    (6, 1001, 32, "float32", MLA_EDGE_LENGTHS + (1001,)),
+    (2, 1, 16, "bfloat16", (0, 1)),
+    (2, 1, 16, "float32", (0, 1)),
 )
 # (b, s, h, kh, d, dtype): whisper's cross-attention decode, every
 # query reads all 1500 encoder rows (group 1)
@@ -1365,10 +1387,9 @@ def family_rows(rows: dict, gen) -> None:
     """The slice's new kernel shapes against their plain versions with
     the attention tolerances: ``flash_attention`` at
     FAMILY_PREFILL_SHAPES (SDPA beside it, with ``enable_gqa`` and the
-    same causal mask), ``flash_decode_mla`` at MLA_DECODE_SHAPES (SDPA
-    over the concatenated keys with V zero-padded to 576 beside it) and
-    ``flash_decode`` over whisper's encoder rows."""
-    import numpy as np
+    same causal mask), ``flash_decode_mla`` at MLA_DECODE_SHAPES
+    (``mla_decode_rows``) and ``flash_decode`` over whisper's encoder
+    rows."""
     import torch
     import torch.nn.functional as F
 
@@ -1416,58 +1437,7 @@ def family_rows(rows: dict, gen) -> None:
               f"vs plain {lib_err}", flush=True)
         del q, k, v, got, want
 
-    r, dr = fd.MLA_WIDTHS
-    lrng = np.random.default_rng(1)
-    for b, s, h, dtype, lengths in MLA_DECODE_SHAPES:
-        q_lat = _randn(gen, b, h, r, dtype=dtype)
-        q_rope = _randn(gen, b, h, dr, dtype=dtype)
-        ckv = _randn(gen, b, s, r, dtype=dtype)
-        krope = _randn(gen, b, s, dr, dtype=dtype)
-        if lengths is None:
-            lens_np = lrng.integers(1, s + 1, size=b).astype(np.int32)
-            lens_np[0], lens_np[-1] = s, 0      # a full and an empty cache
-        else:
-            lens_np = np.asarray(lengths, np.int32)
-        lens = torch.from_numpy(lens_np).to(DEVICE)
-        args = (q_lat, q_rope, ckv, krope, lens)
-        got = fd.flash_decode_mla(*args)
-        want = fd.flash_decode_mla_plain(*args)
-        torch.cuda.synchronize()
-        err = _max_abs_err(got, want)
-        n_split = fd.decode_splits(
-            s, torch.cuda.get_device_properties(0).multi_processor_count)
-        label = (f"B={b} S={s} {h}/1 heads K={r}+{dr} V={r} {dtype} "
-                 f"lengths {lens_np.min()}-{lens_np.max()} "
-                 f"splits={n_split}")
-        check(err <= ATTN_TOL[dtype], f"flash_decode_mla != plain at "
-              f"{label}: max abs err {err}")
-        check(bool((got[lens == 0] == 0).all()), f"flash_decode_mla at "
-              f"{label}: a length of 0 does not give zeros")
-        qs = torch.cat([q_lat, q_rope], dim=-1)[:, :, None]
-        ks = torch.cat([ckv, krope], dim=-1)[:, None]
-        vs = F.pad(ckv, (0, dr))[:, None]
-        mask = (torch.arange(s, device=DEVICE)[None, :]
-                < lens[:, None])[:, None, None, :]
-
-        def library():
-            return F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=mask, enable_gqa=True)[:, :, 0, :r]
-
-        live = lens > 0
-        lib_err = _max_abs_err(library()[live], want[live])
-        valid = int(lens_np.sum())
-        elt = 2 if dtype == "bfloat16" else 4
-        nbytes = (b * h * (r + dr) + b * h * r + valid * (r + dr)) * elt \
-            + 4 * b
-        bound, by, _, ops = _bound_typed(
-            nbytes, 2 * (2 * r + dr) * h * valid, dtype)
-        kernel = lambda: fd.flash_decode_mla(*args)  # noqa: E731
-        _kernel_row(rows, "flash_decode_mla", label, time_ms(kernel),
-                    time_ms(lambda: fd.flash_decode_mla_plain(*args)),
-                    bound, by, err, time_ms(library), device_ms(kernel))
-        print(f"  bytes {nbytes}  operations {ops}  library (V padded to "
-              f"{r + dr}) max abs err vs plain {lib_err}", flush=True)
-        del q_lat, q_rope, ckv, krope, got, want
+    mla_decode_rows(rows, gen)
 
     for b, s, h, kh, d, dtype in CROSS_DECODE_SHAPES:
         q = _randn(gen, b, h, d, dtype=dtype)
@@ -1527,6 +1497,79 @@ def f32_plan_check() -> None:
               flush=True)
 
 
+def mla_decode_rows(rows: dict, gen) -> None:
+    """``flash_decode_mla`` at MLA_DECODE_SHAPES against its plain
+    version (2e-2 bf16 on the tensor cores, 3e-5 float32 on the CUDA
+    cores; a length of 0 gives zeros), beside its two passes in plain
+    PyTorch at the kernel's own plan (``mla_splits``) and SDPA over the
+    concatenated keys with V zero-padded to 576; the bf16 rows go into
+    the JSON line as ``flash_decode_mla``, the float32 ones as
+    ``flash_decode_mla_f32``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode as fd
+
+    r, dr = fd.MLA_WIDTHS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lrng = np.random.default_rng(1)
+    for b, s, h, dtype, lengths in MLA_DECODE_SHAPES:
+        q_lat = _randn(gen, b, h, r, dtype=dtype)
+        q_rope = _randn(gen, b, h, dr, dtype=dtype)
+        ckv = _randn(gen, b, s, r, dtype=dtype)
+        krope = _randn(gen, b, s, dr, dtype=dtype)
+        if lengths is None:
+            lens_np = lrng.integers(1, s + 1, size=b).astype(np.int32)
+            lens_np[0], lens_np[-1] = s, 0      # a full and an empty cache
+        else:
+            lens_np = np.asarray(lengths, np.int32)
+        lens = torch.from_numpy(lens_np).to(DEVICE)
+        args = (q_lat, q_rope, ckv, krope, lens)
+        got = fd.flash_decode_mla(*args)
+        want = fd.flash_decode_mla_plain(*args)
+        two_pass = fd.flash_decode_mla_split_plain(*args, sms)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        n_split, chunk = fd.mla_splits(s, b, h, sms)
+        label = (f"B={b} S={s} {h}/1 heads K={r}+{dr} V={r} {dtype} "
+                 f"lengths {lens_np.min()}-{lens_np.max()} "
+                 f"splits={n_split}x{chunk}")
+        check(err <= ATTN_TOL[dtype], f"flash_decode_mla != plain at "
+              f"{label}: max abs err {err}")
+        check(bool((got[lens == 0] == 0).all()), f"flash_decode_mla at "
+              f"{label}: a length of 0 does not give zeros")
+        qs = torch.cat([q_lat, q_rope], dim=-1)[:, :, None]
+        ks = torch.cat([ckv, krope], dim=-1)[:, None]
+        vs = F.pad(ckv, (0, dr))[:, None]
+        mask = (torch.arange(s, device=DEVICE)[None, :]
+                < lens[:, None])[:, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True)[:, :, 0, :r]
+
+        live = lens > 0
+        lib_err = _max_abs_err(library()[live], want[live])
+        valid = int(lens_np.sum())
+        elt = 2 if dtype == "bfloat16" else 4
+        nbytes = (b * h * (r + dr) + b * h * r + valid * (r + dr)) * elt \
+            + 4 * b
+        bound, by, _, ops = _bound_typed(
+            nbytes, 2 * (2 * r + dr) * h * valid, dtype)
+        kernel = lambda: fd.flash_decode_mla(*args)  # noqa: E731
+        _kernel_row(rows, "flash_decode_mla" + (
+            "" if dtype == "bfloat16" else "_f32"), label, time_ms(kernel),
+                    time_ms(lambda: fd.flash_decode_mla_plain(*args)),
+                    bound, by, err, time_ms(library), device_ms(kernel),
+                    kernel="flash_decode_mla")
+        print(f"  bytes {nbytes}  operations {ops}  two passes at the plan "
+              f"max abs err vs kernel {_max_abs_err(got, two_pass)}  "
+              f"library (V padded to {r + dr}) max abs err vs plain "
+              f"{lib_err}", flush=True)
+        del q_lat, q_rope, ckv, krope, got, want, two_pass, qs, ks, vs
+
+
 def ptxas_usage(lib) -> str:
     """Registers and spills of each kernel of ``lib``'s source, as
     ``ptxas -v`` prints them for a cubin built with the library's own
@@ -1558,7 +1601,11 @@ def ptxas_usage(lib) -> str:
         regs = re.search(r"Used (\d+) registers", line)
         if regs and name:
             d = re.search(r"ILi(\d+)E", name)
-            label = f"{name[:48]}..." if d is None else f"D={d.group(1)}"
+            mla = re.search(r"mla_[a-z0-9_]*[a-z0-9]", name)
+            label = (f"D={d.group(1)}" if d is not None
+                     else mla.group(0) + ("<bf16>" if "bfloat16" in name
+                                          and "combine" in name else "")
+                     if mla is not None else f"{name[:48]}...")
             if d is not None and "Lb1E" in name:
                 label += " window"
             lines.append(f"ptxas: {lib.source.name} {label}: {regs.group(1)} "
@@ -1909,7 +1956,10 @@ def plain_attention(n_split: int | None = None):
     versions (on the same card tensors) for the duration; with
     ``n_split``, through the kernels' algorithms in plain PyTorch
     instead: prefill over 64-key tiles (``tiled_plain_attention``) and
-    decode (MLA's too) in two passes over ``n_split`` chunks."""
+    decode in two passes over ``n_split`` chunks (MLA's over the chunks
+    of its kernels' own plan, ``mla_splits``)."""
+    import torch
+
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
     from repro_torch.kernels import ops
@@ -1923,9 +1973,9 @@ def plain_attention(n_split: int | None = None):
             return fd.flash_decode_split_plain(q, k, v, length, n_split)
 
         def mla_two_pass(q_lat, q_rope, ckv, krope, length):
-            return fd.flash_decode_split_plain(
-                *fd.mla_operands(q_lat, q_rope, ckv, krope), length,
-                n_split)
+            return fd.flash_decode_mla_split_plain(
+                q_lat, q_rope, ckv, krope, length,
+                torch.cuda.get_device_properties(0).multi_processor_count)
 
         ops.flash_attention = tiled_plain_attention
         ops.flash_decode = two_pass
@@ -2351,7 +2401,8 @@ HYMBA_PROFILE = (2, 2048, 16)      # prompts, tokens, decode steps (bf16)
 PROFILED_DECODE = 8                # decode steps run under the profiler
 # device operations by kind, from their kernel names
 DEVICE_KINDS = (("attention kernels", ("flash_attention", "decode_split",
-                                       "decode_combine")),
+                                       "decode_combine", "mla_split",
+                                       "mla_combine")),
                 ("cuBLAS products", ("gemm", "nvjet", "cutlass", "xmma")),
                 ("copies", ("Memcpy", "Memset")))
 
@@ -2939,7 +2990,8 @@ def moe_profile(cfg, params) -> None:
     prompts prefilled, then decode steps at batch 16 timed (host clock,
     synchronized), the MoE FFN's share of them (synchronized around each
     call), then PROFILED_DECODE steps under ``torch.profiler`` (device
-    busy, idle share, device operations a step, device time by kind),
+    busy, idle share, device operations a step, device time by kind, the
+    MLA decode kernels' time a step and share of the busy time),
     and the same steps with the MoE FFN replaced by zeros: the
     difference in device operations is the MoE's launches a step (each
     profiled window MOE_PROFILED steps: a step launches ~10^4 device
@@ -3023,6 +3075,15 @@ def moe_profile(cfg, params) -> None:
         print(f"profile moe {label} by kind: {_by_kind(prof)}", flush=True)
         if label == "decode":
             _print_host(f"profile moe {label}", prof)
+        if label == "decode" and found is not None:
+            mla = [(k, us) for name, (k, us) in found[1]
+                   if "mla_split" in name or "mla_combine" in name]
+            mla_us = sum(us for _, us in mla)
+            print(f"profile moe decode: MLA decode kernels "
+                  f"{sum(k for k, _ in mla)} launches, "
+                  f"{mla_us / MOE_PROFILED / 1e3:.5f} ms a step, "
+                  f"{mla_us / found[0]:.5f} of the device busy time",
+                  flush=True)
     full, bare = ops_a_step["decode"], ops_a_step["decode without the MoE FFN"]
     moe_ops = "not measured" if None in (full, bare) else f"{full - bare:.1f}"
     print(f"moe serve: device operations a decode step {full}, without the "
@@ -4592,11 +4653,21 @@ def sass_count(lib, op: str) -> int:
     return sum(f"{op}." in line for line in sass.splitlines())
 
 
+def check_no_spills(report: str) -> None:
+    """Every kernel of a ``ptxas_usage`` report spills nothing."""
+    lines = report.splitlines()
+    check(bool(lines) and all("spill stores 0 B, spill loads 0 B" in line
+                              for line in lines),
+          f"a kernel spills or its report failed:\n{report}")
+
+
 def build_all() -> None:
     """Build every kernel library, one ``nvcc`` per source, all started
     together, then load each; count the tensor-core product
-    instructions (``HGMMA`` and ``IGMMA``, what ``wgmma`` compiles to)
-    in the bf16 attention and the int8 libraries' SASS."""
+    instructions (``HGMMA`` and ``IGMMA``, what ``wgmma`` compiles to,
+    in the bf16 attention and the int8 libraries, ``HMMA``, what
+    ``mma.sync`` compiles to, in the MLA decode's) in their SASS; the
+    MLA decode's kernels spill nothing (``ptxas -v``)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import int8_matmul as im
 
@@ -4619,14 +4690,17 @@ def build_all() -> None:
             print(f"build: {name} in {secs:.2f} s", flush=True)
         for report in usage:
             print(report.result(), flush=True)
+        mla_report = usage[reported.index(fd.MLA_LIBRARY)].result()
     for lib in libs:
         lib.load()
     print(f"build: all in {time.perf_counter() - tic:.2f} s", flush=True)
     for lib, op, what in ((fa.WGMMA_LIBRARY, "HGMMA", "bf16 attention"),
-                          (im.LIBRARY, "IGMMA", "int8")):
+                          (im.LIBRARY, "IGMMA", "int8"),
+                          (fd.MLA_LIBRARY, "HMMA", "MLA decode")):
         n = sass_count(lib, op)
         print(f"sass: {lib.path().name}: {n} {op} instructions", flush=True)
         check(n > 0, f"the {what} library holds no {op}")
+    check_no_spills(mla_report)
 
 
 def sweep_kernels_only(k_best: int) -> int:
@@ -4702,6 +4776,73 @@ def attention_kernels_only() -> int:
           f"temperature): {loaded}", flush=True)
     print(json.dumps({"kernels": list(rows.values())}), flush=True)
     return 0
+
+
+def mla_decode_only() -> int:
+    """``--mla-decode``: build the MLA decode library alone (its ``ptxas
+    -v`` report beside it: no spills; ``HMMA`` in its SASS), run the
+    MLA_DECODE_SHAPES rows; no result line."""
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+
+    tic = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(2) as pool:
+        usage = pool.submit(ptxas_usage, fd.MLA_LIBRARY)
+        print(f"build: {fd.MLA_LIBRARY.build().name}", flush=True)
+        report = usage.result()
+    fd.MLA_LIBRARY.load()
+    print(report, flush=True)
+    print(f"build: {time.perf_counter() - tic:.2f} s", flush=True)
+    check_no_spills(report)
+    n = sass_count(fd.MLA_LIBRARY, "HMMA")
+    print(f"sass: {fd.MLA_LIBRARY.path().name}: {n} HMMA instructions",
+          flush=True)
+    check(n > 0, "the MLA decode library holds no HMMA")
+    rows: dict[str, dict] = {}
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    mla_decode_rows(rows, gen)
+    mla_plan_sweep(gen)
+    print(json.dumps({"kernels": list(rows.values())}), flush=True)
+    return 0
+
+
+def mla_plan_sweep(gen) -> None:
+    """The bf16 MLA rows of batch 16 over 2048 rows and batch 32 over
+    8192 (lengths drawn as there) under split plans of 1, 2 (the
+    shipped ``MLA_CTAS_PER_SM``), 3 and 4 CTAs an SM: events ms, device
+    ms, and the device ms of the split and the combine kernels apart."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import flash_decode as fd
+
+    r, dr = fd.MLA_WIDTHS
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    lrng = np.random.default_rng(2)
+    shipped = fd.MLA_CTAS_PER_SM
+    for b, s in ((16, 2048), (32, 8192)):
+        lens_np = lrng.integers(1, s + 1, size=b).astype(np.int32)
+        lens_np[0], lens_np[-1] = s, 0
+        args = (_randn(gen, b, 16, r, dtype="bfloat16"),
+                _randn(gen, b, 16, dr, dtype="bfloat16"),
+                _randn(gen, b, s, r, dtype="bfloat16"),
+                _randn(gen, b, s, dr, dtype="bfloat16"),
+                torch.from_numpy(lens_np).to(DEVICE))
+        kernel = lambda: fd.flash_decode_mla(*args)  # noqa: E731
+        try:
+            for per_sm in (1, 2, 3, 4):
+                fd.MLA_CTAS_PER_SM = per_sm
+                n_split, chunk = fd.mla_splits(s, b, 16, sms)
+                print(f"mla plan B={b} S={s} {per_sm} CTAs an SM "
+                      f"({n_split}x{chunk}): events {time_ms(kernel):.4f} ms"
+                      f"  device {_ms(device_ms(kernel))}  split "
+                      f"{_ms(device_ms(kernel, only='mla_split'))}  combine "
+                      f"{_ms(device_ms(kernel, only='mla_combine'))}",
+                      flush=True)
+        finally:
+            fd.MLA_CTAS_PER_SM = shipped
+        del args
 
 
 def service_only() -> int:
@@ -4809,6 +4950,8 @@ def main(argv: list[str]) -> int:
         return control_only()
     if argv == ["--lm-families"]:
         return lm_families_only()
+    if argv == ["--mla-decode"]:
+        return mla_decode_only()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2

@@ -8,7 +8,8 @@ PyTorch version and launch count:
     ``csrc/flash_attention.cu`` in float32);
   - :mod:`~repro_torch.kernels.flash_decode` — decode attention over
     the KV cache (``csrc/flash_decode.cu``), and MLA's absorbed decode
-    over its latent cache (``csrc/flash_decode_mla.cu``);
+    over its latent cache (``csrc/flash_decode_mla.cu``: bf16 on the
+    tensor cores, float32 on the CUDA cores);
   - :mod:`~repro_torch.kernels.int8_matmul` — the int8 × int8 → int32
     product with its float32 dequantization (``csrc/int8_matmul.cu``);
   - :mod:`~repro_torch.kernels.ops` — the model-layout wrappers the

@@ -15,12 +15,15 @@ combines the chunks' float32 partials in a second pass;
 :func:`flash_decode_split_plain` is that two-pass algorithm in plain
 PyTorch.
 
-MLA's absorbed decode has a kernel of its own,
+MLA's absorbed decode has kernels of its own,
 ``repro_torch/csrc/flash_decode_mla.cu`` behind :func:`flash_decode_mla`:
 the reference's ``decode_attention_jnp`` over keys ``[ckv | krope]``
 (576 columns) of one latent head with values ``ckv`` (512), every query
-head of the latent in one CTA, split over the sequence the same way.
-Its plain version is :func:`flash_decode_mla_plain`.
+head of the latent in one CTA; bf16 on the tensor cores (``mma.sync``),
+float32 on the CUDA cores.  Its split plan is :func:`mla_splits`, a
+function of ``S``, the batch, the heads and the SM count only.  Its
+plain versions are :func:`flash_decode_mla_plain` and, at the kernel's
+plan, :func:`flash_decode_mla_split_plain`.
 
 On a tensor that lies on the CPU each wrapper computes its plain
 version; on a CUDA tensor it launches its kernel or raises.  Every
@@ -63,6 +66,13 @@ MLA_WIDTHS = (512, 64)
 MIN_CHUNK = 64
 #: SMs per split: the splits of 16 (batch, KV head) pairs fill the card
 SMS_PER_SPLIT = 16
+#: keys a tile of the MLA kernels; an MLA chunk is a multiple of it
+MLA_KEY_TILE = 32
+#: query heads one CTA of the MLA kernels serves
+MLA_HEADS = 16
+#: CTAs an SM the MLA split plan allows (two fit in one SM's shared
+#: memory and registers)
+MLA_CTAS_PER_SM = 2
 
 #: kernel launches since the last :func:`reset_launch_counts`
 LAUNCHES = {"flash_decode": 0, "flash_decode_mla": 0}
@@ -82,7 +92,7 @@ def _declare(lib: ctypes.CDLL) -> None:
 
 def _declare_mla(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
-    lib.pfdnn_flash_decode_mla.argtypes = ([p] * 7 + [i] * 7
+    lib.pfdnn_flash_decode_mla.argtypes = ([p] * 7 + [i] * 8
                                            + [ctypes.c_float, p])
     lib.pfdnn_flash_decode_mla.restype = ctypes.c_int
 
@@ -98,6 +108,24 @@ def decode_splits(capacity: int, n_sms: int) -> int:
     ``MIN_CHUNK`` positions.  A pure function of its two integers."""
     most = max(1, n_sms // SMS_PER_SPLIT)
     return max(1, min(most, capacity // MIN_CHUNK))
+
+
+def mla_splits(capacity: int, batch: int, heads: int,
+               n_sms: int) -> tuple[int, int]:
+    """``(n_split, chunk)`` of the MLA kernels: each sequence's cache
+    range of ``capacity`` positions cut into ``n_split`` chunks of
+    ``chunk`` positions, a multiple of ``MLA_KEY_TILE``, none of them
+    wholly past ``capacity``.  The ``batch * ceil(heads / MLA_HEADS)``
+    (sequence, head group) pairs get at most ``MLA_CTAS_PER_SM`` CTAs an
+    SM, one wave of resident CTAs even when every chunk is live (or one
+    split when the pairs alone exceed that), and as many splits as that
+    allows, cut into chunks of equal tiles.  A pure function of its
+    integers."""
+    tiles = max(1, -(-capacity // MLA_KEY_TILE))
+    pairs = max(1, batch * -(-heads // MLA_HEADS))
+    most = min(tiles, max(1, MLA_CTAS_PER_SM * n_sms // pairs))
+    per = -(-tiles // most)                    # tiles a chunk
+    return -(-tiles // per), per * MLA_KEY_TILE
 
 
 @functools.lru_cache(maxsize=None)
@@ -176,18 +204,20 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, length: torch.Tensor,
-                             n_split: int) -> torch.Tensor:
+                             n_split: int,
+                             chunk: int | None = None) -> torch.Tensor:
     """Plain PyTorch version of the kernel's two passes: the cache range
-    cut into ``n_split`` chunks of ``ceil(S / n_split)`` positions, a
-    float32 partial ``(m, l, acc)`` per chunk (``p`` rounded to V's
-    dtype before ``P·V``; a chunk wholly past ``length`` gives ``m =
+    cut into ``n_split`` chunks of ``chunk`` positions (by default
+    ``ceil(S / n_split)``, :func:`flash_decode`'s; ``n_split * chunk >=
+    S``), a float32 partial ``(m, l, acc)`` per chunk (``p`` rounded to
+    V's dtype before ``P·V``; a chunk wholly past ``length`` gives ``m =
     NEG_INF, l = 0, acc = 0``), then the partials combined in chunk order
     with the clamp and ``acc / max(l, 1e-30)``.  V may be narrower than
     K (MLA's values)."""
     B, H, D = q.shape
     S, KH = k.shape[1], k.shape[2]
     g = H // KH
-    chunk = -(-S // n_split)
+    chunk = -(-S // n_split) if chunk is None else chunk
     pad = n_split * chunk - S
     kf = torch.nn.functional.pad(k.float(), (0, 0, 0, 0, 0, pad))
     vf = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
@@ -259,16 +289,19 @@ def flash_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
         return out
     lib = MLA_LIBRARY.load()
     index = q_lat.device.index
-    n_split = decode_splits(S, _sm_count(
+    n_split, chunk = mla_splits(S, B, H, _sm_count(
         torch.cuda.current_device() if index is None else index))
+    # float32 partials (acc [B, H, n_split, R], then (m, l) [B, H,
+    # n_split, 2]); only the chunks below length are written and read
     part = torch.empty(B * H * n_split * (R + 2), dtype=torch.float32,
                        device=q_lat.device)
     with torch.cuda.device(q_lat.device):
         err = lib.pfdnn_flash_decode_mla(
             q_lat.data_ptr(), q_rope.data_ptr(), ckv.data_ptr(),
             krope.data_ptr(), length.data_ptr(), part.data_ptr(),
-            out.data_ptr(), B, H, S, R, DR, n_split, DTYPES[q_lat.dtype],
-            softmax_scale(R + DR), stream_of(q_lat.device))
+            out.data_ptr(), B, H, S, R, DR, n_split, chunk,
+            DTYPES[q_lat.dtype], softmax_scale(R + DR),
+            stream_of(q_lat.device))
     raise_on(name, err)
     LAUNCHES[name] += 1
     return out
@@ -291,3 +324,16 @@ def flash_decode_mla_plain(q_lat: torch.Tensor, q_rope: torch.Tensor,
     :func:`flash_decode_plain` over :func:`mla_operands`."""
     return flash_decode_plain(*mla_operands(q_lat, q_rope, ckv, krope),
                               length)
+
+
+def flash_decode_mla_split_plain(q_lat: torch.Tensor, q_rope: torch.Tensor,
+                                 ckv: torch.Tensor, krope: torch.Tensor,
+                                 length: torch.Tensor,
+                                 n_sms: int) -> torch.Tensor:
+    """The MLA kernels' two passes in plain PyTorch:
+    :func:`flash_decode_split_plain` over :func:`mla_operands` at
+    :func:`mla_splits`' plan for a card of ``n_sms`` SMs."""
+    B, H, _ = q_lat.shape
+    n_split, chunk = mla_splits(ckv.shape[1], B, H, n_sms)
+    return flash_decode_split_plain(*mla_operands(q_lat, q_rope, ckv, krope),
+                                    length, n_split, chunk)
