@@ -4,7 +4,8 @@ NVIDIA GPU:
 
   1. prints the card's name and power limit, builds the CUDA kernels
      from ``src/repro_torch/csrc/`` (one ``nvcc`` per source, all
-     started together), prints each build's time and the count of
+     started together; the attention backward's must not spill),
+     prints each build's time and the count of
      ``HGMMA`` instructions in the bf16 attention library's SASS, of
      ``IGMMA`` in the int8 library's and of ``HMMA`` in the MLA decode's
      (``cuobjdump -sass``; each must be > 0), and the registers and
@@ -123,6 +124,34 @@ NVIDIA GPU:
      fault (prefill's cross-attention made causal) and in float32, the
      encoder's share of a prefill and a float32 refill; the peak device
      memory of the three phases;
+  7c. training phase (seed-0 weights drawn on the card, the earlier
+     phases' models freed first): the backward kernel
+     ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``) against
+     its plain version at ``BWD_SHAPES`` (tinyllama-1.1b's training
+     shape [8, 32, 2048, 64] / 4 in bf16 and float32, hymba's window,
+     whisper's encoder and cross-attention, MLA's 192 and the edges:
+     Sq and Sk off the tile grid with q_offset > 0, groups 1 and 8, rows
+     that see no key, window 1, a window over Sq < Sk): float32 within
+     1e-4 x the largest gradient, bf16 against a float32 backward within
+     1.5 x the plain bf16 backward's floor, a second call bit-identical;
+     its times beside its bound, its plain version's and SDPA forward +
+     backward's; one full-width bf16 step on the kernels against plain
+     attention (loss and gradient norm within 1e-3); the entry point
+     ``repro_torch.launch.train`` at full width (tinyllama-1.1b, 8 x 2048
+     tokens, 6 steps, remat, ``TRAIN_ARGS``) with the launch counts set
+     to 0 just before and read just after (44 forward and 22 backward
+     launches a step; every loss and gradient norm finite, the last
+     loss below the first; peak memory) and one more step profiled
+     (device time by kind); the full-width trajectories of
+     ``TRAIN_LR_SWEEP``; four reduced float32 steps on the card against
+     the CPU port (losses within 1e-5 relative, parameters within 1e-4
+     x max |p|); the crash-restart drill on the card (crash after step
+     7, resume at 7; the reference's tolerances; whether it is
+     bit-identical); one reduced float32 step (loss and gradients) of
+     hymba (window 100), whisper (150 frames) and deepseek-v2-lite
+     (MLA's real heads) on the kernels against plain attention (1e-5 /
+     1e-4), and a planted fault the check must catch (hymba's backward
+     with the window dropped);
   8. int8 phase (its kernel rows run right after the attention
      kernels' and its entry point after the serve phase): holds the
      int8 matmul kernels exactly (bit for bit)
@@ -206,8 +235,9 @@ NVIDIA GPU:
      line (the families' configurations of #4 and #5 as rows of their
      own, with the launches of their launcher or, where it has none or
      the row is float32, of their kernel-path run: ``FAMILY_ROWS``;
-     ``flash_decode_mla`` is #5's MLA kernel) and, last, the result
-     line.
+     ``flash_decode_mla`` is #5's MLA kernel; ``flash_attention_bwd``,
+     the backward of #4, with the training launcher's launches) and,
+     last, the result line.
 
 ``profiler_check`` runs at the start, in the int8 phase and at the end:
 it times a spin kernel of a fixed cycle count by CUDA events and under
@@ -240,7 +270,10 @@ the lock dump, which need the service phase); it prints no result
 line.  ``python3 chip_smoke.py --mla-decode`` builds the MLA decode
 library alone, prints its ``ptxas -v`` report (no spills) and its
 ``HMMA`` count (> 0), and runs the MLA_DECODE_SHAPES rows; it prints no
-result line.  Run from a ``git
+result line.  ``python3 chip_smoke.py --train`` builds the two prefill
+attention libraries and the backward's (its ``ptxas -v`` report: no
+spills) and runs the training phase; it prints the ``kernels`` line
+with the backward's row and no result line.  Run from a ``git
 archive`` of another commit, this script times that commit's kernels
 (a tree without the float32 plan skips its check).
 """
@@ -284,6 +317,8 @@ SOURCES = {"dp_multi_stacked": "src/repro_torch/csrc/dp_sweep.cu",
            # csrc/flash_attention.cu, as hymba's float32 window row says
            "flash_attention": "src/repro_torch/csrc/flash_attention_wgmma.cu",
            "flash_attention_f32": "src/repro_torch/csrc/flash_attention.cu",
+           "flash_attention_bwd":
+               "src/repro_torch/csrc/flash_attention_bwd.cu",
            "flash_decode": "src/repro_torch/csrc/flash_decode.cu",
            "flash_decode_mla": "src/repro_torch/csrc/flash_decode_mla.cu",
            "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu"}
@@ -292,6 +327,9 @@ REPLACES = {"dp_multi_stacked": "src/repro/kernels/dp_sweep.py:81",
             "path_components": "src/repro/kernels/dp_sweep.py:205",
             "flash_attention": "src/repro/kernels/flash_attention.py:81",
             "flash_attention_f32": "src/repro/kernels/flash_attention.py:81",
+            # no TPU kernel: the reference differentiates this jnp
+            # attention by autodiff
+            "flash_attention_bwd": "src/repro/models/layers.py:87",
             "flash_decode": "src/repro/kernels/flash_decode.py:68",
             "flash_decode_mla": "src/repro/kernels/flash_decode.py:68",
             "int8_matmul": "src/repro/kernels/int8_matmul.py:47"}
@@ -2407,14 +2445,14 @@ DEVICE_KINDS = (("attention kernels", ("flash_attention", "decode_split",
                 ("copies", ("Memcpy", "Memset")))
 
 
-def _by_kind(prof) -> str:
+def _by_kind(prof, kinds=DEVICE_KINDS) -> str:
     found = device_busy(prof)
     if found is None:
         return "device time not measured"
-    sums = {kind: 0.0 for kind, _ in DEVICE_KINDS}
+    sums = {kind: 0.0 for kind, _ in kinds}
     other = 0.0
     for name, (_, us) in found[1]:
-        for kind, keys in DEVICE_KINDS:
+        for kind, keys in kinds:
             if any(key in name for key in keys):
                 sums[kind] += us
                 break
@@ -3249,6 +3287,539 @@ def families_phase() -> dict:
     print(f"families: peak device memory "
           f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
     return counts
+
+
+# ---------------------------------------------------- training phase
+
+# the launcher at full width: tinyllama-1.1b (22 layers, d 2048, bf16,
+# remat on), 8 sequences of 2048 tokens, 6 steps, at lr 3e-5: from
+# this init, at the launcher's default of 3e-3 (the reference's, chosen
+# for --reduced runs) and at 3e-4 the loss swings above its start in
+# bf16 and float32 alike (TRAIN_LR_SWEEP prints it; PERF.md §6)
+TRAIN_ARGS = ["--arch", ARCH, "--batch", "8", "--seq", "2048",
+              "--steps", "6", "--lr", "3e-5"]
+# (dtype, lr) of the full-width trajectories printed beside the
+# launcher's, through the same train step
+TRAIN_LR_SWEEP = (("bfloat16", 3e-3), ("float32", 3e-4))
+# one full-width bf16 step, kernel path vs plain attention: loss and
+# gradient norm (their gradients agree to the bf16 level, leaf by leaf)
+TRAIN_FULL_TOL = 1e-3
+# (label, (b, h, kh, sq, sk, d, causal, q_offset, window, dtype)): the
+# backward kernel at tinyllama's training shape in bf16 (the JSON row)
+# and float32, hymba-1.5b's window (WINDOW_SHAPES' first row), whisper's
+# encoder and cross-attention, MLA's head of 192 (deepseek-v2-lite's
+# prefill row); then its edges: Sq and Sk off the tile grid with
+# q_offset > 0, GQA group 1 at D = 128 and group 8, rows that see no key
+# (q_offset < 0), window 1, a window off the tile grid over Sq < Sk
+BWD_SHAPES = (
+    ("tinyllama", (8, 32, 4, 2048, 2048, 64, True, 0, 0, "bfloat16")),
+    ("tinyllama", (8, 32, 4, 2048, 2048, 64, True, 0, 0, "float32")),
+    ("hymba window", (2, 25, 5, 2048, 2048, 64, True, 0, 1024,
+                      "bfloat16")),
+    ("whisper encoder", (2, 20, 20, 1500, 1500, 64, False, 0, 0,
+                         "bfloat16")),
+    ("whisper cross", (2, 20, 20, 448, 1500, 64, False, 0, 0, "bfloat16")),
+    ("mla", (2, 16, 16, 1024, 1024, 192, True, 0, 0, "bfloat16")),
+    ("mla", (1, 4, 4, 300, 300, 192, True, 0, 0, "float32")),
+    ("edge", (2, 8, 2, 300, 333, 64, True, 33, 0, "bfloat16")),
+    ("edge", (2, 8, 2, 300, 333, 64, True, 33, 0, "float32")),
+    ("edge", (2, 8, 8, 257, 257, 128, True, 0, 0, "bfloat16")),
+    ("edge", (2, 8, 8, 257, 257, 128, True, 0, 0, "float32")),
+    ("edge", (1, 8, 1, 200, 200, 64, True, 0, 0, "float32")),
+    ("edge", (1, 4, 2, 100, 60, 64, True, -40, 0, "bfloat16")),
+    ("edge", (1, 4, 2, 100, 60, 16, True, -40, 0, "float32")),
+    ("edge", (1, 10, 2, 300, 300, 64, True, 0, 1, "float32")),
+    ("edge", (1, 10, 2, 300, 1000, 48, True, 700, 333, "bfloat16")),
+    ("edge", (1, 10, 2, 300, 1000, 96, True, 700, 333, "float32")),
+)
+# float32: within 1e-4 x the largest |gradient| of the three (sums in
+# another order); bf16: the kernel's error against the float32 plain
+# backward within 1.5 x the plain bf16 backward's (its floor: the
+# gradients' rounding to bf16)
+BWD_F32_TOL, BWD_BF16_FACTOR = 1e-4, 1.5
+# one reduced float32 training step of the families whose attention the
+# kernels reach with another mask or head: (arch, config overrides);
+# hymba's window and whisper's encoder cross several 64-key tiles, and
+# deepseek-v2-lite keeps MLA's real heads (128 + 64 = 192)
+TRAIN_FAMILIES = (("hymba-1.5b", {"window": 100}),
+                  ("whisper-large-v3", {"encoder_seq": 150}),
+                  ("deepseek-v2-lite-16b", {"head_dim": 128,
+                                            "rope_head_dim": 64}))
+TRAIN_FAMILY_SEQ = 300
+TRAIN_GRAD_TOL = 1e-4
+# the device time of a training step by kind, from kernel names
+TRAIN_KINDS = (("attention forward", ("flash_attention_f32_kernel",
+                                      "flash_attention_wgmma_kernel")),
+               ("attention backward", ("dq_kernel", "dkv_kernel")),
+               ("cuBLAS products", ("gemm", "nvjet", "cutlass", "xmma")),
+               ("copies", ("Memcpy", "Memset")))
+
+
+def bwd_bound(b, h, kh, sq, sk, d, causal, q_offset, window, dtype
+              ) -> tuple[float, str, int, int]:
+    """q, the output and its cotangent read and dq written once, k and v
+    read and dk and dv written once; 10·D operations (five products:
+    QKᵀ again, dO Vᵀ, Pᵀ dO, dS K, dSᵀ Q) per (query, key) pair the mask
+    keeps, 2.5 x the forward's."""
+    elt = 2 if dtype == "bfloat16" else 4
+    nbytes = (4 * b * h * sq * d + 4 * b * kh * sk * d) * elt
+    fwd_ops = attention_bound(b, h, kh, sq, sk, d, causal, q_offset, dtype,
+                              window)[3]
+    return _bound_typed(nbytes, fwd_ops * 5 // 2, dtype)
+
+
+def bwd_rows(rows: dict, gen) -> None:
+    """``flash_attention_bwd`` at BWD_SHAPES against its plain version
+    (the same bits again on a second call), with its times beside its
+    bound, its plain version's and SDPA forward + backward's."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa
+
+    for label, (b, h, kh, sq, sk, d, causal, q_offset, window,
+                dtype) in BWD_SHAPES:
+        def randn(*shape):
+            return _randn(gen, *shape, dtype=dtype)
+
+        q, k, v = randn(b, h, sq, d), randn(b, kh, sk, d), randn(b, kh, sk, d)
+        do = randn(b, h, sq, d)
+        mask = dict(causal=causal, q_offset=q_offset, window=window)
+        out = fa.flash_attention(q, k, v, **mask)
+        got = fa.flash_attention_bwd(do, q, k, v, out, **mask)
+        again = fa.flash_attention_bwd(do, q, k, v, out, **mask)
+        want = fa.flash_attention_bwd_plain(do, q, k, v, out, **mask)
+        torch.cuda.synchronize()
+        name = _attn_label(b, h, kh, sq, sk, d, causal, dtype) + (
+            f" q_offset {q_offset}" if q_offset else "") + (
+            f" window {window}" if window else "")
+        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+              f"flash_attention_bwd at {name}: a second call gave other "
+              "bits")
+        err = max(_max_abs_err(x, y) for x, y in zip(got, want))
+        if dtype == "float32":
+            scale = max(float(y.abs().max()) for y in want)
+            rel, limit = err / scale, BWD_F32_TOL
+            detail = f"max abs err / max |grad| {rel!r} (limit {limit})"
+        else:
+            f32 = fa.flash_attention_bwd_plain(
+                do.float(), q.float(), k.float(), v.float(), out.float(),
+                **mask)
+            scale = max(float(y.abs().max()) for y in f32)
+            rel = max(_max_abs_err(x, y) for x, y in zip(got, f32)) / scale
+            floor = max(_max_abs_err(x, y) for x, y in zip(want, f32)) \
+                / scale
+            limit = BWD_BF16_FACTOR * floor
+            detail = (f"against the float32 backward {rel!r}, the plain "
+                      f"bf16 floor {floor!r} (limit {limit!r})")
+            del f32
+        print(f"bwd {label} {name}: {detail}", flush=True)
+        check(rel <= limit, f"flash_attention_bwd != plain at {name}: "
+              f"{detail}")
+        if q_offset < 0:
+            check(bool((got[0][:, :, :-q_offset] == 0).all()),
+                  f"flash_attention_bwd at {name}: rows that see no key "
+                  "have a gradient")
+        attn_mask = None
+        if window or (causal and sq != sk):
+            attn_mask = fa._keep_mask(sq, sk, q_offset, causal, window,
+                                      q.device)
+        lq, lk, lv = (t.detach().requires_grad_(True) for t in (q, k, v))
+
+        def library():
+            o = F.scaled_dot_product_attention(
+                lq, lk, lv, attn_mask=attn_mask,
+                is_causal=causal and attn_mask is None, enable_gqa=True)
+            torch.autograd.grad(o, (lq, lk, lv), do)
+
+        def kernel():
+            fa.flash_attention_bwd(do, q, k, v, out, **mask)
+
+        bound, by, nbytes, ops = bwd_bound(b, h, kh, sq, sk, d, causal,
+                                           q_offset, window, dtype)
+        _kernel_row(rows, "flash_attention_bwd", f"{label} {name}",
+                    time_ms(kernel), time_ms(
+                        lambda: fa.flash_attention_bwd_plain(
+                            do, q, k, v, out, **mask)),
+                    bound, by, err, time_ms(library), device_ms(kernel))
+        print(f"  bytes {nbytes}  operations {ops}  (SDPA: forward + "
+              "backward)", flush=True)
+        del q, k, v, do, out, got, again, want, lq, lk, lv
+        _free()
+
+
+def _loss_and_grads(params, cfg, batch):
+    """(loss, gradients of every parameter leaf) of ``forward_train``."""
+    import torch
+
+    from repro_torch.models.transformer import forward_train
+    from repro_torch.train._tree import leaves
+
+    params_l = leaves(params)
+    for p in params_l:
+        p.requires_grad_(True)
+    loss = forward_train(params, cfg, batch)
+    return loss.detach(), list(torch.autograd.grad(loss, params_l))
+
+
+def _grad_err(a: list, b: list) -> float:
+    """Max over leaves of max |a - b| / max |b|."""
+    return max(_max_abs_err(x, y) / max(float(y.abs().max()), 1e-30)
+               for x, y in zip(a, b))
+
+
+def train_launcher() -> dict:
+    """``repro_torch.launch.train`` at full width as users run it, launch
+    counts set to 0 just before and read just after; every loss and
+    gradient norm finite, the last loss below the first, the forward
+    kernel launched twice a layer a step (remat) and the backward kernel
+    once; then one more step under the profiler."""
+    import math
+
+    import torch
+
+    from repro_torch.launch import train as launch
+
+    _free()
+    train_full_parity()
+    torch.cuda.reset_peak_memory_stats()
+    _reset_counts()
+    tic = time.perf_counter()
+    out = launch.main(list(TRAIN_ARGS))
+    wall = time.perf_counter() - tic
+    counts = _counts()
+    peak = torch.cuda.max_memory_allocated()
+    hist = out["history"]
+    print(f"train cli: {' '.join(TRAIN_ARGS)}: wall {wall:.3f} s  launches "
+          f"{json.dumps(counts)}  peak device memory {peak} B "
+          f"({peak / 2**30:.2f} GiB)", flush=True)
+    for m in hist:
+        print(f"train step {m['step']}: loss {m['loss']!r}  grad_norm "
+              f"{m['grad_norm']!r}  lr {m['lr']!r}  step_time_s "
+              f"{m['step_time_s']!r}", flush=True)
+    steps = len(hist)
+    print(f"train steps 1-{steps - 1}: median step time "
+          f"{statistics.median(m['step_time_s'] for m in hist[1:])!r} s",
+          flush=True)
+    check(steps == 6 and all(math.isfinite(m["loss"])
+                             and math.isfinite(m["grad_norm"])
+                             for m in hist),
+          "the training launcher gave a non-finite loss or gradient norm")
+    check(hist[-1]["loss"] < hist[0]["loss"],
+          "the training launcher's loss did not fall")
+    layers = 22
+    check(counts["flash_attention"] == 2 * layers * steps,
+          f"the forward kernel launched {counts['flash_attention']} times "
+          f"in {steps} steps, not twice a layer a step")
+    check(counts["flash_attention_bwd"] == layers * steps,
+          f"the backward kernel launched {counts['flash_attention_bwd']} "
+          f"times in {steps} steps, not once a layer a step")
+    train_profile(out["params"], out["opt_state"])
+    del out
+    _free()
+    return counts
+
+
+def _full_width(dtype: str):
+    """(tinyllama-1.1b at full width in ``dtype``, seed-0 weights drawn
+    as the launcher draws them, its stream of 8 x 2048 tokens)."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.models.transformer import init_params
+
+    cfg = dataclasses.replace(get_config(ARCH), dtype=dtype)
+    params = init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                         DEVICE)
+    return cfg, params, SyntheticLMStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=2048, global_batch=8))
+
+
+def train_full_parity() -> None:
+    """One full-width bf16 step's loss and gradients on the kernel path
+    against plain attention on the same card tensors."""
+    import torch
+
+    from repro_torch.train.optimizer import global_norm
+
+    cfg, params, stream = _full_width("bfloat16")
+    batch = {k: torch.from_numpy(v).to(DEVICE)
+             for k, v in stream.batch(0).items()}
+    loss_k, grads_k = _loss_and_grads(params, cfg, batch)
+    with plain_attention():
+        loss_p, grads_p = _loss_and_grads(params, cfg, batch)
+    loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+    norm_k, norm_p = float(global_norm(grads_k)), float(global_norm(grads_p))
+    norm_err = abs(norm_k - norm_p) / norm_p
+    leaf = _grad_err(grads_k, grads_p)
+    print(f"train full width: one bf16 step, kernel vs plain attention: "
+          f"loss {float(loss_k)!r} / {float(loss_p)!r} (rel err "
+          f"{loss_err!r}), gradient norm {norm_k!r} / {norm_p!r} (rel err "
+          f"{norm_err!r}), worst leaf max |dg| / max |g| {leaf!r}; limit "
+          f"{TRAIN_FULL_TOL} on the loss and the norm", flush=True)
+    check(loss_err <= TRAIN_FULL_TOL and norm_err <= TRAIN_FULL_TOL,
+          "a full-width training step on the kernels differs from plain "
+          "attention")
+    del params, grads_k, grads_p
+    _free()
+
+
+def train_lr_sweep() -> None:
+    """The full-width loss and gradient norm of 6 steps at each
+    TRAIN_LR_SWEEP (dtype, lr), 5 warmup steps as the launcher sets
+    them (no check: where the launcher's learning rate comes from)."""
+    import torch
+
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+
+    steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+    for dtype, lr in TRAIN_LR_SWEEP:
+        cfg, params, stream = _full_width(dtype)
+        tcfg = TrainConfig(optimizer=AdamWConfig(lr=lr, warmup_steps=5,
+                                                 total_steps=steps))
+        opt_state = adamw_init(params, tcfg.optimizer)
+        step_fn = make_train_step(cfg, tcfg)
+        trace = []
+        for step in range(steps):
+            params, opt_state, metrics = step_fn(params, opt_state,
+                                                 stream.batch(step))
+            trace.append((float(metrics["loss"]),
+                          float(metrics["grad_norm"])))
+        print(f"train lr sweep: {dtype} lr {lr}: (loss, grad_norm) by step "
+              f"{trace}", flush=True)
+        del params, opt_state
+        _free()
+    torch.cuda.synchronize()
+
+
+def train_profile(params, opt_state) -> None:
+    """One more full-width step (the launcher's next batch) under
+    ``torch.profiler``: wall, device busy, idle share and device time
+    by kind."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+
+    cfg = get_config(ARCH)
+    steps = int(TRAIN_ARGS[TRAIN_ARGS.index("--steps") + 1])
+    lr = float(TRAIN_ARGS[TRAIN_ARGS.index("--lr") + 1])
+    step_fn = make_train_step(cfg, TrainConfig(optimizer=AdamWConfig(
+        lr=lr, warmup_steps=5, total_steps=steps)))
+    batch = SyntheticLMStream(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=2048, global_batch=8)).batch(
+            steps)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        tic = time.perf_counter()
+        step_fn(params, opt_state, batch)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - tic) * 1e6
+    _print_busy("train profile: one full-width step", prof, wall_us)
+    print(f"train profile by kind: {_by_kind(prof, TRAIN_KINDS)}",
+          flush=True)
+
+
+def train_card_vs_cpu() -> dict:
+    """Reduced float32 tinyllama, the same weights (drawn on the host)
+    and batches: four train steps on the card against four on the CPU
+    port; losses within 1e-5 relative, parameters within 1e-4 x max
+    |p|.  Returns the card run's launch counts."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.models.transformer import init_params
+    from repro_torch.train._tree import leaves, tree_map
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+
+    cfg = get_config(ARCH).reduced()
+    tcfg = TrainConfig(optimizer=AdamWConfig(lr=3e-3, warmup_steps=2,
+                                             total_steps=4))
+    stream = SyntheticLMStream(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=256, global_batch=4))
+    cpu = init_params(cfg, torch.Generator().manual_seed(0), "cpu")
+    card = tree_map(lambda t: t.to(DEVICE, copy=True), cpu)
+    state = {"cpu": (cpu, adamw_init(cpu, tcfg.optimizer)),
+             "card": (card, adamw_init(card, tcfg.optimizer))}
+    step_fn = make_train_step(cfg, tcfg)
+    _reset_counts()
+    worst = 0.0
+    for step in range(4):
+        batch = stream.batch(step)
+        losses = {}
+        for where, (params, opt_state) in state.items():
+            params, opt_state, metrics = step_fn(params, opt_state, batch)
+            state[where] = (params, opt_state)
+            losses[where] = float(metrics["loss"])
+        worst = max(worst, abs(losses["card"] - losses["cpu"])
+                    / abs(losses["cpu"]))
+    counts = _counts()
+    p_err = _grad_err([t.detach().cpu() for t in leaves(state["card"][0])],
+                      [t.detach() for t in leaves(state["cpu"][0])])
+    print(f"train card vs cpu: reduced float32 {ARCH}, 4 steps of 4 x 256 "
+          f"tokens: loss rel err {worst!r} (limit 1e-5), parameters max "
+          f"|dp| / max |p| {p_err!r} (limit 1e-4); launches "
+          f"{json.dumps(counts)}", flush=True)
+    check(worst <= 1e-5 and p_err <= 1e-4,
+          "the card's training steps differ from the CPU port's")
+    check(counts["flash_attention_bwd"] == 4 * cfg.n_layers,
+          "the reduced float32 run did not launch the backward kernel "
+          "once a layer a step")
+    return counts
+
+
+def train_drill() -> None:
+    """The crash-restart drill of tests/test_fault_tolerance.py on the
+    card: reduced tinyllama, crash after step 7, restart from the step-6
+    checkpoint; losses within 1e-5 relative and parameters within rtol
+    1e-5 / atol 1e-6 of a clean run; prints whether they are
+    bit-identical."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.train._tree import leaves
+    from repro_torch.train.elastic import (
+        CrashRequested,
+        ElasticRun,
+        run_elastic,
+    )
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import TrainConfig
+
+    cfg = get_config(ARCH).reduced()
+    with tempfile.TemporaryDirectory() as tmp:
+        def run(sub: str) -> ElasticRun:
+            return ElasticRun(
+                cfg=cfg, tcfg=TrainConfig(optimizer=AdamWConfig(
+                    lr=1e-3, warmup_steps=2, total_steps=12)),
+                data=DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                                global_batch=4),
+                ckpt_dir=pathlib.Path(tmp) / sub, ckpt_every=3)
+
+        clean = run_elastic(run("a"), total_steps=12, device=DEVICE)
+        crashed = False
+        try:
+            run_elastic(run("b"), total_steps=12, crash_at=7, device=DEVICE)
+        except CrashRequested:
+            crashed = True
+        resumed = run_elastic(run("b"), total_steps=12, device=DEVICE)
+    check(crashed and resumed["resumed_from"] == 7,
+          "the drill did not crash after step 7 and resume at step 7")
+    want = {h["step"]: h["loss"] for h in clean["history"]}
+    loss_ok = all(abs(want[h["step"]] - h["loss"]) <= 1e-5 * abs(h["loss"])
+                  for h in resumed["history"])
+    a = [t.detach().cpu().float().numpy() for t in leaves(clean["params"])]
+    b = [t.detach().cpu().float().numpy()
+         for t in leaves(resumed["params"])]
+    close = all(np.allclose(x, y, rtol=1e-5, atol=1e-6)
+                for x, y in zip(a, b))
+    same = all(torch.equal(x, y) for x, y in zip(
+        leaves([clean["params"], clean["opt_state"]]),
+        leaves([resumed["params"], resumed["opt_state"]]))) and all(
+        want[h["step"]] == h["loss"] for h in resumed["history"])
+    print(f"train drill: crash after step 7, resumed at "
+          f"{resumed['resumed_from']}: losses within 1e-5 {loss_ok}, "
+          f"parameters within rtol 1e-5 / atol 1e-6 {close}, bit-identical "
+          f"to the clean run {same}", flush=True)
+    check(loss_ok and close, "the card's crash-restart drill diverged from "
+          "its clean run")
+
+
+def train_families() -> None:
+    """One reduced float32 training step (loss and gradients, remat on)
+    of each TRAIN_FAMILIES config on the kernel path against the same
+    step with the plain attention (``plain_attention``) on the card;
+    then a planted fault the tolerance must catch: hymba's step with a
+    backward that drops the window."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.transformer import init_params
+
+    for arch, over in TRAIN_FAMILIES:
+        cfg = get_config(arch).reduced(remat=True, **over)
+        params = init_params(cfg, torch.Generator(device=DEVICE)
+                             .manual_seed(0), DEVICE)
+        batch = {k: torch.from_numpy(v).to(DEVICE) for k, v in
+                 SyntheticLMStream(DataConfig(
+                     vocab_size=cfg.vocab_size, seq_len=TRAIN_FAMILY_SEQ,
+                     global_batch=2)).batch(0).items()}
+        if cfg.family == "audio":
+            batch["encoder_frames"] = torch.randn(
+                (2, cfg.encoder_seq, cfg.d_model), device=DEVICE,
+                generator=torch.Generator(device=DEVICE).manual_seed(1))
+        _reset_counts()
+        loss_k, grads_k = _loss_and_grads(params, cfg, batch)
+        counts = _counts()
+        with plain_attention():
+            loss_p, grads_p = _loss_and_grads(params, cfg, batch)
+        loss_err = abs(float(loss_k) - float(loss_p)) / abs(float(loss_p))
+        grad_err = _grad_err(grads_k, grads_p)
+        print(f"train family {arch} (reduced, {over}, 2 x "
+              f"{TRAIN_FAMILY_SEQ} tokens): kernel vs plain attention: loss "
+              f"rel err {loss_err!r}, gradients max |dg| / max |g| "
+              f"{grad_err!r} (limit {TRAIN_GRAD_TOL}); launches "
+              f"{json.dumps(counts)}", flush=True)
+        check(loss_err <= 1e-5 and grad_err <= TRAIN_GRAD_TOL,
+              f"{arch}: the kernel path's training step differs from the "
+              "plain attention's")
+        check(counts["flash_attention"] > 0
+              and counts["flash_attention_bwd"] > 0,
+              f"{arch}: the training step did not launch both kernels")
+        if cfg.family == "hybrid":
+            right = fa.flash_attention_bwd
+
+            def no_window(*args, **kw):
+                return right(*args, **{**kw, "window": 0})
+
+            fa.flash_attention_bwd = no_window
+            try:
+                _, grads_f = _loss_and_grads(params, cfg, batch)
+            finally:
+                fa.flash_attention_bwd = right
+            fault = _grad_err(grads_f, grads_p)
+            print(f"train family {arch}: planted fault (the backward drops "
+                  f"the window): gradients max |dg| / max |g| {fault!r} "
+                  f"against the limit {TRAIN_GRAD_TOL}", flush=True)
+            check(fault > TRAIN_GRAD_TOL, "the training tolerance passes a "
+                  "backward that drops the window")
+        del params, grads_k, grads_p
+        _free()
+
+
+def train_phase() -> tuple[list[dict], dict]:
+    """The backward kernel's rows, the launcher at full width, the card
+    against the CPU port, the drill and the families' steps; returns
+    (the JSON rows, the full-width run's launch counts)."""
+    import torch
+
+    _free()
+    rows: dict[str, dict] = {}
+    tic = time.perf_counter()
+    bwd_rows(rows, torch.Generator(device=DEVICE).manual_seed(0))
+    print(f"phase train rows: {time.perf_counter() - tic:.3f} s", flush=True)
+    tic = time.perf_counter()
+    counts = train_launcher()
+    print(f"phase train cli: {time.perf_counter() - tic:.3f} s", flush=True)
+    tic = time.perf_counter()
+    train_lr_sweep()
+    train_card_vs_cpu()
+    train_drill()
+    train_families()
+    print(f"phase train checks: {time.perf_counter() - tic:.3f} s",
+          flush=True)
+    return list(rows.values()), counts
 
 
 # ------------------------------------------------------- int8 phase
@@ -4674,8 +5245,9 @@ def build_all() -> None:
     from repro_torch.kernels import flash_decode as fd
 
     libs = ([m.LIBRARY for m in _kernel_modules()]
-            + [fa.WGMMA_LIBRARY, fd.MLA_LIBRARY])
-    reported = (fa.LIBRARY, fa.WGMMA_LIBRARY, fd.MLA_LIBRARY)
+            + [fa.WGMMA_LIBRARY, fa.BWD_LIBRARY, fd.MLA_LIBRARY])
+    reported = (fa.LIBRARY, fa.WGMMA_LIBRARY, fd.MLA_LIBRARY,
+                fa.BWD_LIBRARY)
 
     def build(lib):
         tic = time.perf_counter()
@@ -4701,6 +5273,7 @@ def build_all() -> None:
         print(f"sass: {lib.path().name}: {n} {op} instructions", flush=True)
         check(n > 0, f"the {what} library holds no {op}")
     check_no_spills(mla_report)
+    check_no_spills(usage[reported.index(fa.BWD_LIBRARY)].result())
 
 
 def sweep_kernels_only(k_best: int) -> int:
@@ -4896,6 +5469,33 @@ def lm_families_only() -> int:
     return 0
 
 
+def train_only() -> int:
+    """``--train``: build the two prefill attention libraries and the
+    backward's alone (the backward's ``ptxas -v`` report beside them: no
+    spills), run the training phase; no result line."""
+    from repro_torch.kernels import flash_attention as fa
+
+    libs = (fa.LIBRARY, fa.WGMMA_LIBRARY, fa.BWD_LIBRARY)
+    tic = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(libs) + 1) as pool:
+        usage = pool.submit(ptxas_usage, fa.BWD_LIBRARY)
+        for path in pool.map(lambda lib: lib.build(), libs):
+            print(f"build: {path.name}", flush=True)
+        report = usage.result()
+    for lib in libs:
+        lib.load()
+    print(report, flush=True)
+    print(f"build: all in {time.perf_counter() - tic:.2f} s", flush=True)
+    check_no_spills(report)
+    tic = time.perf_counter()
+    rows, counts = train_phase()
+    print(f"phase train: {time.perf_counter() - tic:.3f} s", flush=True)
+    for row in rows:
+        row["launches"] = counts[row["name"]]
+    print(json.dumps({"kernels": rows}), flush=True)
+    return 0
+
+
 def control_only() -> int:
     """``--control``: build the rail-sweep library alone and run the
     control phase; no result line."""
@@ -4952,6 +5552,8 @@ def main(argv: list[str]) -> int:
         return lm_families_only()
     if argv == ["--mla-decode"]:
         return mla_decode_only()
+    if argv == ["--train"]:
+        return train_only()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -4975,6 +5577,10 @@ def main(argv: list[str]) -> int:
     ssm_phase()
     family_counts.update(families_phase())
     tic = time.perf_counter()
+    train_rows, train_counts = train_phase()
+    rows += train_rows
+    print(f"phase train: {time.perf_counter() - tic:.3f} s", flush=True)
+    tic = time.perf_counter()
     int8_counts = int8_path_phase()
     print(f"phase int8: {time.perf_counter() - tic:.3f} s", flush=True)
     tic = time.perf_counter()
@@ -4995,6 +5601,8 @@ def main(argv: list[str]) -> int:
         if name in FAMILY_ROWS:
             run, counter = FAMILY_ROWS[name]
             row["launches"] = family_counts[run][counter]
+        elif name == "flash_attention_bwd":
+            row["launches"] = train_counts[name]
         else:
             row["launches"] = (serve_counts if name.startswith("flash")
                                else int8_counts if name == "int8_matmul"

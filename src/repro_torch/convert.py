@@ -13,7 +13,9 @@ the port reads what the reference writes without importing it:
     with routed experts ``[L, E, d, f]``, MLA's latent projections and
     whisper's stacked ``enc_layers``, ``enc_lnf`` and cross projections;
     ssm a list of per-layer dicts of two kinds) → the port's parameters,
-    so both packages compute with the same weights.
+    so both packages compute with the same weights;
+  - :func:`opt_state_from_numpy` — a reference AdamW state ``{m, v,
+    count}`` → the port's, so both packages take the same step.
 
 A reference ``PowerSchedule.to_json`` payload is read by the port's own
 :meth:`~repro_torch.core.schedule.PowerSchedule.from_json` (same schema,
@@ -87,6 +89,31 @@ def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
     per-layer dicts (mLSTM and sLSTM layers differ in their names).
     Every name and shape must be the one
     :func:`repro_torch.models.transformer.init_params` makes."""
+    return _lm_tree(tree, cfg, device, lambda arr: cfg.torch_dtype)
+
+
+def opt_state_from_numpy(tree: Mapping, cfg: ModelConfig,
+                         device: str | torch.device = "cuda") -> dict:
+    """The port's AdamW state from a reference one (``{"m", "v",
+    "count"}`` as numpy, from ``repro.train.optimizer.adamw_init`` or a
+    step of ``adamw_update``): ``m`` and ``v`` laid out as
+    :func:`lm_params_from_numpy` lays out the parameters of ``cfg``,
+    each moment in its own dtype (``bfloat16`` by its name, else
+    float32), ``count`` an int32 scalar; on ``device``."""
+    def moment_dtype(arr):
+        return torch.bfloat16 if str(arr.dtype) == "bfloat16" \
+            else torch.float32
+
+    return {"m": _lm_tree(tree["m"], cfg, device, moment_dtype),
+            "v": _lm_tree(tree["v"], cfg, device, moment_dtype),
+            "count": torch.tensor(int(np.asarray(tree["count"])),
+                                  dtype=torch.int32, device=device)}
+
+
+def _lm_tree(tree: Mapping, cfg: ModelConfig, device,
+             dtype_of) -> dict:
+    """A reference tree of the LM's parameter layout as the port's
+    tensors, each in ``dtype_of(numpy array)``."""
     tree = dict(tree)
     layers = tree.get("layers")
     if isinstance(layers, (list, tuple)) and cfg.family != "ssm":
@@ -110,12 +137,12 @@ def lm_params_from_numpy(tree: Mapping, cfg: ModelConfig,
             if isinstance(shape, (dict, list)):
                 out[key] = convert(node[key], shape, f"{path}.{key}")
                 continue
+            dtype = dtype_of(node[key])
             arr = np.array(node[key], np.float32)          # a copy
             if arr.shape != tuple(shape):
                 raise ValueError(f"LM parameter {path}.{key} has shape "
                                  f"{arr.shape}, expected {tuple(shape)}")
-            out[key] = torch.from_numpy(arr).to(device=device,
-                                                dtype=cfg.torch_dtype)
+            out[key] = torch.from_numpy(arr).to(device=device, dtype=dtype)
         return out
 
     return convert(tree, param_shapes(cfg), "")

@@ -1,0 +1,3 @@
+from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+
+__all__ = ["DataConfig", "SyntheticLMStream"]

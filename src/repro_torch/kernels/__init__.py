@@ -5,7 +5,9 @@ PyTorch version and launch count:
     sweep's three solver kernels (``csrc/dp_sweep.cu``);
   - :mod:`~repro_torch.kernels.flash_attention` — prefill attention
     (``csrc/flash_attention_wgmma.cu`` in bf16,
-    ``csrc/flash_attention.cu`` in float32);
+    ``csrc/flash_attention.cu`` in float32) and its backward
+    (``csrc/flash_attention_bwd.cu``, through a
+    ``torch.autograd.Function``);
   - :mod:`~repro_torch.kernels.flash_decode` — decode attention over
     the KV cache (``csrc/flash_decode.cu``), and MLA's absorbed decode
     over its latent cache (``csrc/flash_decode_mla.cu``: bf16 on the

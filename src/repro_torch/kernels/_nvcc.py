@@ -106,3 +106,18 @@ def raise_on(name: str, err: int) -> None:
     if err != 0:
         raise RuntimeError(f"{name}: CUDA kernel launch failed "
                            f"(cudaError {err})")
+
+
+def refuse_grad(name: str, tensors: dict) -> None:
+    """Raise when autograd is on and an input of a kernel that has no
+    backward requires a gradient: the kernel's output would carry none
+    (the plain versions on the CPU differentiate as PyTorch does)."""
+    import torch
+
+    if not torch.is_grad_enabled():
+        return
+    for key, t in tensors.items():
+        if t.requires_grad:
+            raise RuntimeError(f"{name}: {key} requires grad, but the "
+                               "kernel has no backward; call it under "
+                               "torch.no_grad() or detach the input")

@@ -31,6 +31,15 @@ On a tensor that lies on the CPU the wrapper computes
 :func:`flash_attention_plain`, at any head dim; on a CUDA tensor it
 launches the kernel of its dtype, built for :data:`HEAD_DIMS`, or
 raises.  Every launch adds one to :data:`LAUNCHES`.
+
+The wrapper carries the gradient: it is a ``torch.autograd.Function``
+whose backward is :func:`flash_attention_bwd`, the hand-written kernel
+``repro_torch/csrc/flash_attention_bwd.cu`` (both dtypes, every mask
+and head dim the forward takes; it replaces no TPU kernel: the
+reference trains through ``flash_attention_jnp`` under autodiff) on a
+CUDA tensor, :func:`flash_attention_bwd_plain` on a CPU tensor.  The
+backward recomputes the row statistics itself, so the forward kernels
+save nothing beyond their inputs and output.
 """
 
 from __future__ import annotations
@@ -58,15 +67,17 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 
 SOURCE = CSRC / "flash_attention.cu"
 WGMMA_SOURCE = CSRC / "flash_attention_wgmma.cu"
+BWD_SOURCE = CSRC / "flash_attention_bwd.cu"
 # held by tolerance, so FMA contraction stays on
 NVCC_FLAGS = BASE_FLAGS
 
 #: kernel launches since the last :func:`reset_launch_counts`
-LAUNCHES = {"flash_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_bwd": 0}
 
 
 def reset_launch_counts() -> None:
-    LAUNCHES["flash_attention"] = 0
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
 
 
 def _declare(entry: str, plan: str | None = None
@@ -91,6 +102,18 @@ LIBRARY = CudaLibrary(SOURCE, NVCC_FLAGS,
 #: bfloat16 tensor-core kernel (``pfdnn_flash_attention_bf16``)
 WGMMA_LIBRARY = CudaLibrary(WGMMA_SOURCE, NVCC_FLAGS,
                             _declare("pfdnn_flash_attention_bf16"))
+
+
+def _declare_bwd(lib: ctypes.CDLL) -> None:
+    fn = lib.pfdnn_flash_attention_bwd
+    p, i = ctypes.c_void_p, ctypes.c_int
+    fn.argtypes = [p] * 9 + [i] * 10 + [ctypes.c_float, p]
+    fn.restype = ctypes.c_int
+
+
+#: the backward (``pfdnn_flash_attention_bwd``: both dtypes, float32
+#: arithmetic on the CUDA cores)
+BWD_LIBRARY = CudaLibrary(BWD_SOURCE, NVCC_FLAGS, _declare_bwd)
 
 
 #: query rows a CTA of the float32 kernel owns; keys a K/V tile (the
@@ -215,19 +238,55 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     """``q [B, H, Sq, D]`` × ``k/v [B, KH, Sk, D]`` → ``[B, H, Sq, D]``
     in q's dtype; ``H`` a multiple of ``KH``; ``q_offset`` places the
     queries for the causal and window masks; ``window`` > 0 keeps only
-    the keys with ``q_pos - k_pos < window`` (0: no window)."""
+    the keys with ``q_pos - k_pos < window`` (0: no window).
+    Differentiable in q, k and v through :func:`flash_attention_bwd`."""
     name = "flash_attention"
     window = int(window)
     if window < 0:
         raise ValueError(f"{name}: window must be >= 0, got {window}")
+    _check_shapes(name, q, k, v)
+    return _FlashAttention.apply(q, k, v, bool(causal), int(q_offset),
+                                 window)
+
+
+def _check_shapes(name: str, q: torch.Tensor, k: torch.Tensor,
+                  v: torch.Tensor) -> None:
     check_attention_args(name, q, k, v, "[B, H, Sq, D]", "[B, KH, Sk, D]")
     if q.dim() != 4 or k.dim() != 4:
         raise ValueError(f"{name}: q [B, H, Sq, D] and k/v [B, KH, Sk, D]")
-    B, H, Sq, D = q.shape
-    _, KH, Sk, _ = k.shape
+    B, H = q.shape[:2]
+    KH = k.shape[1]
     if k.shape[0] != B or KH == 0 or H % KH:
         raise ValueError(f"{name}: batch or head counts disagree: q "
                          f"{tuple(q.shape)}, k {tuple(k.shape)}")
+
+
+class _FlashAttention(torch.autograd.Function):
+    """The forward kernel (plain version on the CPU), saving q, k, v and
+    the output; the backward kernel (plain version on the CPU)."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, q_offset, window):
+        out = _forward(q, k, v, causal, q_offset, window)
+        ctx.save_for_backward(q, k, v, out)
+        ctx.mask = (causal, q_offset, window)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out = ctx.saved_tensors
+        causal, q_offset, window = ctx.mask
+        dq, dk, dv = flash_attention_bwd(dout.contiguous(), q, k, v, out,
+                                         causal=causal, q_offset=q_offset,
+                                         window=window)
+        return dq, dk, dv, None, None, None
+
+
+def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+             causal: bool, q_offset: int, window: int) -> torch.Tensor:
+    name = "flash_attention"
+    B, H, Sq, D = q.shape
+    _, KH, Sk, _ = k.shape
     if q.device.type == "cpu":
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_offset=q_offset, window=window)
@@ -273,6 +332,94 @@ def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True)
     out = torch.matmul(p.to(v.dtype).float(), vf.float())
     return (out / l.clamp_min(1e-30)).to(q.dtype)
+
+
+def flash_attention_bwd(dout: torch.Tensor, q: torch.Tensor,
+                        k: torch.Tensor, v: torch.Tensor,
+                        out: torch.Tensor, *, causal: bool = True,
+                        q_offset: int = 0, window: int = 0
+                        ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``(dq, dk, dv)`` of :func:`flash_attention` at ``q, k, v`` (shapes
+    and mask as there) for the cotangent ``dout`` of its output ``out``,
+    in q's dtype.  On CPU tensors :func:`flash_attention_bwd_plain`; on
+    CUDA tensors one call launches the backward kernel (its statistics
+    and dQ pass, then its dK/dV pass) or raises."""
+    name = "flash_attention_bwd"
+    _check_shapes(name, q, k, v)
+    for key, t in (("dout", dout), ("out", out)):
+        if t.shape != q.shape or t.dtype != q.dtype \
+                or t.device != q.device:
+            raise ValueError(f"{name}: {key} must match q ({tuple(q.shape)}"
+                             f" {q.dtype} on {q.device}), got "
+                             f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    window = int(window)
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(dout, q, k, v, out, causal=causal,
+                                         q_offset=q_offset, window=window)
+    if q.device.type != "cuda":
+        raise ValueError(f"{name}: unsupported device {q.device}")
+    check_cuda_operands(name, dict(q=q, k=k, v=v, out=out, dout=dout))
+    B, H, Sq, D = q.shape
+    _, KH, Sk, _ = k.shape
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+        torch.empty_like(v)
+    if q.numel() == 0 or k.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    # the rows' max, 1 / sum and rowsum(dO ∘ O), from the first kernel
+    # to the second
+    stats = torch.empty((3, B * H * Sq), dtype=torch.float32,
+                        device=q.device)
+    entry = BWD_LIBRARY.load().pfdnn_flash_attention_bwd
+    with torch.cuda.device(q.device):
+        err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
+                    out.data_ptr(), dout.data_ptr(), dq.data_ptr(),
+                    dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), B, H,
+                    KH, Sq, Sk, D, int(q_offset), int(bool(causal)),
+                    window, DTYPES[q.dtype], softmax_scale(D),
+                    stream_of(q.device))
+    raise_on(name, err)
+    LAUNCHES[name] += 1
+    return dq, dk, dv
+
+
+def flash_attention_bwd_plain(dout: torch.Tensor, q: torch.Tensor,
+                              k: torch.Tensor, v: torch.Tensor,
+                              out: torch.Tensor, *, causal: bool = True,
+                              q_offset: int = 0, window: int = 0
+                              ) -> tuple[torch.Tensor, torch.Tensor,
+                                         torch.Tensor]:
+    """Plain PyTorch version of :func:`flash_attention_bwd`, the formula
+    the kernel computes, in float32: S and P recomputed with the
+    forward's ``NEG_INF`` masks and ``0.5·NEG_INF`` clamp (``P = exp(S −
+    m) / max(l, 1e-30)``), ``dV = Pᵀ dO``, ``dP = dO Vᵀ``, ``δ =
+    rowsum(dO ∘ O)``, ``dS = P ∘ (dP − δ)``, ``dQ = dS K · scale``, ``dK
+    = dSᵀ Q · scale``, with GQA's dK and dV summed over each KV head's
+    group; cast to q's dtype."""
+    B, H, Sq, D = q.shape
+    KH, Sk = k.shape[1], k.shape[2]
+    g = H // KH
+    scale = softmax_scale(D)
+    qf, do = q.float(), dout.float()
+    kf = k.float().repeat_interleave(g, dim=1)
+    vf = v.float().repeat_interleave(g, dim=1)
+    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
+    keep = _keep_mask(Sq, Sk, q_offset, causal, window, q.device)
+    if keep is not None:
+        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    m = s.amax(dim=-1, keepdim=True).clamp_min(0.5 * NEG_INF)
+    p = torch.exp(s - m)
+    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    del s
+    dv = torch.matmul(p.transpose(-1, -2), do)
+    ds = torch.matmul(do, vf.transpose(-1, -2))
+    ds -= (do * out.float()).sum(dim=-1, keepdim=True)
+    ds *= p
+    del p
+    dq = torch.matmul(ds, kf) * scale
+    dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
+    dk = dk.view(B, KH, g, Sk, D).sum(dim=2)
+    dv = dv.view(B, KH, g, Sk, D).sum(dim=2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _keep_mask(sq: int, sk: int, q_offset: int, causal: bool,

@@ -42,6 +42,7 @@ from repro_torch.kernels._nvcc import (
     CSRC,
     CudaLibrary,
     raise_on,
+    refuse_grad,
     stream_of,
 )
 from repro_torch.kernels.flash_attention import (
@@ -159,6 +160,7 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if H // KH > MAX_GROUP:
         raise ValueError(f"{name}: {H // KH} query heads per KV head; "
                          f"the kernel serves at most {MAX_GROUP}")
+    refuse_grad(name, dict(q=q, k=k, v=v))
     check_cuda_operands(name, dict(q=q, k=k, v=v, length=length))
     out = torch.empty_like(q)
     if out.numel() == 0:
@@ -283,6 +285,7 @@ def flash_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
     if (R, DR) != MLA_WIDTHS:
         raise ValueError(f"{name}: widths (R, DR) = {(R, DR)}; the kernel "
                          f"is built for {MLA_WIDTHS}")
+    refuse_grad(name, tensors)
     check_cuda_operands(name, dict(tensors, length=length))
     out = torch.empty_like(q_lat)
     if out.numel() == 0:

@@ -32,6 +32,7 @@ from repro_torch.kernels._nvcc import (
     CSRC,
     CudaLibrary,
     raise_on,
+    refuse_grad,
     stream_of,
 )
 
@@ -149,6 +150,7 @@ def _check_cuda(x, w, x_scale, w_scale) -> None:
     name = "int8_matmul"
     if x.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {x.device}")
+    refuse_grad(name, dict(x_scale=x_scale, w_scale=w_scale))
     for key, t in (("x", x), ("x_scale", x_scale), ("w_scale", w_scale)):
         if not t.is_contiguous():
             raise ValueError(f"{name}: {key} must be contiguous")

@@ -18,7 +18,12 @@ mLSTM and sLSTM blocks, a per-layer recurrent state).
     ``mamba``, a :class:`~repro_torch.models.ssm.GlsState` stacked on
     the layer axis; ssm ``layers``, one recurrent state a layer; and
     ``lengths [B]``);
-  - ``decode_step``: one token per sequence through the cached state.
+  - ``decode_step``: one token per sequence through the cached state;
+  - ``forward_train``: the full-sequence causal forward (no cache)
+    feeding the chunked cross-entropy (``chunked_softmax_xent``, never
+    ``[B, S, V]`` at once), differentiable: attention's kernel carries
+    its own backward kernel (:mod:`repro_torch.kernels.flash_attention`),
+    and ``cfg.remat`` checkpoints each layer's activations.
 
 Attention goes through the hand-written CUDA kernels behind the
 wrappers of :mod:`repro_torch.kernels.ops` (prefill, the encoder and
@@ -52,6 +57,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
@@ -522,7 +528,10 @@ def slstm_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def embed_tokens(params: dict, cfg: ModelConfig,
                  tokens: torch.Tensor) -> torch.Tensor:
-    return params["embed"][tokens.long()].to(cfg.torch_dtype)
+    # F.embedding, not advanced indexing: its backward sums each row's
+    # gradient in a fixed order on the CPU and the card (indexing's
+    # accumulating index_put_ does not), so a train step repeats exactly
+    return F.embedding(tokens.long(), params["embed"]).to(cfg.torch_dtype)
 
 
 def _sinusoidal(positions: torch.Tensor, d: int,
@@ -564,20 +573,103 @@ def _positions_for(cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _encode_audio(params: dict, cfg: ModelConfig,
-                  frames: torch.Tensor) -> torch.Tensor:
+                  frames: torch.Tensor, *,
+                  remat: bool = False) -> torch.Tensor:
     """Whisper's encoder over stub frame embeddings ``[B, S_enc, d]``:
-    sinusoidal positions, non-causal attention blocks, a final norm."""
+    sinusoidal positions, non-causal attention blocks, a final norm;
+    ``remat``: each layer under activation checkpointing (training)."""
     x = frames.to(device=params["embed"].device, dtype=cfg.torch_dtype)
     x = x + _sinusoidal(torch.arange(x.shape[1], device=x.device),
                         cfg.d_model, x.dtype)[None]
     pos = torch.arange(x.shape[1], device=x.device)[None].expand(
         x.shape[0], -1)
-    for i in range(cfg.n_encoder_layers):
-        lp = layer_params(params, i, "enc_layers")
-        x = x + _attention_full(lp, cfg, _norm(lp, "ln1", x, cfg), pos,
+
+    def body(h, lp):
+        h = h + _attention_full(lp, cfg, _norm(lp, "ln1", h, cfg), pos,
                                 causal=False)
-        x = x + _ffn(lp, cfg, _norm(lp, "ln2", x, cfg))
+        return h + _ffn(lp, cfg, _norm(lp, "ln2", h, cfg))
+
+    for i in range(cfg.n_encoder_layers):
+        x = _remat(body, remat)(x, layer_params(params, i, "enc_layers"))
     return _norm(params, "enc_lnf", x, cfg)
+
+
+def _remat(fn, on: bool):
+    """``fn`` under activation checkpointing when ``on`` (the
+    reference's ``jax.checkpoint``): its activations are recomputed in
+    the backward pass, not kept."""
+    if not on:
+        return fn
+    return lambda *args: checkpoint(fn, *args, use_reentrant=False)
+
+
+def chunked_softmax_xent(params: dict, cfg: ModelConfig, x: torch.Tensor,
+                         labels: torch.Tensor,
+                         chunk: int = 1024) -> torch.Tensor:
+    """Mean next-token cross-entropy without materializing ``[B, S,
+    V]``: sequence chunks of ``chunk`` positions (the last one padded
+    with label -1), float32 logits, label -1 ignored; each chunk's NLL
+    sum and valid count added in chunk order, as the reference's scan
+    does."""
+    b, s, d = x.shape
+    w = params["embed"].t() if cfg.tie_embeddings else params["head"]
+    x = _norm(params, "lnf", x, cfg)
+    labels = labels.to(x.device)
+    c = min(chunk, s)
+    nc = -(-s // c)
+    pad = nc * c - s
+    if pad:
+        x = F.pad(x, (0, 0, 0, pad))
+        labels = F.pad(labels, (0, pad), value=-1)
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    count = torch.zeros((), dtype=torch.int32, device=x.device)
+    for j in range(nc):
+        xb, lb = x[:, j * c:(j + 1) * c], labels[:, j * c:(j + 1) * c]
+        logits = (xb @ w).float()
+        lse = torch.logsumexp(logits, dim=-1)
+        picked = torch.gather(logits, -1,
+                              lb.clamp_min(0).long()[..., None])[..., 0]
+        valid = lb >= 0
+        nll = torch.where(valid, lse - picked, 0.0)
+        total = total + nll.sum()
+        count = count + valid.sum(dtype=torch.int32)
+    return total / count.clamp_min(1)
+
+
+def forward_train(params: dict, cfg: ModelConfig,
+                  batch: dict) -> torch.Tensor:
+    """Full-sequence forward → mean cross-entropy loss (the train
+    step's objective), for every family: ``batch["tokens"]`` and
+    ``batch["labels"]`` ``[B, S]`` (labels -1 ignored), the vlm family's
+    optional ``"positions"`` ``[3, B, S]``, the audio family's
+    ``"encoder_frames"`` ``[B, S_enc, d]``.  With ``cfg.remat`` each
+    layer (and each encoder layer) runs under activation checkpointing,
+    so attention runs its forward kernel twice a layer."""
+    check_supported(cfg)
+    dev = params["embed"].device
+    tokens = batch["tokens"].to(dev)
+    pos = _positions_for(cfg, tokens, batch.get("positions"))
+    x = embed_tokens(params, cfg, tokens)
+    enc_out = None
+    if cfg.family == "audio":
+        x = x + _sinusoidal(torch.arange(tokens.shape[1], device=dev),
+                            cfg.d_model, x.dtype)[None]
+        enc_out = _encode_audio(params, cfg, batch["encoder_frames"],
+                                remat=cfg.remat)
+
+    def decoder(h, lp):
+        return decoder_block(lp, cfg, h, pos, enc_out=enc_out)[0]
+
+    for i in range(cfg.n_layers):
+        if cfg.family == "ssm":
+            block = slstm_block if _is_slstm(cfg, i) else mlstm_block
+
+            def body(h, lp, block=block):
+                return block(lp, cfg, h)[0]
+        else:
+            body = decoder
+        x = _remat(body, cfg.remat)(x, layer_params(params, i))
+    return chunked_softmax_xent(params, cfg, x, batch["labels"])
 
 
 # ======================================================================

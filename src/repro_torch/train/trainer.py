@@ -1,0 +1,105 @@
+"""Training step and loop, as ``repro.train.trainer`` runs them: loss
+and gradients → clip → AdamW, with optional gradient accumulation over
+microbatches and activation remat (configured per model by
+``ModelConfig.remat``).
+
+The port runs eagerly: there is no ``jit`` (the reference's
+``train_loop(jit=...)`` keyword is dropped) and a step's gradients come
+from ``torch.autograd.grad`` over the parameter leaves, attention's
+through its backward kernel.  The reference's ``Runtime`` (a mesh) has
+no counterpart on one card, so the functions take no ``rt``.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Callable
+
+import torch
+
+from repro_torch.configs.base import ModelConfig
+from repro_torch.models.transformer import forward_train
+from repro_torch.train._tree import leaves, unflatten
+from repro_torch.train.optimizer import AdamWConfig, adamw_update
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainConfig:
+    optimizer: AdamWConfig = AdamWConfig()
+    accum_steps: int = 1        # microbatch accumulation
+
+
+def loss_fn(params: Any, cfg: ModelConfig, batch: dict) -> torch.Tensor:
+    return forward_train(params, cfg, batch)
+
+
+def _on_device(batch: dict, device: torch.device) -> dict:
+    """The batch's arrays (numpy or tensors) as tensors on ``device``."""
+    return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
+
+
+def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
+    """The train step: ``(params, opt_state, batch) → (params,
+    opt_state, metrics)``, parameters and moments updated in place
+    (``adamw_update``); ``metrics`` holds 0-d tensors ``lr``,
+    ``grad_norm`` and ``loss``.  With ``accum_steps`` > 1 the batch
+    splits into that many microbatches along the first axis of each
+    of its arrays, as the reference reshapes them; their gradients
+    sum in float32, are divided by ``accum_steps``, and the loss is the
+    microbatches' mean."""
+
+    def grads_of(params, batch):
+        params_l = leaves(params)
+        for p in params_l:
+            p.requires_grad_(True)
+        loss = loss_fn(params, cfg, batch)
+        grads = torch.autograd.grad(loss, params_l)
+        return loss.detach(), grads
+
+    def train_step(params, opt_state, batch):
+        batch = _on_device(batch, leaves(params)[0].device)
+        n = tcfg.accum_steps
+        if n > 1:
+            g_acc, losses = None, []
+            for i in range(n):
+                mb = {key: x.chunk(n)[i] for key, x in batch.items()}
+                loss_i, g = grads_of(params, mb)
+                g32 = [x.float() for x in g]
+                g_acc = g32 if g_acc is None else [
+                    a + b for a, b in zip(g_acc, g32)]
+                losses.append(loss_i)
+            grads = [g / n for g in g_acc]
+            loss = torch.stack(losses).mean()
+        else:
+            loss, grads = grads_of(params, batch)
+        params, opt_state, metrics = adamw_update(
+            unflatten(params, list(grads)), opt_state, params,
+            tcfg.optimizer)
+        metrics["loss"] = loss
+        return params, opt_state, metrics
+
+    return train_step
+
+
+def train_loop(cfg: ModelConfig, tcfg: TrainConfig, params, opt_state,
+               batches, *, hooks: list[Callable] | None = None) -> dict:
+    """Simple loop: iterate batches, run steps, fire hooks.
+
+    ``hooks`` receive (step, params, opt_state, metrics) — used by the
+    checkpointer and the fault-tolerance drill; ``metrics`` are floats
+    with ``step_time_s`` (the host's clock around the step, which ends
+    when the metrics are read back) and ``step``.
+    """
+    step_fn = make_train_step(cfg, tcfg)
+    history = []
+    for step, batch in enumerate(batches):
+        tic = time.perf_counter()
+        params, opt_state, metrics = step_fn(params, opt_state, batch)
+        metrics = {k: float(v) for k, v in metrics.items()}
+        metrics["step_time_s"] = time.perf_counter() - tic
+        metrics["step"] = step
+        history.append(metrics)
+        for hook in hooks or ():
+            hook(step, params, opt_state, metrics)
+    return {"params": params, "opt_state": opt_state, "history": history}
