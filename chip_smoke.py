@@ -125,18 +125,23 @@ NVIDIA GPU:
      encoder's share of a prefill and a float32 refill; the peak device
      memory of the three phases;
   7c. training phase (seed-0 weights drawn on the card, the earlier
-     phases' models freed first): the backward kernel
-     ``flash_attention_bwd`` (``csrc/flash_attention_bwd.cu``) against
-     its plain version at ``BWD_SHAPES`` (tinyllama-1.1b's training
-     shape [8, 32, 2048, 64] / 4 in bf16 and float32, hymba's window,
-     whisper's encoder and cross-attention, MLA's 192 and the edges:
-     Sq and Sk off the tile grid with q_offset > 0, groups 1 and 8, rows
-     that see no key, window 1, a window over Sq < Sk): float32 within
-     1e-4 x the largest gradient, bf16 against a float32 backward within
-     1.5 x the plain bf16 backward's floor, a second call bit-identical;
-     its times beside its bound, its plain version's and SDPA forward +
-     backward's; one full-width bf16 step on the kernels against plain
-     attention (loss and gradient norm within 1e-3); the entry point
+     phases' models freed first): the backward kernels
+     ``flash_attention_bwd`` (bf16: ``csrc/flash_attention_bwd_wgmma.cu``
+     on the tensor cores; float32: ``csrc/flash_attention_bwd.cu``)
+     against their plain version at ``BWD_SHAPES`` (tinyllama-1.1b's
+     training shape [8, 32, 2048, 64] / 4 in bf16 and float32, hymba's
+     window, whisper's encoder and cross-attention, MLA's 192 and the
+     edges: Sq and Sk off the tile grid with q_offset > 0, groups 1 and
+     8, rows that see no key, window 1, a window over Sq < Sk), each with
+     the forward's saved row statistics and without: float32 within 1e-4
+     x the largest gradient, bf16 against a float32 backward within 1.5
+     x the larger of two floors (the plain backward in bf16; the bf16
+     kernel's algorithm in plain PyTorch), at most 0.05, with a planted
+     fault (the window dropped) that must exceed it; a second call
+     bit-identical; its times beside its bound, its plain version's and
+     SDPA forward + backward's; one full-width bf16 step on the kernels
+     against plain attention (loss and gradient norm within 1e-3); the
+     entry point
      ``repro_torch.launch.train`` at full width (tinyllama-1.1b, 8 x 2048
      tokens, 6 steps, remat, ``TRAIN_ARGS``) with the launch counts set
      to 0 just before and read just after (44 forward and 22 backward
@@ -317,8 +322,10 @@ SOURCES = {"dp_multi_stacked": "src/repro_torch/csrc/dp_sweep.cu",
            # csrc/flash_attention.cu, as hymba's float32 window row says
            "flash_attention": "src/repro_torch/csrc/flash_attention_wgmma.cu",
            "flash_attention_f32": "src/repro_torch/csrc/flash_attention.cu",
+           # the JSON row is bf16; float32 runs on
+           # csrc/flash_attention_bwd.cu
            "flash_attention_bwd":
-               "src/repro_torch/csrc/flash_attention_bwd.cu",
+               "src/repro_torch/csrc/flash_attention_bwd_wgmma.cu",
            "flash_decode": "src/repro_torch/csrc/flash_decode.cu",
            "flash_decode_mla": "src/repro_torch/csrc/flash_decode_mla.cu",
            "int8_matmul": "src/repro_torch/csrc/int8_matmul.cu"}
@@ -1638,14 +1645,21 @@ def ptxas_usage(lib) -> str:
                      f"{props.group(2)} B, spill loads {props.group(3)} B")
         regs = re.search(r"Used (\d+) registers", line)
         if regs and name:
-            d = re.search(r"ILi(\d+)E", name)
+            d = re.search(r"ILi(\d+)E((?:Lb[01]E)*)", name)
             mla = re.search(r"mla_[a-z0-9_]*[a-z0-9]", name)
             label = (f"D={d.group(1)}" if d is not None
                      else mla.group(0) + ("<bf16>" if "bfloat16" in name
                                           and "combine" in name else "")
                      if mla is not None else f"{name[:48]}...")
-            if d is not None and "Lb1E" in name:
-                label += " window"
+            # the bool template arguments after D: the window, then (the
+            # float32 forward) the statistics write
+            flags = re.findall(r"Lb([01])E", d.group(2)) if d else []
+            for flag, word in zip(flags, (" window", " stats")):
+                label += word if flag == "1" else ""
+            kind = re.search(r"(dq|dkv|delta)_kernel", name)
+            if kind is not None:
+                label = (f"{kind.group(0)} {label}" if d is not None
+                         else kind.group(0))
             lines.append(f"ptxas: {lib.source.name} {label}: {regs.group(1)} "
                          f"registers, {spill}")
             name, spill = "", ""
@@ -3334,9 +3348,12 @@ BWD_SHAPES = (
 )
 # float32: within 1e-4 x the largest |gradient| of the three (sums in
 # another order); bf16: the kernel's error against the float32 plain
-# backward within 1.5 x the plain bf16 backward's (its floor: the
-# gradients' rounding to bf16)
-BWD_F32_TOL, BWD_BF16_FACTOR = 1e-4, 1.5
+# backward (over the largest |gradient|) within 1.5 x the larger of two
+# floors measured at the same row: the plain backward's in bf16 (the
+# gradients' rounding to bf16) and the kernel's algorithm in plain
+# PyTorch (``flash_attention_bwd_bf16_plain``: P and dS rounded to bf16
+# as product operands); the limit is capped at 0.05
+BWD_F32_TOL, BWD_BF16_FACTOR, BWD_BF16_CAP = 1e-4, 1.5, 0.05
 # one reduced float32 training step of the families whose attention the
 # kernels reach with another mask or head: (arch, config overrides);
 # hymba's window and whisper's encoder cross several 64-key tiles, and
@@ -3350,7 +3367,8 @@ TRAIN_GRAD_TOL = 1e-4
 # the device time of a training step by kind, from kernel names
 TRAIN_KINDS = (("attention forward", ("flash_attention_f32_kernel",
                                       "flash_attention_wgmma_kernel")),
-               ("attention backward", ("dq_kernel", "dkv_kernel")),
+               ("attention backward", ("dq_kernel", "dkv_kernel",
+                                       "delta_kernel")),
                ("cuBLAS products", ("gemm", "nvjet", "cutlass", "xmma")),
                ("copies", ("Memcpy", "Memset")))
 
@@ -3358,20 +3376,25 @@ TRAIN_KINDS = (("attention forward", ("flash_attention_f32_kernel",
 def bwd_bound(b, h, kh, sq, sk, d, causal, q_offset, window, dtype
               ) -> tuple[float, str, int, int]:
     """q, the output and its cotangent read and dq written once, k and v
-    read and dk and dv written once; 10·D operations (five products:
+    read and dk and dv written once, the forward's float32 row
+    statistics (two a row) read once; 10·D operations (five products:
     QKᵀ again, dO Vᵀ, Pᵀ dO, dS K, dSᵀ Q) per (query, key) pair the mask
     keeps, 2.5 x the forward's."""
     elt = 2 if dtype == "bfloat16" else 4
-    nbytes = (4 * b * h * sq * d + 4 * b * kh * sk * d) * elt
+    nbytes = (4 * b * h * sq * d + 4 * b * kh * sk * d) * elt \
+        + 8 * b * h * sq
     fwd_ops = attention_bound(b, h, kh, sq, sk, d, causal, q_offset, dtype,
                               window)[3]
     return _bound_typed(nbytes, fwd_ops * 5 // 2, dtype)
 
 
 def bwd_rows(rows: dict, gen) -> None:
-    """``flash_attention_bwd`` at BWD_SHAPES against its plain version
-    (the same bits again on a second call), with its times beside its
-    bound, its plain version's and SDPA forward + backward's."""
+    """``flash_attention_bwd`` at BWD_SHAPES against its plain version,
+    with the forward's saved statistics (the training route) and
+    without them (its own statistics pass), each the same bits on a
+    second call, with its times beside its bound, its plain version's
+    and SDPA forward + backward's; at hymba's row a planted fault (the
+    bf16 kernel without the window) must fail the bf16 limit."""
     import torch
     import torch.nn.functional as F
 
@@ -3385,39 +3408,67 @@ def bwd_rows(rows: dict, gen) -> None:
         q, k, v = randn(b, h, sq, d), randn(b, kh, sk, d), randn(b, kh, sk, d)
         do = randn(b, h, sq, d)
         mask = dict(causal=causal, q_offset=q_offset, window=window)
-        out = fa.flash_attention(q, k, v, **mask)
-        got = fa.flash_attention_bwd(do, q, k, v, out, **mask)
-        again = fa.flash_attention_bwd(do, q, k, v, out, **mask)
+        out, stats = fa._forward(q, k, v, causal, q_offset, window,
+                                 with_stats=True)
+        got = fa.flash_attention_bwd(do, q, k, v, out, stats=stats, **mask)
+        again = fa.flash_attention_bwd(do, q, k, v, out, stats=stats,
+                                       **mask)
+        own = fa.flash_attention_bwd(do, q, k, v, out, **mask)
+        own_again = fa.flash_attention_bwd(do, q, k, v, out, **mask)
         want = fa.flash_attention_bwd_plain(do, q, k, v, out, **mask)
         torch.cuda.synchronize()
         name = _attn_label(b, h, kh, sq, sk, d, causal, dtype) + (
             f" q_offset {q_offset}" if q_offset else "") + (
             f" window {window}" if window else "")
-        check(all(torch.equal(x, y) for x, y in zip(got, again)),
+        check(all(torch.equal(x, y) for x, y in zip(got, again))
+              and all(torch.equal(x, y) for x, y in zip(own, own_again)),
               f"flash_attention_bwd at {name}: a second call gave other "
               "bits")
         err = max(_max_abs_err(x, y) for x, y in zip(got, want))
         if dtype == "float32":
             scale = max(float(y.abs().max()) for y in want)
-            rel, limit = err / scale, BWD_F32_TOL
-            detail = f"max abs err / max |grad| {rel!r} (limit {limit})"
+            rel = err / scale
+            rel_own = max(_max_abs_err(x, y) for x, y in zip(own, want)) \
+                / scale
+            limit = BWD_F32_TOL
+            detail = (f"max abs err / max |grad| {rel!r}, without saved "
+                      f"statistics {rel_own!r} (limit {limit})")
         else:
             f32 = fa.flash_attention_bwd_plain(
                 do.float(), q.float(), k.float(), v.float(), out.float(),
                 **mask)
             scale = max(float(y.abs().max()) for y in f32)
-            rel = max(_max_abs_err(x, y) for x, y in zip(got, f32)) / scale
-            floor = max(_max_abs_err(x, y) for x, y in zip(want, f32)) \
-                / scale
-            limit = BWD_BF16_FACTOR * floor
-            detail = (f"against the float32 backward {rel!r}, the plain "
-                      f"bf16 floor {floor!r} (limit {limit!r})")
+
+            def rel_to_f32(grads):
+                return max(_max_abs_err(x, y)
+                           for x, y in zip(grads, f32)) / scale
+
+            rel, rel_own = rel_to_f32(got), rel_to_f32(own)
+            floor_round = rel_to_f32(want)
+            floor_alg = rel_to_f32(fa.flash_attention_bwd_bf16_plain(
+                do, q, k, v, out, stats=stats, **mask))
+            limit = min(BWD_BF16_CAP,
+                        BWD_BF16_FACTOR * max(floor_round, floor_alg))
+            detail = (f"against the float32 backward {rel!r}, without "
+                      f"saved statistics {rel_own!r}; floors: gradients "
+                      f"rounded {floor_round!r}, the kernel's algorithm "
+                      f"{floor_alg!r} (limit {limit!r})")
+            if window:
+                fault = rel_to_f32(fa.flash_attention_bwd(
+                    do, q, k, v, out, stats=stats,
+                    **{**mask, "window": 0}))
+                print(f"bwd {label} {name}: planted fault (the bf16 kernel "
+                      f"drops the window): {fault!r} against the limit "
+                      f"{limit!r}", flush=True)
+                check(fault > limit, "the bf16 backward's limit passes a "
+                      "kernel that drops the window")
             del f32
         print(f"bwd {label} {name}: {detail}", flush=True)
-        check(rel <= limit, f"flash_attention_bwd != plain at {name}: "
-              f"{detail}")
+        check(rel <= limit and rel_own <= limit,
+              f"flash_attention_bwd != plain at {name}: {detail}")
         if q_offset < 0:
-            check(bool((got[0][:, :, :-q_offset] == 0).all()),
+            check(all(bool((x[:, :, :-q_offset] == 0).all())
+                      for x in (got[0], own[0])),
                   f"flash_attention_bwd at {name}: rows that see no key "
                   "have a gradient")
         attn_mask = None
@@ -3433,6 +3484,9 @@ def bwd_rows(rows: dict, gen) -> None:
             torch.autograd.grad(o, (lq, lk, lv), do)
 
         def kernel():
+            fa.flash_attention_bwd(do, q, k, v, out, stats=stats, **mask)
+
+        def kernel_own():
             fa.flash_attention_bwd(do, q, k, v, out, **mask)
 
         bound, by, nbytes, ops = bwd_bound(b, h, kh, sq, sk, d, causal,
@@ -3443,23 +3497,24 @@ def bwd_rows(rows: dict, gen) -> None:
                             do, q, k, v, out, **mask)),
                     bound, by, err, time_ms(library), device_ms(kernel))
         print(f"  bytes {nbytes}  operations {ops}  (SDPA: forward + "
-              "backward)", flush=True)
-        del q, k, v, do, out, got, again, want, lq, lk, lv
+              f"backward); without saved statistics: {time_ms(kernel_own)}"
+              f" ms, device {device_ms(kernel_own)} ms", flush=True)
+        if dtype == "bfloat16":
+            split = {part: device_ms(kernel, only=part) for part in
+                     ("delta_kernel", "dq_kernel", "dkv_kernel")}
+            print(f"  device ms by kernel: {split}", flush=True)
+        del q, k, v, do, out, stats, got, again, own, own_again, want, lq, \
+            lk, lv
         _free()
 
 
 def _loss_and_grads(params, cfg, batch):
-    """(loss, gradients of every parameter leaf) of ``forward_train``."""
-    import torch
+    """(loss, gradients of every parameter leaf) of ``forward_train``,
+    through the train step's own ``value_and_grad`` (which leaves no
+    leaf requiring grad)."""
+    from repro_torch.train.trainer import value_and_grad
 
-    from repro_torch.models.transformer import forward_train
-    from repro_torch.train._tree import leaves
-
-    params_l = leaves(params)
-    for p in params_l:
-        p.requires_grad_(True)
-    loss = forward_train(params, cfg, batch)
-    return loss.detach(), list(torch.autograd.grad(loss, params_l))
+    return value_and_grad(params, cfg, batch)
 
 
 def _grad_err(a: list, b: list) -> float:
@@ -5245,9 +5300,10 @@ def build_all() -> None:
     from repro_torch.kernels import flash_decode as fd
 
     libs = ([m.LIBRARY for m in _kernel_modules()]
-            + [fa.WGMMA_LIBRARY, fa.BWD_LIBRARY, fd.MLA_LIBRARY])
+            + [fa.WGMMA_LIBRARY, fa.BWD_LIBRARY, fa.BWD_WGMMA_LIBRARY,
+               fd.MLA_LIBRARY])
     reported = (fa.LIBRARY, fa.WGMMA_LIBRARY, fd.MLA_LIBRARY,
-                fa.BWD_LIBRARY)
+                fa.BWD_LIBRARY, fa.BWD_WGMMA_LIBRARY)
 
     def build(lib):
         tic = time.perf_counter()
@@ -5267,13 +5323,16 @@ def build_all() -> None:
         lib.load()
     print(f"build: all in {time.perf_counter() - tic:.2f} s", flush=True)
     for lib, op, what in ((fa.WGMMA_LIBRARY, "HGMMA", "bf16 attention"),
+                          (fa.BWD_WGMMA_LIBRARY, "HGMMA",
+                           "bf16 attention backward"),
                           (im.LIBRARY, "IGMMA", "int8"),
                           (fd.MLA_LIBRARY, "HMMA", "MLA decode")):
         n = sass_count(lib, op)
         print(f"sass: {lib.path().name}: {n} {op} instructions", flush=True)
         check(n > 0, f"the {what} library holds no {op}")
     check_no_spills(mla_report)
-    check_no_spills(usage[reported.index(fa.BWD_LIBRARY)].result())
+    for lib in (fa.BWD_LIBRARY, fa.BWD_WGMMA_LIBRARY):
+        check_no_spills(usage[reported.index(lib)].result())
 
 
 def sweep_kernels_only(k_best: int) -> int:
@@ -5471,22 +5530,31 @@ def lm_families_only() -> int:
 
 def train_only() -> int:
     """``--train``: build the two prefill attention libraries and the
-    backward's alone (the backward's ``ptxas -v`` report beside them: no
-    spills), run the training phase; no result line."""
+    two backward libraries alone (the backwards' ``ptxas -v`` reports
+    beside them: no spills; the bf16 backward's ``HGMMA`` count), run
+    the training phase; no result line."""
     from repro_torch.kernels import flash_attention as fa
 
-    libs = (fa.LIBRARY, fa.WGMMA_LIBRARY, fa.BWD_LIBRARY)
+    libs = (fa.LIBRARY, fa.WGMMA_LIBRARY, fa.BWD_LIBRARY,
+            fa.BWD_WGMMA_LIBRARY)
     tic = time.perf_counter()
-    with concurrent.futures.ThreadPoolExecutor(len(libs) + 1) as pool:
-        usage = pool.submit(ptxas_usage, fa.BWD_LIBRARY)
+    with concurrent.futures.ThreadPoolExecutor(len(libs) + 2) as pool:
+        usage = [pool.submit(ptxas_usage, lib)
+                 for lib in (fa.BWD_LIBRARY, fa.BWD_WGMMA_LIBRARY)]
         for path in pool.map(lambda lib: lib.build(), libs):
             print(f"build: {path.name}", flush=True)
-        report = usage.result()
+        reports = [u.result() for u in usage]
     for lib in libs:
         lib.load()
-    print(report, flush=True)
+    for report in reports:
+        print(report, flush=True)
     print(f"build: all in {time.perf_counter() - tic:.2f} s", flush=True)
-    check_no_spills(report)
+    n = sass_count(fa.BWD_WGMMA_LIBRARY, "HGMMA")
+    print(f"sass: {fa.BWD_WGMMA_LIBRARY.path().name}: {n} HGMMA "
+          "instructions", flush=True)
+    check(n > 0, "the bf16 attention backward library holds no HGMMA")
+    for report in reports:
+        check_no_spills(report)
     tic = time.perf_counter()
     rows, counts = train_phase()
     print(f"phase train: {time.perf_counter() - tic:.3f} s", flush=True)

@@ -83,6 +83,12 @@
 // chosen: 8 x 8 tiles a lane (4 warps, 255 registers, 8 warps an SM),
 // and the other lane order (tc in the low bits).
 //
+// When the caller passes a `stats` buffer (training: autograd needs the
+// gradient), an instance of its own (template parameter STATS) also
+// writes each row's clamped maximum m (scaled units) and 1 / max(l,
+// 1e-30) there at the end, for the backward (flash_attention_bwd.cu);
+// serving passes none and runs the kernel without the write.
+//
 // The entry point returns cudaGetLastError() of its launch;
 // pfdnn_flash_attention_f32_plan reports the tiling of a head dim.
 
@@ -203,14 +209,15 @@ __device__ __forceinline__ void load_rows(float* dst, const float* src,
     }
 }
 
-template <int D, bool WINDOW>
+template <int D, bool WINDOW, bool STATS>
 __global__ void __launch_bounds__(THREADS, Cfg<D>::MIN_BLOCKS)
 flash_attention_f32_kernel(const float* __restrict__ q,
                            const float* __restrict__ k,
                            const float* __restrict__ v,
                            float* __restrict__ o, int B, int H, int KH,
                            int Sq, int Sk, int q_offset, int causal,
-                           int window, float scale, int n_qt) {
+                           int window, float scale, int n_qt,
+                           float* __restrict__ stats) {
     using C = Cfg<D>;
     constexpr int LD = C::LD, BK = C::BK, KJ = C::KJ;
     constexpr int VEC = C::VEC, NV = C::NV, NO = C::NO;
@@ -444,6 +451,16 @@ flash_attention_f32_kernel(const float* __restrict__ q,
         const int r = q0 + fresh_tid() / 32 * WR + tr * RM + i;
         if (r >= Sq) continue;
         const float inv = 1.f / fmaxf(lt, 1e-30f);
+        if constexpr (STATS) {
+            if (tc == 0) {
+                // the row's statistics for the backward: m in scaled
+                // units (clamped as the softmax clamps it), 1 / max(l,
+                // 1e-30)
+                const size_t at = (size_t)(b * H + h) * Sq + r;
+                stats[at] = fmaxf(m[i], clamp_raw) * scale;
+                stats[(size_t)B * H * Sq + at] = inv;
+            }
+        }
 #pragma unroll
         for (int n = 0; n < NV; ++n) {
             float* dst = og + (size_t)r * D + n * TC * VEC;
@@ -459,9 +476,9 @@ flash_attention_f32_kernel(const float* __restrict__ q,
     }
 }
 
-template <int D, bool WINDOW>
+template <int D, bool WINDOW, bool STATS>
 cudaError_t configure() {
-    auto kern = flash_attention_f32_kernel<D, WINDOW>;
+    auto kern = flash_attention_f32_kernel<D, WINDOW, STATS>;
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, Cfg<D>::SMEM);
     if (err != cudaSuccess) return err;
@@ -470,28 +487,45 @@ cudaError_t configure() {
         cudaSharedmemCarveoutMaxShared);
 }
 
-template <int D, bool WINDOW>
-int launch(const float* q, const float* k, const float* v, float* o, int B,
-           int H, int KH, int Sq, int Sk, int q_offset, int causal,
-           int window, float scale, cudaStream_t stream) {
-    const cudaError_t err = configure<D, WINDOW>();
+template <int D, bool WINDOW, bool STATS>
+int launch_with(const float* q, const float* k, const float* v, float* o,
+                int B, int H, int KH, int Sq, int Sk, int q_offset,
+                int causal, int window, float scale, float* stats,
+                cudaStream_t stream) {
+    const cudaError_t err = configure<D, WINDOW, STATS>();
     if (err != cudaSuccess) return (int)err;
     const int n_qt = (Sq + BQ - 1) / BQ;
     const long long blocks = (long long)n_qt * H * B;
     if (blocks > INT_MAX) return (int)cudaErrorInvalidValue;
-    flash_attention_f32_kernel<D, WINDOW><<<(unsigned)blocks, THREADS,
-                                             Cfg<D>::SMEM, stream>>>(
-        q, k, v, o, B, H, KH, Sq, Sk, q_offset, causal, window, scale, n_qt);
+    flash_attention_f32_kernel<D, WINDOW, STATS><<<(unsigned)blocks, THREADS,
+                                                    Cfg<D>::SMEM, stream>>>(
+        q, k, v, o, B, H, KH, Sq, Sk, q_offset, causal, window, scale, n_qt,
+        stats);
     return (int)cudaGetLastError();
+}
+
+// the instance that writes the statistics is a template of its own, so
+// that serving runs the kernel without them, instruction for instruction
+template <int D, bool WINDOW>
+int launch(const float* q, const float* k, const float* v, float* o, int B,
+           int H, int KH, int Sq, int Sk, int q_offset, int causal,
+           int window, float scale, float* stats, cudaStream_t stream) {
+    return stats != nullptr
+        ? launch_with<D, WINDOW, true>(q, k, v, o, B, H, KH, Sq, Sk,
+                                       q_offset, causal, window, scale,
+                                       stats, stream)
+        : launch_with<D, WINDOW, false>(q, k, v, o, B, H, KH, Sq, Sk,
+                                        q_offset, causal, window, scale,
+                                        nullptr, stream);
 }
 
 template <int D>
 int plan(int* out) {
-    const cudaError_t err = configure<D, false>();
+    const cudaError_t err = configure<D, false, false>();
     if (err != cudaSuccess) return (int)err;
     int per_sm = 0;
     const cudaError_t occ = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, flash_attention_f32_kernel<D, false>, THREADS,
+        &per_sm, flash_attention_f32_kernel<D, false, false>, THREADS,
         Cfg<D>::SMEM);
     if (occ != cudaSuccess) return (int)occ;
     out[0] = BQ;
@@ -511,23 +545,27 @@ int plan(int* out) {
 extern "C" {
 
 // q, k, v and out are float32; scale is float32(1 / sqrt(D)), as the
-// reference rounds it; window > 0 is the sliding window (0: none)
+// reference rounds it; window > 0 is the sliding window (0: none);
+// stats (NULL: none) receives float32 [2, B * H * Sq]: each row's m and
+// 1 / max(l, 1e-30), for the backward
 int pfdnn_flash_attention_f32(const void* q, const void* k, const void* v,
                               void* o, int B, int H, int KH, int Sq,
                               int Sk, int D, int q_offset, int causal,
-                              int window, float scale, void* stream) {
+                              int window, float scale, void* stats,
+                              void* stream) {
     const auto* qf = static_cast<const float*>(q);
     const auto* kf = static_cast<const float*>(k);
     const auto* vf = static_cast<const float*>(v);
     auto* of = static_cast<float*>(o);
+    auto* st = static_cast<float*>(stats);
     cudaStream_t s = static_cast<cudaStream_t>(stream);
 #define PFDNN_CASE(DD)                                                  \
     case DD:                                                            \
         return window > 0                                               \
             ? launch<DD, true>(qf, kf, vf, of, B, H, KH, Sq, Sk,        \
-                               q_offset, causal, window, scale, s)      \
+                               q_offset, causal, window, scale, st, s)  \
             : launch<DD, false>(qf, kf, vf, of, B, H, KH, Sq, Sk,       \
-                                q_offset, causal, 0, scale, s);
+                                q_offset, causal, 0, scale, st, s);
     switch (D) {
         PFDNN_HEAD_DIMS(PFDNN_CASE)
         default: return (int)cudaErrorInvalidValue;

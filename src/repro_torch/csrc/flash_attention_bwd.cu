@@ -1,52 +1,49 @@
-// Backward of the prefill attention kernels (flash_attention.cu,
-// flash_attention_wgmma.cu): dQ, dK and dV of
+// Backward of the float32 prefill attention kernel (flash_attention.cu):
+// dQ, dK and dV of
 //
 //     O = softmax(mask(Q Kᵀ · scale)) V
 //
 // for q [B, H, Sq, D] over k/v [B, KH, Sk, D] (GQA: head h reads KV head
 // h / (H / KH)), causal or not, queries at q_offset + i, an optional
-// sliding window (keep q_pos - k_pos < window), in float32 or bf16 with
-// float32 arithmetic throughout and the gradients written in q's dtype.
+// sliding window (keep q_pos - k_pos < window), in float32 throughout.
+// (bf16 has its own kernels on the tensor cores,
+// flash_attention_bwd_wgmma.cu: the tensor cores have no full-float32
+// product.)
 //
 // It replaces no TPU kernel: the JAX package trains through
 // flash_attention_jnp (src/repro/models/layers.py) under XLA's autodiff
 // and has no Pallas backward.  It computes the same gradient, by the
-// FlashAttention-2 split:
+// FlashAttention-2 split, from the row statistics the forward kernel
+// saved (`stats`: each row's clamped max m and 1 / max(l, 1e-30)):
 //
-//   1. dq_kernel, one CTA a (query tile, head, batch): a first pass over
-//      the key tiles the mask reaches recomputes each row's max m (with
-//      the forward's 0.5·NEG_INF clamp) and sum l; δ = rowsum(dO ∘ O)
-//      from the saved output; the three go to `stats` for pass 2.  A
-//      second pass recomputes P = exp(S − m) / max(l, 1e-30), dP = dO Vᵀ,
-//      dS = P ∘ (dP − δ) and accumulates dQ = dS K · scale.
+//   1. dq_kernel, one CTA a (query tile, head, batch): δ = rowsum(dO ∘
+//      O) from the saved output, to `delta` for pass 2; then over the
+//      key tiles the mask reaches it recomputes P = exp(S − m) · (1 / l),
+//      dP = dO Vᵀ, dS = P ∘ (dP − δ) and accumulates dQ = dS K · scale.
 //   2. dkv_kernel, one CTA a (key tile, KV head, batch): loops over the
 //      group's query heads and the query tiles the mask reaches,
-//      recomputes P and dS from `stats`, and accumulates dV = Pᵀ dO and
-//      dK = dSᵀ Q · scale over the group, in order.
+//      recomputes P and dS, and accumulates dV = Pᵀ dO and dK = dSᵀ Q ·
+//      scale over the group, in order.
 //
 // No atomics: every output element is summed by one thread in a fixed
 // order, so the gradient is the same bits run after run (the training
 // drill's restart must repeat a step exactly).  A row that sees no key
-// has P = 0 and gets zero gradient.  The forward kernels are untouched:
-// their row statistics are recomputed here.
+// has P = 0 and gets zero gradient.
 //
 // Bound: the products.  Per kept (query, key) pair the backward runs
-// QKᵀ three times (stats, dQ pass, dKV pass), dO Vᵀ twice, and dS K,
-// Pᵀ dO, dSᵀ Q once each: 8 · D multiply-adds, 16 · D operations, on the
-// CUDA cores (float32; 67 TFLOP/s on an H100 SXM).  The design keeps
-// every tile in shared memory as float32 (rows padded by one float so
-// that a warp's 16 column reads fall in 16 banks) and gives each of the
-// 256 threads a 4 × 4 (4 × 2 at D = 192) piece of the score tile and of
-// each gradient tile, so each multiply-add costs half a shared load.
-// Tensor-core products are a follow-up (ROADMAP).
+// QKᵀ twice (dQ pass, dKV pass), dO Vᵀ twice, and dS K, Pᵀ dO, dSᵀ Q
+// once each: 7 · D multiply-adds, 14 · D operations, on the CUDA cores
+// (float32; 67 TFLOP/s on an H100 SXM).  The design keeps every tile in
+// shared memory (rows padded by one float so that a warp's 16 column
+// reads fall in 16 banks) and gives each of the 256 threads a 4 × 4
+// (4 × 2 at D = 192) piece of the score tile and of each gradient tile,
+// so each multiply-add costs half a shared load.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr float kNegInf = -1e30f;
 constexpr int kThreads = 256;
 constexpr int kBQ = 64;   // query rows a tile
 
@@ -61,29 +58,15 @@ template <int D> struct Tile {
   static constexpr int MIN_BLOCKS = D <= 64 ? 2 : 1;
 };
 
-__device__ __forceinline__ float load_f(const float* p, size_t i) {
-  return p[i];
-}
-__device__ __forceinline__ float load_f(const __nv_bfloat16* p, size_t i) {
-  return __bfloat162float(p[i]);
-}
-__device__ __forceinline__ void store_f(float* p, size_t i, float x) {
-  p[i] = x;
-}
-__device__ __forceinline__ void store_f(__nv_bfloat16* p, size_t i,
-                                        float x) {
-  p[i] = __float2bfloat16(x);
-}
-
-// rows [row0, row0 + ROWS) of a [n, D] matrix into shared memory as
-// float32 with row stride D + 1; rows past n are zeros
-template <typename T, int D, int ROWS>
-__device__ __forceinline__ void load_tile(float* dst, const T* src,
+// rows [row0, row0 + ROWS) of a [n, D] matrix into shared memory with
+// row stride D + 1; rows past n are zeros
+template <int D, int ROWS>
+__device__ __forceinline__ void load_tile(float* dst, const float* src,
                                           int row0, int n) {
   for (int idx = threadIdx.x; idx < ROWS * D; idx += kThreads) {
     const int r = idx / D, c = idx % D;
     const int g = row0 + r;
-    dst[r * (D + 1) + c] = g < n ? load_f(src, (size_t)g * D + c) : 0.f;
+    dst[r * (D + 1) + c] = g < n ? src[(size_t)g * D + c] : 0.f;
   }
 }
 
@@ -97,12 +80,6 @@ __device__ __forceinline__ bool kept(int qpos, int k, int sk, int causal,
 __device__ __forceinline__ float row_sum(float x) {
 #pragma unroll
   for (int o = 8; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-__device__ __forceinline__ float row_max(float x) {
-#pragma unroll
-  for (int o = 8; o > 0; o >>= 1)
-    x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
   return x;
 }
 
@@ -131,15 +108,16 @@ __device__ __forceinline__ void rows_dot_rows(float (&acc)[NI][NJ],
   }
 }
 
-// 1. statistics and dQ --------------------------------------------------
+// 1. δ and dQ --------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, Tile<D>::MIN_BLOCKS)
-dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
-          const T* __restrict__ v, const T* __restrict__ o,
-          const T* __restrict__ dout, T* __restrict__ dq,
-          float* __restrict__ stats, int H, int KH, int Sq, int Sk,
-          int q_offset, int causal, int window, float scale) {
+dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
+          const float* __restrict__ v, const float* __restrict__ o,
+          const float* __restrict__ dout, float* __restrict__ dq,
+          const float* __restrict__ stats, float* __restrict__ delta_out,
+          int H, int KH, int Sq, int Sk, int q_offset, int causal,
+          int window, float scale) {
   using P = Tile<D>;
   constexpr int BK = P::BK, LD = P::LD, LS = P::LS, NJ = P::NJ,
                 ND = P::ND, NI = kBQ / 16;
@@ -168,63 +146,28 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int kt_lo = k_lo / BK;
   const int kt_hi = k_hi > k_lo ? (k_hi + BK - 1) / BK : kt_lo;
 
-  load_tile<T, D, kBQ>(sQ, q + qbase * D, q0, Sq);
-  load_tile<T, D, kBQ>(sO, dout + qbase * D, q0, Sq);
+  load_tile<D, kBQ>(sQ, q + qbase * D, q0, Sq);
+  load_tile<D, kBQ>(sO, dout + qbase * D, q0, Sq);
+  __syncthreads();
 
-  // pass 1: m and l of each row, online, with the forward's clamp
-  float m[NI], l[NI];
-#pragma unroll
-  for (int i = 0; i < NI; ++i) { m[i] = kNegInf; l[i] = 0.f; }
-  for (int kt = kt_lo; kt < kt_hi; ++kt) {
-    const int k0 = kt * BK;
-    __syncthreads();
-    load_tile<T, D, BK>(sK, k + kbase * D, k0, Sk);
-    __syncthreads();
-    float s[NI][NJ];
-    rows_dot_rows<D, NI, NJ>(s, sQ, sK, ty, tx);
-#pragma unroll
-    for (int i = 0; i < NI; ++i) {
-      const int qpos = q_offset + q0 + ty + 16 * i;
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j) {
-        s[i][j] = kept(qpos, k0 + tx + 16 * j, Sk, causal, window)
-            ? s[i][j] * scale : kNegInf;
-        mx = fmaxf(mx, s[i][j]);
-      }
-      const float m_new = fmaxf(m[i], row_max(mx));
-      const float m_sub = fmaxf(m_new, 0.5f * kNegInf);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < NJ; ++j)
-        sum += s[i][j] > 0.5f * kNegInf ? __expf(s[i][j] - m_sub) : 0.f;
-      l[i] = l[i] * __expf(fmaxf(m[i], 0.5f * kNegInf) - m_sub)
-          + row_sum(sum);
-      m[i] = m_new;
-    }
-  }
-  // per-row m (clamped), 1 / max(l, 1e-30) and δ = rowsum(dO ∘ O)
-  float inv_l[NI], delta[NI];
+  // per-row m, 1 / max(l, 1e-30) (the forward's) and δ = rowsum(dO ∘ O)
+  float m[NI], inv_l[NI], delta[NI];
 #pragma unroll
   for (int i = 0; i < NI; ++i) {
     const int r = q0 + ty + 16 * i;
-    m[i] = fmaxf(m[i], 0.5f * kNegInf);
-    inv_l[i] = 1.f / fmaxf(l[i], 1e-30f);
+    m[i] = r < Sq ? stats[qbase + r] : 0.f;
+    inv_l[i] = r < Sq ? stats[total + qbase + r] : 0.f;
     float part = 0.f;
     if (r < Sq) {
 #pragma unroll
       for (int j = 0; j < ND; ++j) {
         const int c = tx + 16 * j;
         part += sO[(ty + 16 * i) * LD + c]
-            * load_f(o, (qbase + r) * D + c);
+            * o[(qbase + r) * D + c];
       }
     }
     delta[i] = row_sum(part);
-    if (tx == 0 && r < Sq) {
-      stats[qbase + r] = m[i];
-      stats[total + qbase + r] = inv_l[i];
-      stats[2 * total + qbase + r] = delta[i];
-    }
+    if (tx == 0 && r < Sq) delta_out[qbase + r] = delta[i];
   }
 
   // pass 2: dQ = dS K over the same key tiles
@@ -236,8 +179,8 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
   for (int kt = kt_lo; kt < kt_hi; ++kt) {
     const int k0 = kt * BK;
     __syncthreads();
-    load_tile<T, D, BK>(sK, k + kbase * D, k0, Sk);
-    load_tile<T, D, BK>(sV, v + kbase * D, k0, Sk);
+    load_tile<D, BK>(sK, k + kbase * D, k0, Sk);
+    load_tile<D, BK>(sV, v + kbase * D, k0, Sk);
     __syncthreads();
     float s[NI][NJ], dp[NI][NJ];
     rows_dot_rows<D, NI, NJ>(s, sQ, sK, ty, tx);
@@ -273,18 +216,19 @@ dq_kernel(const T* __restrict__ q, const T* __restrict__ k,
     if (r >= Sq) continue;
 #pragma unroll
     for (int j = 0; j < ND; ++j)
-      store_f(dq, (qbase + r) * D + tx + 16 * j, acc[i][j] * scale);
+      dq[(qbase + r) * D + tx + 16 * j] = acc[i][j] * scale;
   }
 }
 
 // 2. dK and dV ----------------------------------------------------------
 
-template <typename T, int D>
+template <int D>
 __global__ void __launch_bounds__(kThreads, Tile<D>::MIN_BLOCKS)
-dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
-           const T* __restrict__ v, const T* __restrict__ dout,
-           const float* __restrict__ stats, T* __restrict__ dk,
-           T* __restrict__ dv, int H, int KH, int Sq, int Sk, int q_offset,
+dkv_kernel(const float* __restrict__ q, const float* __restrict__ k,
+           const float* __restrict__ v, const float* __restrict__ dout,
+           const float* __restrict__ stats,
+           const float* __restrict__ delta, float* __restrict__ dk,
+           float* __restrict__ dv, int H, int KH, int Sq, int Sk, int q_offset,
            int causal, int window, float scale) {
   using P = Tile<D>;
   constexpr int BK = P::BK, LD = P::LD, LS = P::LS, NJ = P::NJ,
@@ -315,8 +259,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
   const int qt_lo = r_lo / kBQ;
   const int qt_hi = r_hi > r_lo ? (r_hi + kBQ - 1) / kBQ : qt_lo;
 
-  load_tile<T, D, BK>(sK, k + kbase * D, k0, Sk);
-  load_tile<T, D, BK>(sV, v + kbase * D, k0, Sk);
+  load_tile<D, BK>(sK, k + kbase * D, k0, Sk);
+  load_tile<D, BK>(sV, v + kbase * D, k0, Sk);
 
   float adk[NK][ND], adv[NK][ND];
 #pragma unroll
@@ -330,14 +274,14 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
     for (int qt = qt_lo; qt < qt_hi; ++qt) {
       const int q0 = qt * kBQ;
       __syncthreads();
-      load_tile<T, D, kBQ>(sQ, q + qbase * D, q0, Sq);
-      load_tile<T, D, kBQ>(sO, dout + qbase * D, q0, Sq);
+      load_tile<D, kBQ>(sQ, q + qbase * D, q0, Sq);
+      load_tile<D, kBQ>(sO, dout + qbase * D, q0, Sq);
       for (int r = tid; r < kBQ; r += kThreads) {
         const bool real = q0 + r < Sq;
         const size_t row = qbase + q0 + r;
         sM[r] = real ? stats[row] : 0.f;
         sL[r] = real ? stats[total + row] : 0.f;
-        sD[r] = real ? stats[2 * total + row] : 0.f;
+        sD[r] = real ? delta[row] : 0.f;
       }
       __syncthreads();
       float s[NI][NJ], dp[NI][NJ];
@@ -389,8 +333,8 @@ dkv_kernel(const T* __restrict__ q, const T* __restrict__ k,
 #pragma unroll
     for (int j = 0; j < ND; ++j) {
       const size_t at = (kbase + c) * D + tx + 16 * j;
-      store_f(dk, at, adk[i][j] * scale);
-      store_f(dv, at, adv[i][j]);
+      dk[at] = adk[i][j] * scale;
+      dv[at] = adv[i][j];
     }
   }
 }
@@ -404,51 +348,63 @@ template <int D> constexpr size_t dkv_smem() {
                           + 2 * kBQ * Tile<D>::LS + 3 * kBQ);
 }
 
-template <typename T, int D>
-int launch(const void* q, const void* k, const void* v, const void* o,
-           const void* dout, void* dq, void* dk, void* dv, float* stats,
-           int B, int H, int KH, int Sq, int Sk, int q_offset, int causal,
-           int window, float scale, cudaStream_t stream) {
+template <int D>
+int launch(const float* q, const float* k, const float* v, const float* o,
+           const float* dout, float* dq, float* dk, float* dv,
+           const float* stats, float* delta, int B, int H, int KH, int Sq,
+           int Sk, int q_offset, int causal, int window, float scale,
+           cudaStream_t stream) {
   static_assert(dkv_smem<D>() <= 232448, "shared memory of a block");
   cudaError_t err = cudaFuncSetAttribute(
-      dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      dq_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)dq_smem<D>());
   if (err != cudaSuccess) return (int)err;
-  err = cudaFuncSetAttribute(dkv_kernel<T, D>,
+  err = cudaFuncSetAttribute(dkv_kernel<D>,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              (int)dkv_smem<D>());
   if (err != cudaSuccess) return (int)err;
   const dim3 block(kThreads);
   if (Sq > 0) {
-    dq_kernel<T, D><<<dim3((Sq + kBQ - 1) / kBQ, H, B), block, dq_smem<D>(),
-                      stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)o,
-        (const T*)dout, (T*)dq, stats, H, KH, Sq, Sk, q_offset, causal,
-        window, scale);
+    dq_kernel<D><<<dim3((Sq + kBQ - 1) / kBQ, H, B), block,
+                          dq_smem<D>(), stream>>>(
+        q, k, v, o, dout, dq, stats, delta, H, KH, Sq, Sk, q_offset,
+        causal, window, scale);
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
   }
   if (Sk > 0) {
     constexpr int BK = Tile<D>::BK;
-    dkv_kernel<T, D><<<dim3((Sk + BK - 1) / BK, KH, B), block,
-                       dkv_smem<D>(), stream>>>(
-        (const T*)q, (const T*)k, (const T*)v, (const T*)dout, stats,
-        (T*)dk, (T*)dv, H, KH, Sq, Sk, q_offset, causal, window, scale);
+    dkv_kernel<D><<<dim3((Sk + BK - 1) / BK, KH, B), block,
+                           dkv_smem<D>(), stream>>>(
+        q, k, v, dout, stats, delta, dk, dv, H, KH, Sq, Sk, q_offset,
+        causal, window, scale);
     err = cudaGetLastError();
   }
   return (int)err;
 }
 
-template <typename T>
-int dispatch(int D, const void* q, const void* k, const void* v,
-             const void* o, const void* dout, void* dq, void* dk, void* dv,
-             float* stats, int B, int H, int KH, int Sq, int Sk,
-             int q_offset, int causal, int window, float scale,
-             cudaStream_t stream) {
-#define PFDNN_BWD_CASE(DIM)                                               \
-  case DIM:                                                               \
-    return launch<T, DIM>(q, k, v, o, dout, dq, dk, dv, stats, B, H, KH, \
-                          Sq, Sk, q_offset, causal, window, scale, stream);
+}  // namespace
+
+// dq [B, H, Sq, D] and dk, dv [B, KH, Sk, D], float32, from q, k, v, the
+// forward's output o and its cotangent dout; `stats` holds the forward's
+// float32 [2, B · H · Sq] row statistics (m, 1 / max(l, 1e-30)); `delta`
+// is float32 scratch of B · H · Sq values.  Returns a cudaError_t (0 on
+// success); launches on `stream`, does not synchronise and allocates
+// nothing.
+extern "C" int pfdnn_flash_attention_bwd_f32(
+    const void* q, const void* k, const void* v, const void* o,
+    const void* dout, void* dq, void* dk, void* dv, const void* stats,
+    void* delta, int B, int H, int KH, int Sq, int Sk, int D, int q_offset,
+    int causal, int window, float scale, void* stream) {
+  if (B <= 0 || KH <= 0 || H % KH) return (int)cudaErrorInvalidValue;
+  cudaStream_t s = (cudaStream_t)stream;
+#define PFDNN_BWD_CASE(DIM)                                                \
+  case DIM:                                                                \
+    return launch<DIM>((const float*)q, (const float*)k, (const float*)v,  \
+                       (const float*)o, (const float*)dout, (float*)dq,    \
+                       (float*)dk, (float*)dv, (const float*)stats,        \
+                       (float*)delta, B, H, KH, Sq, Sk, q_offset, causal,  \
+                       window, scale, s);
   switch (D) {
     PFDNN_BWD_CASE(16)
     PFDNN_BWD_CASE(32)
@@ -463,29 +419,4 @@ int dispatch(int D, const void* q, const void* k, const void* v,
       return (int)cudaErrorInvalidValue;
   }
 #undef PFDNN_BWD_CASE
-}
-
-}  // namespace
-
-// dq [B, H, Sq, D] and dk, dv [B, KH, Sk, D] in the inputs' type (dtype
-// 0: float32, 1: bfloat16) from q, k, v, the forward's output o and its
-// cotangent dout; `stats` is float32 scratch of 3 · B · H · Sq values.
-// Returns a cudaError_t (0 on success); launches on `stream`, does not
-// synchronise and allocates nothing.
-extern "C" int pfdnn_flash_attention_bwd(
-    const void* q, const void* k, const void* v, const void* o,
-    const void* dout, void* dq, void* dk, void* dv, void* stats, int B,
-    int H, int KH, int Sq, int Sk, int D, int q_offset, int causal,
-    int window, int dtype, float scale, void* stream) {
-  if (B <= 0 || KH <= 0 || H % KH) return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  float* st = (float*)stats;
-  if (dtype == 0)
-    return dispatch<float>(D, q, k, v, o, dout, dq, dk, dv, st, B, H, KH,
-                           Sq, Sk, q_offset, causal, window, scale, s);
-  if (dtype == 1)
-    return dispatch<__nv_bfloat16>(D, q, k, v, o, dout, dq, dk, dv, st, B,
-                                   H, KH, Sq, Sk, q_offset, causal, window,
-                                   scale, s);
-  return (int)cudaErrorInvalidValue;
 }

@@ -73,6 +73,11 @@
 // of a warpgroup in turn (overlapping S of the next tile with them
 // measured slower on the H100), and stores O from registers.
 //
+// When the caller passes a `stats` buffer (training: autograd needs the
+// gradient), each row's clamped maximum m (scaled units) and 1 / max(l,
+// 1e-30) go there at the end, for the backward
+// (flash_attention_bwd_wgmma.cu); serving passes none.
+//
 // The entry point returns cudaGetLastError() of its launch.
 
 #include <cuda.h>
@@ -238,7 +243,8 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
                              const __grid_constant__ CUtensorMap tv,
                              __nv_bfloat16* __restrict__ o, int H, int KH,
                              int Sq, int Sk, int q_offset, int causal,
-                             int window, float scale) {
+                             int window, float scale,
+                             float* __restrict__ stats) {
     using C = Cfg<D>;
     extern __shared__ uint8_t smem_raw[];
     const uint32_t qs = (smem_u32(smem_raw) + 1023u) & ~1023u;
@@ -435,6 +441,13 @@ flash_attention_wgmma_kernel(const __grid_constant__ CUtensorMap tq,
         const int row = q0 + r0 + 8 * i;
         if (row >= Sq) continue;
         const float denom = fmaxf(li, 1e-30f);
+        if (stats != nullptr && quad == 0) {
+            // the row's statistics for the backward: m in scaled units
+            // (clamped as the softmax clamps it) and 1 / max(l, 1e-30)
+            const size_t at = (size_t)(b * H + h) * Sq + row;
+            stats[at] = fmaxf(m[i], clamp_raw) * scale;
+            stats[(size_t)gridDim.z * H * Sq + at] = 1.f / denom;
+        }
         __nv_bfloat16* orow = o + ((size_t)(b * H + h) * Sq + row) * D;
 #pragma unroll
         for (int p = 0; p < C::NP; ++p)
@@ -495,7 +508,7 @@ bool encode(CUtensorMap* map, const void* base, int n, int rows, int D,
 template <int D, bool WINDOW>
 int launch(const void* q, const void* k, const void* v, void* o, int B,
            int H, int KH, int Sq, int Sk, int q_offset, int causal,
-           int window, float scale, cudaStream_t stream) {
+           int window, float scale, float* stats, cudaStream_t stream) {
     constexpr int smem = Cfg<D>::SMEM;
     CUtensorMap tq, tk, tv;
     if (!encode(&tq, q, B * H, Sq, D, BQ) || !encode(&tk, k, B * KH, Sk, D, BK)
@@ -508,7 +521,7 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
     dim3 grid((Sq + BQ - 1) / BQ, H, B);
     kern<<<grid, THREADS, smem, stream>>>(
         tq, tk, tv, static_cast<__nv_bfloat16*>(o), H, KH, Sq, Sk, q_offset,
-        causal, window, scale);
+        causal, window, scale, stats);
     return (int)cudaGetLastError();
 }
 
@@ -517,19 +530,23 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 extern "C" {
 
 // q, k, v and out are bfloat16; scale is float32(1 / sqrt(D)), as the
-// reference rounds it; window > 0 is the sliding window (0: none)
+// reference rounds it; window > 0 is the sliding window (0: none);
+// stats (NULL: none) receives float32 [2, B * H * Sq]: each row's m and
+// 1 / max(l, 1e-30), for the backward
 int pfdnn_flash_attention_bf16(const void* q, const void* k, const void* v,
                                void* o, int B, int H, int KH, int Sq,
                                int Sk, int D, int q_offset, int causal,
-                               int window, float scale, void* stream) {
+                               int window, float scale, void* stats,
+                               void* stream) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
+    float* st = static_cast<float*>(stats);
 #define PFDNN_CASE(DD)                                                  \
     case DD:                                                            \
         return window > 0                                               \
             ? launch<DD, true>(q, k, v, o, B, H, KH, Sq, Sk, q_offset,  \
-                               causal, window, scale, s)                \
+                               causal, window, scale, st, s)            \
             : launch<DD, false>(q, k, v, o, B, H, KH, Sq, Sk, q_offset, \
-                                causal, 0, scale, s);
+                                causal, 0, scale, st, s);
     switch (D) {
         PFDNN_CASE(16) PFDNN_CASE(32) PFDNN_CASE(48) PFDNN_CASE(64)
         PFDNN_CASE(80) PFDNN_CASE(96) PFDNN_CASE(112) PFDNN_CASE(128)

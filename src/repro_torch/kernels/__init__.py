@@ -6,7 +6,8 @@ PyTorch version and launch count:
   - :mod:`~repro_torch.kernels.flash_attention` — prefill attention
     (``csrc/flash_attention_wgmma.cu`` in bf16,
     ``csrc/flash_attention.cu`` in float32) and its backward
-    (``csrc/flash_attention_bwd.cu``, through a
+    (``csrc/flash_attention_bwd_wgmma.cu`` in bf16,
+    ``csrc/flash_attention_bwd.cu`` in float32, through a
     ``torch.autograd.Function``);
   - :mod:`~repro_torch.kernels.flash_decode` — decode attention over
     the KV cache (``csrc/flash_decode.cu``), and MLA's absorbed decode

@@ -33,13 +33,18 @@ launches the kernel of its dtype, built for :data:`HEAD_DIMS`, or
 raises.  Every launch adds one to :data:`LAUNCHES`.
 
 The wrapper carries the gradient: it is a ``torch.autograd.Function``
-whose backward is :func:`flash_attention_bwd`, the hand-written kernel
-``repro_torch/csrc/flash_attention_bwd.cu`` (both dtypes, every mask
-and head dim the forward takes; it replaces no TPU kernel: the
-reference trains through ``flash_attention_jnp`` under autodiff) on a
-CUDA tensor, :func:`flash_attention_bwd_plain` on a CPU tensor.  The
-backward recomputes the row statistics itself, so the forward kernels
-save nothing beyond their inputs and output.
+whose backward is :func:`flash_attention_bwd`, hand-written kernels
+that replace no TPU kernel (the reference trains through
+``flash_attention_jnp`` under autodiff) and take every mask and head
+dim the forward takes: ``repro_torch/csrc/flash_attention_bwd_wgmma.cu``
+in bf16 (``wgmma`` on the tensor cores) and
+``repro_torch/csrc/flash_attention_bwd.cu`` in float32 (CUDA cores),
+on a CUDA tensor; :func:`flash_attention_bwd_plain` on a CPU tensor.
+When autograd needs a gradient, the forward (kernel or plain version)
+also writes each query row's statistics, float32 ``[2, B·H·Sq]``: the
+clamped row maximum ``m`` of the scaled scores and ``1 / max(l,
+1e-30)`` of its sum, which the backward reads instead of recomputing
+them.  Serving (no gradient) writes none.
 """
 
 from __future__ import annotations
@@ -68,6 +73,7 @@ DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 SOURCE = CSRC / "flash_attention.cu"
 WGMMA_SOURCE = CSRC / "flash_attention_wgmma.cu"
 BWD_SOURCE = CSRC / "flash_attention_bwd.cu"
+BWD_WGMMA_SOURCE = CSRC / "flash_attention_bwd_wgmma.cu"
 # held by tolerance, so FMA contraction stays on
 NVCC_FLAGS = BASE_FLAGS
 
@@ -85,7 +91,9 @@ def _declare(entry: str, plan: str | None = None
     def declare(lib: ctypes.CDLL) -> None:
         fn = getattr(lib, entry)
         p, i = ctypes.c_void_p, ctypes.c_int
-        fn.argtypes = [p] * 4 + [i] * 9 + [ctypes.c_float, p]
+        # q, k, v, out; B, H, KH, Sq, Sk, D, q_offset, causal, window;
+        # scale; the row statistics (NULL: none); the stream
+        fn.argtypes = [p] * 4 + [i] * 9 + [ctypes.c_float, p, p]
         fn.restype = ctypes.c_int
         if plan is not None:
             fn = getattr(lib, plan)
@@ -104,16 +112,25 @@ WGMMA_LIBRARY = CudaLibrary(WGMMA_SOURCE, NVCC_FLAGS,
                             _declare("pfdnn_flash_attention_bf16"))
 
 
-def _declare_bwd(lib: ctypes.CDLL) -> None:
-    fn = lib.pfdnn_flash_attention_bwd
-    p, i = ctypes.c_void_p, ctypes.c_int
-    fn.argtypes = [p] * 9 + [i] * 10 + [ctypes.c_float, p]
-    fn.restype = ctypes.c_int
+def _declare_bwd(entry: str) -> Callable[[ctypes.CDLL], None]:
+    def declare(lib: ctypes.CDLL) -> None:
+        fn = getattr(lib, entry)
+        p, i = ctypes.c_void_p, ctypes.c_int
+        # q, k, v, out, dout, dq, dk, dv, statistics, δ scratch; B, H,
+        # KH, Sq, Sk, D, q_offset, causal, window; scale; the stream
+        fn.argtypes = [p] * 10 + [i] * 9 + [ctypes.c_float, p]
+        fn.restype = ctypes.c_int
+    return declare
 
 
-#: the backward (``pfdnn_flash_attention_bwd``: both dtypes, float32
-#: arithmetic on the CUDA cores)
-BWD_LIBRARY = CudaLibrary(BWD_SOURCE, NVCC_FLAGS, _declare_bwd)
+#: the float32 backward (``pfdnn_flash_attention_bwd_f32``, CUDA cores)
+BWD_LIBRARY = CudaLibrary(BWD_SOURCE, NVCC_FLAGS,
+                          _declare_bwd("pfdnn_flash_attention_bwd_f32"))
+#: the bfloat16 backward (``pfdnn_flash_attention_bwd_bf16``, tensor
+#: cores)
+BWD_WGMMA_LIBRARY = CudaLibrary(
+    BWD_WGMMA_SOURCE, NVCC_FLAGS,
+    _declare_bwd("pfdnn_flash_attention_bwd_bf16"))
 
 
 #: query rows a CTA of the float32 kernel owns; keys a K/V tile (the
@@ -262,40 +279,52 @@ def _check_shapes(name: str, q: torch.Tensor, k: torch.Tensor,
 
 
 class _FlashAttention(torch.autograd.Function):
-    """The forward kernel (plain version on the CPU), saving q, k, v and
-    the output; the backward kernel (plain version on the CPU)."""
+    """The forward kernel (plain version on the CPU), saving q, k, v, the
+    output and, when a gradient is needed, the rows' statistics; the
+    backward kernel (plain version on the CPU)."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal, q_offset, window):
-        out = _forward(q, k, v, causal, q_offset, window)
-        ctx.save_for_backward(q, k, v, out)
+        out, stats = _forward(q, k, v, causal, q_offset, window,
+                              with_stats=any(ctx.needs_input_grad[:3]))
+        ctx.save_for_backward(q, k, v, out, stats)
         ctx.mask = (causal, q_offset, window)
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out = ctx.saved_tensors
+        q, k, v, out, stats = ctx.saved_tensors
         causal, q_offset, window = ctx.mask
         dq, dk, dv = flash_attention_bwd(dout.contiguous(), q, k, v, out,
                                          causal=causal, q_offset=q_offset,
-                                         window=window)
+                                         window=window, stats=stats)
         return dq, dk, dv, None, None, None
 
 
 def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-             causal: bool, q_offset: int, window: int) -> torch.Tensor:
+             causal: bool, q_offset: int, window: int,
+             with_stats: bool = False
+             ) -> tuple[torch.Tensor, torch.Tensor | None]:
+    """(the output, the rows' statistics ``[2, B·H·Sq]`` when
+    ``with_stats``, else None)."""
     name = "flash_attention"
     B, H, Sq, D = q.shape
     _, KH, Sk, _ = k.shape
     if q.device.type == "cpu":
+        if with_stats:
+            return flash_attention_plain(q, k, v, causal=causal,
+                                         q_offset=q_offset, window=window,
+                                         with_stats=True)
         return flash_attention_plain(q, k, v, causal=causal,
-                                     q_offset=q_offset, window=window)
+                                     q_offset=q_offset, window=window), None
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     check_cuda_operands(name, dict(q=q, k=k, v=v))
     out = torch.empty_like(q)
+    stats = torch.empty((2, B * H * Sq), dtype=torch.float32,
+                        device=q.device) if with_stats else None
     if out.numel() == 0:
-        return out
+        return out, stats
     if q.dtype == torch.bfloat16:
         entry = WGMMA_LIBRARY.load().pfdnn_flash_attention_bf16
     else:
@@ -304,46 +333,68 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     out.data_ptr(), B, H, KH, Sq, Sk, D, int(q_offset),
                     int(bool(causal)), window, softmax_scale(D),
+                    None if stats is None else stats.data_ptr(),
                     stream_of(q.device))
     raise_on(name, err)
     LAUNCHES[name] += 1
-    return out
+    return out, stats
 
 
 def flash_attention_plain(q: torch.Tensor, k: torch.Tensor,
                           v: torch.Tensor, *, causal: bool = True,
-                          q_offset: int = 0,
-                          window: int = 0) -> torch.Tensor:
+                          q_offset: int = 0, window: int = 0,
+                          with_stats: bool = False):
     """Plain PyTorch version of :func:`flash_attention`: the full
     masked softmax in float32, with the kernel's ``NEG_INF`` masks and
     clamp and its cast points (``p`` rounded to V's dtype before
-    ``P·V``, the division by ``max(l, 1e-30)`` after it)."""
+    ``P·V``, the division by ``max(l, 1e-30)`` after it).  With
+    ``with_stats``, (the output, the rows' statistics ``[2, B·H·Sq]``:
+    ``m`` and ``1 / max(l, 1e-30)``, as the kernels write them)."""
     B, H, Sq, D = q.shape
     g = H // k.shape[1]
-    Sk = k.shape[2]
-    kf = k.float().repeat_interleave(g, dim=1)
     vf = v.repeat_interleave(g, dim=1)
-    s = torch.matmul(q.float(), kf.transpose(-1, -2)) * softmax_scale(D)
-    keep = _keep_mask(Sq, Sk, q_offset, causal, window, q.device)
-    if keep is not None:
-        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    s = _scores(q, k, causal, q_offset, window)
     m = s.amax(dim=-1, keepdim=True).clamp_min(0.5 * NEG_INF)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     out = torch.matmul(p.to(v.dtype).float(), vf.float())
-    return (out / l.clamp_min(1e-30)).to(q.dtype)
+    out = (out / l.clamp_min(1e-30)).to(q.dtype)
+    if not with_stats:
+        return out
+    return out, torch.stack([m.reshape(-1),
+                             1.0 / l.clamp_min(1e-30).reshape(-1)])
+
+
+def _scores(q: torch.Tensor, k: torch.Tensor, causal: bool,
+            q_offset: int, window: int) -> torch.Tensor:
+    """``Q Kᵀ · scale`` in float32 ``[B, H, Sq, Sk]`` (GQA's KV heads
+    repeated), ``NEG_INF`` where the mask drops a key."""
+    g = q.shape[1] // k.shape[1]
+    kf = k.float().repeat_interleave(g, dim=1)
+    s = torch.matmul(q.float(), kf.transpose(-1, -2)) \
+        * softmax_scale(q.shape[-1])
+    keep = _keep_mask(q.shape[2], k.shape[2], q_offset, causal, window,
+                      q.device)
+    if keep is not None:
+        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
+    return s
 
 
 def flash_attention_bwd(dout: torch.Tensor, q: torch.Tensor,
                         k: torch.Tensor, v: torch.Tensor,
                         out: torch.Tensor, *, causal: bool = True,
-                        q_offset: int = 0, window: int = 0
+                        q_offset: int = 0, window: int = 0,
+                        stats: torch.Tensor | None = None
                         ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """``(dq, dk, dv)`` of :func:`flash_attention` at ``q, k, v`` (shapes
     and mask as there) for the cotangent ``dout`` of its output ``out``,
-    in q's dtype.  On CPU tensors :func:`flash_attention_bwd_plain`; on
-    CUDA tensors one call launches the backward kernel (its statistics
-    and dQ pass, then its dK/dV pass) or raises."""
+    in q's dtype; ``stats``: the rows' statistics the forward saved
+    (float32 ``[2, B·H·Sq]``), or None to compute them here.  On CPU
+    tensors :func:`flash_attention_bwd_plain`; on CUDA tensors one call
+    launches the backward kernels of q's dtype (bf16: the tensor-core
+    kernels of ``csrc/flash_attention_bwd_wgmma.cu``, float32:
+    ``csrc/flash_attention_bwd.cu``), after a statistics pass (the
+    forward kernel into scratch) when ``stats`` is None, or raises."""
     name = "flash_attention_bwd"
     _check_shapes(name, q, k, v)
     for key, t in (("dout", dout), ("out", out)):
@@ -352,30 +403,42 @@ def flash_attention_bwd(dout: torch.Tensor, q: torch.Tensor,
             raise ValueError(f"{name}: {key} must match q ({tuple(q.shape)}"
                              f" {q.dtype} on {q.device}), got "
                              f"{tuple(t.shape)} {t.dtype} on {t.device}")
+    B, H, Sq, D = q.shape
+    _, KH, Sk, _ = k.shape
+    if stats is not None and (stats.shape != (2, B * H * Sq)
+                              or stats.dtype != torch.float32
+                              or stats.device != q.device):
+        raise ValueError(f"{name}: stats must be float32 [2, {B * H * Sq}]"
+                         f" on {q.device}, got {tuple(stats.shape)} "
+                         f"{stats.dtype} on {stats.device}")
     window = int(window)
+    mask = dict(causal=causal, q_offset=q_offset, window=window)
     if q.device.type == "cpu":
-        return flash_attention_bwd_plain(dout, q, k, v, out, causal=causal,
-                                         q_offset=q_offset, window=window)
+        return flash_attention_bwd_plain(dout, q, k, v, out, stats=stats,
+                                         **mask)
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     check_cuda_operands(name, dict(q=q, k=k, v=v, out=out, dout=dout))
-    B, H, Sq, D = q.shape
-    _, KH, Sk, _ = k.shape
     dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
         torch.empty_like(v)
     if q.numel() == 0 or k.numel() == 0:
         return dq.zero_(), dk.zero_(), dv.zero_()
-    # the rows' max, 1 / sum and rowsum(dO ∘ O), from the first kernel
-    # to the second
-    stats = torch.empty((3, B * H * Sq), dtype=torch.float32,
-                        device=q.device)
-    entry = BWD_LIBRARY.load().pfdnn_flash_attention_bwd
+    if stats is None:
+        _, stats = _forward(q, k, v, causal, q_offset, window,
+                            with_stats=True)
+    check_cuda_operands(name, dict(stats=stats))
+    # δ = rowsum(dO ∘ O), from the first kernel to the others
+    delta = torch.empty(B * H * Sq, dtype=torch.float32, device=q.device)
+    if q.dtype == torch.bfloat16:
+        entry = BWD_WGMMA_LIBRARY.load().pfdnn_flash_attention_bwd_bf16
+    else:
+        entry = BWD_LIBRARY.load().pfdnn_flash_attention_bwd_f32
     with torch.cuda.device(q.device):
         err = entry(q.data_ptr(), k.data_ptr(), v.data_ptr(),
                     out.data_ptr(), dout.data_ptr(), dq.data_ptr(),
-                    dk.data_ptr(), dv.data_ptr(), stats.data_ptr(), B, H,
-                    KH, Sq, Sk, D, int(q_offset), int(bool(causal)),
-                    window, DTYPES[q.dtype], softmax_scale(D),
+                    dk.data_ptr(), dv.data_ptr(), stats.data_ptr(),
+                    delta.data_ptr(), B, H, KH, Sq, Sk, D, int(q_offset),
+                    int(bool(causal)), window, softmax_scale(D),
                     stream_of(q.device))
     raise_on(name, err)
     LAUNCHES[name] += 1
@@ -385,36 +448,71 @@ def flash_attention_bwd(dout: torch.Tensor, q: torch.Tensor,
 def flash_attention_bwd_plain(dout: torch.Tensor, q: torch.Tensor,
                               k: torch.Tensor, v: torch.Tensor,
                               out: torch.Tensor, *, causal: bool = True,
-                              q_offset: int = 0, window: int = 0
+                              q_offset: int = 0, window: int = 0,
+                              stats: torch.Tensor | None = None
                               ) -> tuple[torch.Tensor, torch.Tensor,
                                          torch.Tensor]:
     """Plain PyTorch version of :func:`flash_attention_bwd`, the formula
-    the kernel computes, in float32: S and P recomputed with the
-    forward's ``NEG_INF`` masks and ``0.5·NEG_INF`` clamp (``P = exp(S −
-    m) / max(l, 1e-30)``), ``dV = Pᵀ dO``, ``dP = dO Vᵀ``, ``δ =
-    rowsum(dO ∘ O)``, ``dS = P ∘ (dP − δ)``, ``dQ = dS K · scale``, ``dK
-    = dSᵀ Q · scale``, with GQA's dK and dV summed over each KV head's
-    group; cast to q's dtype."""
+    the float32 kernel computes, in float32: S recomputed with the
+    forward's ``NEG_INF`` masks; the rows' ``m`` and ``1 / max(l,
+    1e-30)`` from ``stats`` (or computed as the forward computes them,
+    with its ``0.5·NEG_INF`` clamp); ``P = exp(S − m) · (1 / l)``, ``dV
+    = Pᵀ dO``, ``dP = dO Vᵀ``, ``δ = rowsum(dO ∘ O)``, ``dS = P ∘ (dP −
+    δ)``, ``dQ = dS K · scale``, ``dK = dSᵀ Q · scale``, with GQA's dK
+    and dV summed over each KV head's group; cast to q's dtype."""
+    return _bwd_plain(dout, q, k, v, out, causal, q_offset, window, stats,
+                      None)
+
+
+def flash_attention_bwd_bf16_plain(dout: torch.Tensor, q: torch.Tensor,
+                                   k: torch.Tensor, v: torch.Tensor,
+                                   out: torch.Tensor, *,
+                                   causal: bool = True, q_offset: int = 0,
+                                   window: int = 0,
+                                   stats: torch.Tensor | None = None
+                                   ) -> tuple[torch.Tensor, torch.Tensor,
+                                              torch.Tensor]:
+    """Plain PyTorch version of the bf16 kernel's algorithm: the formula
+    of :func:`flash_attention_bwd_plain`, in float32, except that P and
+    dS are rounded to bf16 where they enter a product (``dV = bf16(P)ᵀ
+    dO``, ``dQ = bf16(dS) K · scale``, ``dK = bf16(dS)ᵀ Q · scale``, each
+    summed in float32), as the kernel feeds them to the tensor cores;
+    ``dS`` itself is formed from the float32 P."""
+    return _bwd_plain(dout, q, k, v, out, causal, q_offset, window, stats,
+                      torch.bfloat16)
+
+
+def _bwd_plain(dout, q, k, v, out, causal, q_offset, window, stats,
+               operand_dtype):
+    """The two plain backwards: ``operand_dtype`` None keeps P and dS in
+    float32 as product operands, else rounds them to it."""
     B, H, Sq, D = q.shape
     KH, Sk = k.shape[1], k.shape[2]
     g = H // KH
     scale = softmax_scale(D)
+
+    def operand(x):
+        return x if operand_dtype is None else x.to(operand_dtype).float()
+
     qf, do = q.float(), dout.float()
     kf = k.float().repeat_interleave(g, dim=1)
     vf = v.float().repeat_interleave(g, dim=1)
-    s = torch.matmul(qf, kf.transpose(-1, -2)) * scale
-    keep = _keep_mask(Sq, Sk, q_offset, causal, window, q.device)
-    if keep is not None:
-        s = torch.where(keep, s, torch.full_like(s, NEG_INF))
-    m = s.amax(dim=-1, keepdim=True).clamp_min(0.5 * NEG_INF)
-    p = torch.exp(s - m)
-    p = p / p.sum(dim=-1, keepdim=True).clamp_min(1e-30)
+    s = _scores(q, k, causal, q_offset, window)
+    if stats is None:
+        m = s.amax(dim=-1, keepdim=True).clamp_min(0.5 * NEG_INF)
+        inv_l = 1.0 / torch.exp(s - m).sum(dim=-1, keepdim=True) \
+            .clamp_min(1e-30)
+    else:
+        m = stats[0].view(B, H, Sq, 1)
+        inv_l = stats[1].view(B, H, Sq, 1)
+    p = torch.exp(s - m) * inv_l
     del s
-    dv = torch.matmul(p.transpose(-1, -2), do)
+    dv = torch.matmul(operand(p).transpose(-1, -2), do)
     ds = torch.matmul(do, vf.transpose(-1, -2))
     ds -= (do * out.float()).sum(dim=-1, keepdim=True)
     ds *= p
     del p
+    ds = operand(ds)
     dq = torch.matmul(ds, kf) * scale
     dk = torch.matmul(ds.transpose(-1, -2), qf) * scale
     dk = dk.view(B, KH, g, Sk, D).sum(dim=2)

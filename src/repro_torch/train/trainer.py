@@ -5,8 +5,10 @@ microbatches and activation remat (configured per model by
 
 The port runs eagerly: there is no ``jit`` (the reference's
 ``train_loop(jit=...)`` keyword is dropped) and a step's gradients come
-from ``torch.autograd.grad`` over the parameter leaves, attention's
-through its backward kernel.  The reference's ``Runtime`` (a mesh) has
+from ``torch.autograd.grad`` over detached views of the parameter
+leaves (the caller's tensors never require grad, so they serve on the
+kernels that have no backward right after a step), attention's through
+its backward kernel.  The reference's ``Runtime`` (a mesh) has
 no counterpart on one card, so the functions take no ``rt``.
 """
 
@@ -39,6 +41,30 @@ def _on_device(batch: dict, device: torch.device) -> dict:
     return {k: torch.as_tensor(v).to(device) for k, v in batch.items()}
 
 
+def value_and_grad(params: Any, cfg: ModelConfig, batch: dict
+                   ) -> tuple[torch.Tensor, list[torch.Tensor]]:
+    """(the detached loss, the gradient of every parameter leaf in
+    flatten order) of :func:`loss_fn`, taken through detached views of
+    the leaves that require grad, so ``params`` is left as it was."""
+    views = [p.detach().requires_grad_(True) for p in leaves(params)]
+    loss = loss_fn(unflatten(params, views), cfg, batch)
+    return loss.detach(), list(torch.autograd.grad(loss, views))
+
+
+def _microbatches(batch: dict, n: int) -> list[dict]:
+    """``batch`` cut into ``n`` microbatches along the first axis of
+    each array, as the reference reshapes it to ``(n, B // n, ...)``;
+    raises ``TypeError`` (the reference's reshape error) when a first
+    axis does not divide by ``n``."""
+    for key, x in batch.items():
+        if x.shape[0] % n:
+            raise TypeError(f"train_step: cannot cut {key} of shape "
+                            f"{tuple(x.shape)} into {n} microbatches of "
+                            "equal size")
+    return [{key: x.reshape(n, x.shape[0] // n, *x.shape[1:])[i]
+             for key, x in batch.items()} for i in range(n)]
+
+
 def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     """The train step: ``(params, opt_state, batch) → (params,
     opt_state, metrics)``, parameters and moments updated in place
@@ -47,24 +73,17 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
     splits into that many microbatches along the first axis of each
     of its arrays, as the reference reshapes them; their gradients
     sum in float32, are divided by ``accum_steps``, and the loss is the
-    microbatches' mean."""
-
-    def grads_of(params, batch):
-        params_l = leaves(params)
-        for p in params_l:
-            p.requires_grad_(True)
-        loss = loss_fn(params, cfg, batch)
-        grads = torch.autograd.grad(loss, params_l)
-        return loss.detach(), grads
+    microbatches' mean; a first axis that does not divide by
+    ``accum_steps`` raises ``TypeError`` before any gradient is taken,
+    as the reference's reshape does."""
 
     def train_step(params, opt_state, batch):
         batch = _on_device(batch, leaves(params)[0].device)
         n = tcfg.accum_steps
         if n > 1:
             g_acc, losses = None, []
-            for i in range(n):
-                mb = {key: x.chunk(n)[i] for key, x in batch.items()}
-                loss_i, g = grads_of(params, mb)
+            for mb in _microbatches(batch, n):
+                loss_i, g = value_and_grad(params, cfg, mb)
                 g32 = [x.float() for x in g]
                 g_acc = g32 if g_acc is None else [
                     a + b for a, b in zip(g_acc, g32)]
@@ -72,7 +91,7 @@ def make_train_step(cfg: ModelConfig, tcfg: TrainConfig) -> Callable:
             grads = [g / n for g in g_acc]
             loss = torch.stack(losses).mean()
         else:
-            loss, grads = grads_of(params, batch)
+            loss, grads = value_and_grad(params, cfg, batch)
         params, opt_state, metrics = adamw_update(
             unflatten(params, list(grads)), opt_state, params,
             tcfg.optimizer)

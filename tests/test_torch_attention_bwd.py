@@ -16,12 +16,22 @@ cotangents of its P·V product to bf16 inside autodiff and both sides
 round the gradients to bf16, each a half ulp of 2^-8; the measured
 worst is ~4.4e-3).
 
+The bf16 kernel's algorithm (``flash_attention_bwd_bf16_plain``: P and
+dS rounded to bf16 as product operands) is held against the same
+reference at the bf16 tolerance.  The rows' statistics the forward
+saves give the plain backwards what they compute without them (within
+1e-6 relative: the same float32 operations).
+
 Also: every kernel wrapper given CUDA tensors that require grad either
 carries the gradient (``flash_attention``, through its Function) or
 raises (``flash_decode``, ``flash_decode_mla``, ``int8_matmul``, which
-have no backward); fake CUDA tensors stand in for the card.
+have no backward); fake CUDA tensors stand in for the card, and show
+that the forward passes a statistics buffer only when a gradient is
+needed and that the backward launches the bf16 library for bf16 and
+the float32 one for float32.
 """
 
+import contextlib
 import functools
 import types
 
@@ -189,20 +199,23 @@ def test_cuda_backward_goes_to_the_kernel_never_the_plain_version(
     def never(*args, **kwargs):
         raise AssertionError("a plain version ran on CUDA tensors")
 
-    for lib in (fa.LIBRARY, fa.WGMMA_LIBRARY, fa.BWD_LIBRARY):
+    for lib in (fa.LIBRARY, fa.WGMMA_LIBRARY, fa.BWD_LIBRARY,
+                fa.BWD_WGMMA_LIBRARY):
         monkeypatch.setattr(lib, "load", refuse)
     monkeypatch.setattr(fa, "flash_attention_plain", never)
     monkeypatch.setattr(fa, "flash_attention_bwd_plain", never)
+    monkeypatch.setattr(fa, "flash_attention_bwd_bf16_plain", never)
     saved = {}
     ctx = types.SimpleNamespace(
-        save_for_backward=lambda *t: saved.update(t=t))
+        save_for_backward=lambda *t: saved.update(t=t),
+        needs_input_grad=(True, True, True, False, False, False))
     with FakeTensorMode():
         for dtype in (torch.float32, torch.bfloat16):
             q = torch.empty(1, 4, 8, 16, device="cuda", dtype=dtype)
             kv = torch.empty(1, 2, 8, 16, device="cuda", dtype=dtype)
             with pytest.raises(Loaded):
                 fa._FlashAttention.forward(ctx, q, kv, kv, True, 0, 0)
-            ctx.saved_tensors, ctx.mask = (q, kv, kv, q), (True, 0, 3)
+            ctx.saved_tensors, ctx.mask = (q, kv, kv, q, None), (True, 0, 3)
             with pytest.raises(Loaded):
                 fa._FlashAttention.backward(ctx, q)
             with pytest.raises(ValueError, match="contiguous"):
@@ -255,3 +268,118 @@ def test_kernels_without_a_backward_refuse_inputs_that_require_grad(
                 call(True)
             with pytest.raises(Loaded):
                 call(False)
+
+
+@pytest.mark.parametrize("name", ["causal", "window", "full_sq_ne_sk",
+                                  "no_key_rows", "mla_192"])
+def test_bf16_kernel_algorithm_matches_jax_vjp(name):
+    case = CASES[name]
+    ref_out, *ref_grads = _reference(case, "bfloat16")
+    q, k, v, do = _port(case, "bfloat16")
+    out, stats = fa.flash_attention_plain(q, k, v, with_stats=True,
+                                          **_mask(case))
+    got = fa.flash_attention_bwd_bf16_plain(do, q, k, v, out, stats=stats,
+                                            **_mask(case))
+    for g, t in zip(got, (q, k, v)):
+        assert g.dtype == t.dtype and g.shape == t.shape
+    _check(got, ref_grads, "bfloat16")
+    if case[7] < 0:
+        assert torch.count_nonzero(got[0][:, :, :-case[7]]) == 0
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("name", ["causal", "q_offset", "window",
+                                  "no_key_rows", "mla_192"])
+def test_saved_statistics_give_the_backward_without_them(name, dtype):
+    case = CASES[name]
+    q, k, v, do = _port(case, dtype)
+    out, stats = fa.flash_attention_plain(q, k, v, with_stats=True,
+                                          **_mask(case))
+    assert torch.equal(out, fa.flash_attention_plain(q, k, v,
+                                                     **_mask(case)))
+    b, h, sq = q.shape[:3]
+    assert stats.shape == (2, b * h * sq) and stats.dtype == torch.float32
+    for bwd in (fa.flash_attention_bwd_plain,
+                fa.flash_attention_bwd_bf16_plain):
+        with_stats = bwd(do, q, k, v, out, stats=stats, **_mask(case))
+        without = bwd(do, q, k, v, out, **_mask(case))
+        for x, y in zip(with_stats, without):
+            scale = max(float(y.float().abs().max()), 1e-30)
+            assert float((x.float() - y.float()).abs().max()) <= 1e-6 * scale
+
+
+class _Library:
+    """Stands in for a loaded kernel library: records each call of its
+    entry point (pointers as the wrapper passes them: an int, or None
+    for NULL) and returns cudaSuccess."""
+
+    def __init__(self, entry):
+        self.calls = []
+        setattr(self, entry, self._record)
+
+    def _record(self, *args):
+        self.calls.append(args)
+        return 0
+
+
+@pytest.mark.filterwarnings("ignore::UserWarning")
+def test_fake_cuda_statistics_and_backward_routes(monkeypatch):
+    """On fake CUDA tensors: the Function's forward hands the kernel a
+    statistics buffer (argument 14) only when an input needs a
+    gradient, and the backward passes the saved one on; bf16 goes to the
+    tensor-core backward library, float32 to the CUDA-core one; without
+    saved statistics the backward first runs the forward kernel for
+    them; no plain version runs and each backward call counts one
+    launch."""
+    libs = {"f32": _Library("pfdnn_flash_attention_f32"),
+            "bf16": _Library("pfdnn_flash_attention_bf16"),
+            "bwd_f32": _Library("pfdnn_flash_attention_bwd_f32"),
+            "bwd_bf16": _Library("pfdnn_flash_attention_bwd_bf16")}
+    for key, lib in (("f32", fa.LIBRARY), ("bf16", fa.WGMMA_LIBRARY),
+                     ("bwd_f32", fa.BWD_LIBRARY),
+                     ("bwd_bf16", fa.BWD_WGMMA_LIBRARY)):
+        monkeypatch.setattr(lib, "load", lambda stub=libs[key]: stub)
+
+    def never(*args, **kwargs):
+        raise AssertionError("a plain version ran on CUDA tensors")
+
+    for name in ("flash_attention_plain", "flash_attention_bwd_plain",
+                 "flash_attention_bwd_bf16_plain"):
+        monkeypatch.setattr(fa, name, never)
+    monkeypatch.setattr(fa, "stream_of", lambda device: 0)
+    monkeypatch.setattr(torch.cuda, "device",
+                        lambda device: contextlib.nullcontext())
+    for name in fa.LAUNCHES:
+        monkeypatch.setitem(fa.LAUNCHES, name, 0)
+    saved = {}
+    with FakeTensorMode():
+        for dtype, fwd, bwd in ((torch.bfloat16, "bf16", "bwd_bf16"),
+                                (torch.float32, "f32", "bwd_f32")):
+            q = torch.empty(2, 8, 100, 64, device="cuda", dtype=dtype)
+            kv = torch.empty(2, 2, 130, 64, device="cuda", dtype=dtype)
+            for grad in (False, True):
+                ctx = types.SimpleNamespace(
+                    save_for_backward=lambda *t: saved.update(t=t),
+                    needs_input_grad=(grad, False, False, False, False,
+                                      False))
+                out = fa._FlashAttention.forward(ctx, q, kv, kv, True, 30,
+                                                 0)
+                stats = saved["t"][4]
+                assert (stats is not None) == grad
+                assert (libs[fwd].calls[-1][14] is None) == (not grad)
+            assert stats.shape == (2, 2 * 8 * 100)
+            ctx.saved_tensors, ctx.mask = saved["t"], (True, 30, 0)
+            n_fwd = len(libs[fwd].calls)
+            dq, dk, dv = fa._FlashAttention.backward(ctx, out)[:3]
+            assert len(libs[fwd].calls) == n_fwd
+            assert dq.shape == q.shape and dk.shape == dv.shape == kv.shape
+            # no statistics: a pass of the forward kernel first
+            fa.flash_attention_bwd(out, q, kv, kv, out, causal=True,
+                                   q_offset=30)
+            assert len(libs[fwd].calls) == n_fwd + 1
+            assert libs[fwd].calls[-1][14] is not None
+            assert len(libs[bwd].calls) == 2
+            # B, H, KH, Sq, Sk, D, q_offset, causal, window
+            for call in libs[bwd].calls:
+                assert call[10:19] == (2, 8, 2, 100, 130, 64, 30, 1, 0)
+    assert fa.LAUNCHES["flash_attention_bwd"] == 4
