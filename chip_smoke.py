@@ -236,7 +236,26 @@ NVIDIA GPU:
      the port's baseline); ``certify --store`` on the service phase's
      farm store (OK, entries > 0); ``lockcheck --dump`` on the service
      phase's two-thread lock graph (no cycle, no barrier hazard);
- 13. prints the card's name and power limit again, the ``kernels`` JSON
+ 13. dryrun phase: the dry-run (``repro_torch.launch.dryrun``) of all
+     40 (architecture × shape) cells on ``meta`` tensors at full width,
+     its counting passes on ``DRYRUN_JOBS`` processes (each cell ``OK``
+     or ``SKIP`` as ``all_cells`` says; one line a cell: peak GiB, fits
+     one card, the compute and memory terms of the H100 roofline,
+     dominant) and ``H100_SXM.hbm_bytes`` against the card's
+     ``total_memory``; tinyllama-1.1b's bf16 decode step at the serving
+     shape (batch 16, a cache of 2048 rows) dry-run and then run on the
+     card: the record's argument bytes equal to the real parameters,
+     cache and tokens, its FLOPs and bytes over the H100's rates beside
+     the step's events and device ms, its peak beside
+     ``torch.cuda.max_memory_allocated``; the PF-DNN adapter on the
+     port's own qwen2-7b ``decode_32k`` record (28 layers, rails 0.7 /
+     0.85 / 1.0, deadlines of 1.2, 2 and 4 x the memory floor), solved
+     on the card (the DP and k-best kernels must launch) and on the CPU
+     port: paths, energies and times equal, every deadline met, energy
+     against the all-max static assignment; then the card's power draw
+     (``nvidia-smi`` every 100 ms) idle, under a bf16 GEMM loop and under
+     a device-copy loop, beside the chip model's nominal powers;
+ 14. prints the card's name and power limit again, the ``kernels`` JSON
      line (the families' configurations of #4 and #5 as rows of their
      own, with the launches of their launcher or, where it has none or
      the row is float32, of their kernel-path run: ``FAMILY_ROWS``;
@@ -278,7 +297,9 @@ library alone, prints its ``ptxas -v`` report (no spills) and its
 result line.  ``python3 chip_smoke.py --train`` builds the two prefill
 attention libraries and the backward's (its ``ptxas -v`` report: no
 spills) and runs the training phase; it prints the ``kernels`` line
-with the backward's row and no result line.  Run from a ``git
+with the backward's row and no result line.  ``python3 chip_smoke.py
+--dryrun`` builds the prefill bf16, decode and rail-sweep libraries and
+runs the dryrun phase; it prints no result line.  Run from a ``git
 archive`` of another commit, this script times that commit's kernels
 (a tree without the float32 plan skips its check).
 """
@@ -5579,6 +5600,276 @@ def control_only() -> int:
     return 0
 
 
+# ------------------------------------------------------- dryrun phase
+
+DRYRUN_JOBS = 8                # processes of the meta dry-run's passes
+#: tinyllama-1.1b's bf16 decode step at the serving shape: batch, cache
+#: rows, prompt tokens before the timed steps
+DRYRUN_STEP = (ARCH, 16, 2048, 512)
+DRYRUN_STEPS = 10
+#: the adapter's cell, its layers, rails and deadlines (x the memory
+#: floor), as benchmarks/tpu_orchestration.py drives the reference's
+ADAPTER_CELL = ("qwen2-7b", "decode_32k", 28)
+ADAPTER_RAILS = (0.7, 0.85, 1.0)
+ADAPTER_SLACK = (1.2, 2.0, 4.0)
+POWER_SECONDS = 3.0            # each power condition, sampled every 100 ms
+POWER_GEMM = 8192              # bf16 GEMM of POWER_GEMM^3
+POWER_COPY_BYTES = 4 << 30     # device-to-device copy
+
+
+def dryrun_cells() -> dict:
+    """Every cell dry-run on ``meta``, fresh; the card's HBM size."""
+    import torch
+
+    from repro_torch.configs import all_cells
+    from repro_torch.hw.gpu import H100_SXM
+    from repro_torch.launch import dryrun, roofline
+
+    total = torch.cuda.get_device_properties(0).total_memory
+    print(f"dryrun: {torch.cuda.get_device_name(0)} total_memory {total} "
+          f"B; H100_SXM.hbm_bytes {H100_SXM.hbm_bytes} B", flush=True)
+    check(total == H100_SXM.hbm_bytes,
+          f"H100_SXM.hbm_bytes {H100_SXM.hbm_bytes} != the card's "
+          f"total_memory {total}")
+    cells = all_cells()
+    tic = time.perf_counter()
+    records = dryrun.run_cells([(a, s) for a, s, _, _ in cells],
+                               force=True, jobs=DRYRUN_JOBS)
+    wall = time.perf_counter() - tic
+    for (arch, shape, ok, why), rec in zip(cells, records):
+        want = "OK" if ok else "SKIP"
+        check(rec["status"] == want,
+              f"dry-run {arch} {shape}: {rec['status']} (want {want}) "
+              f"{rec.get('error', '')} {rec.get('traceback', '')}")
+        if not ok:
+            print(f"dryrun cell: {arch} {shape}: SKIP ({why})", flush=True)
+            continue
+        row = roofline.analyze_record(rec)
+        print(f"dryrun cell: {arch} {shape}: OK peak "
+              f"{row['peak_gib']:.2f} GiB fits "
+              f"{'yes' if row['fits_hbm'] else 'NO'} compute "
+              f"{row['t_compute_s']:.6f} s memory {row['t_memory_s']:.6f} s "
+              f"dominant {row['dominant']} (memory pass {rec['run_s']} s)",
+              flush=True)
+    print(f"dryrun: {len(cells)} cells in {wall:.3f} s on {DRYRUN_JOBS} "
+          "processes", flush=True)
+    return {(r["arch"], r["shape"]): r for r in records}
+
+
+def dryrun_step() -> None:
+    """tinyllama-1.1b's decode step dry-run, then run on the card."""
+    import torch
+
+    from repro_torch.configs import ShapeCell, get_config
+    from repro_torch.hw.gpu import H100_SXM
+    from repro_torch.launch import dryrun
+    from repro_torch.models import module
+    from repro_torch.models import transformer as tf
+
+    arch, batch, cache, prompt = DRYRUN_STEP
+    cfg = get_config(arch)
+    res = dryrun.count_cell(arch, ShapeCell("serve", cache, batch,
+                                            "decode"))
+    gen = torch.Generator(device=DEVICE).manual_seed(0)
+    params = tf.init_params(cfg, gen, DEVICE)
+    with torch.no_grad():
+        prompts = torch.randint(0, cfg.vocab_size, (batch, prompt),
+                                generator=gen, device=DEVICE)
+        _, state = tf.prefill(params, cfg, {"tokens": prompts},
+                              cache_len=cache)
+        tok = torch.randint(0, cfg.vocab_size, (batch,), generator=gen,
+                            device=DEVICE, dtype=torch.int32)
+        real = (module.param_bytes(params) + module.param_bytes(state)
+                + tok.numel() * tok.element_size())
+        mem = res["memory"]
+        print(f"dryrun step: {arch} decode batch {batch} cache {cache}: "
+              f"argument bytes {mem['argument_bytes']} (real parameters, "
+              f"cache and tokens {real})", flush=True)
+        check(mem["argument_bytes"] == real,
+              f"dry-run argument bytes {mem['argument_bytes']} != the "
+              f"real step's {real}")
+        live = [True] * batch
+        box = [state]
+
+        def step():
+            box[0] = tf.decode_step(params, cfg, box[0], tok, live=live)[1]
+
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        step()
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+        ev = time_ms_b2b(step, DRYRUN_STEPS)
+        dev = device_ms(step, DRYRUN_STEPS)
+    t_flops = res["flops"] / H100_SXM.peak_flops_bf16 * 1e3
+    t_bytes = res["bytes"] / H100_SXM.hbm_bw * 1e3
+    print(f"dryrun step: counted {res['flops']} FLOPs {res['bytes']} B: "
+          f"{t_flops:.5f} ms at {H100_SXM.peak_flops_bf16:.4g} FLOP/s, "
+          f"{t_bytes:.5f} ms at {H100_SXM.hbm_bw:.4g} B/s; the step on the "
+          f"card {ev:.5f} ms by events (back-to-back), device "
+          f"{_ms(dev)}; dry-run peak {mem['peak_bytes']} B vs "
+          f"max_memory_allocated {peak} B", flush=True)
+    print(f"dryrun step: kernels {json.dumps(res['kernels'])}", flush=True)
+    del params, state, box
+    _free()
+
+
+def adapter_run(records: dict) -> None:
+    """The PF-DNN adapter on the port's qwen2-7b decode record, solved on
+    the card and on the CPU port."""
+    from repro_torch.core import refine_candidates, solve_lambda_dp
+    from repro_torch.core.gpu_adapter import (
+        build_gpu_problem,
+        layer_costs_from_dryrun,
+    )
+    from repro_torch.hw.gpu import H100_SXM
+
+    arch, shape, n_layers = ADAPTER_CELL
+    rec = records[arch, shape]
+    layers = layer_costs_from_dryrun(rec, n_layers)
+    floor = rec["cost"]["bytes_per_device"] / H100_SXM.hbm_bw
+    check(H100_SXM.v_min <= min(ADAPTER_RAILS)
+          and max(ADAPTER_RAILS) <= H100_SXM.v_max, "rails off the chip")
+    print(f"adapter: {arch} {shape} {n_layers} layers, rails "
+          f"{ADAPTER_RAILS}, memory floor {floor * 1e3:.4f} ms; "
+          "deadline_x_floor,policy,energy_j_per_step,t_step_ms", flush=True)
+    for slack in ADAPTER_SLACK:
+        deadline = floor * slack
+        prob = build_gpu_problem(layers, ADAPTER_RAILS, deadline,
+                                 name="qwen2-decode")
+        out = {}
+        for device in (DEVICE, "cpu"):
+            _reset_counts()
+            tic = time.perf_counter()
+            best, cands, _ = solve_lambda_dp(prob, backend=device)
+            check(best is not None, f"adapter {slack}x: infeasible")
+            refined, moves = refine_candidates(prob, cands)
+            wall = time.perf_counter() - tic
+            out[device] = (best, cands, refined, moves, _counts(), wall)
+        (best, cands, refined, moves, counts, wall) = out[DEVICE]
+        cpu = out["cpu"]
+        for key in ("path", "e_total", "t_infer"):
+            check(best[key] == cpu[0][key] and refined[key] == cpu[2][key],
+                  f"adapter {slack}x: {key} differs between card and CPU")
+        check([c["path"] for c in cands] == [c["path"] for c in cpu[1]]
+              and [c["e_total"] for c in cands]
+              == [c["e_total"] for c in cpu[1]],
+              f"adapter {slack}x: candidates differ between card and CPU")
+        check(moves == cpu[3], f"adapter {slack}x: refinement differs")
+        check(refined["t_infer"] <= deadline,
+              f"adapter {slack}x: misses its deadline")
+        for name in ("dp_multi_stacked", "kbest_multi_stacked"):
+            check(counts[name] > 0, f"adapter {slack}x: {name} never "
+                  "launched")
+        static = prob.evaluate([
+            next(i for i, st in enumerate(states)
+                 if st.voltages == (1.0, 1.0, 1.0))
+            for states in prob.layer_states])
+        print(f"{slack},static_vmax,{static['e_total']:.4f},"
+              f"{static['t_infer'] * 1e3:.3f}", flush=True)
+        print(f"{slack},pfdnn,{refined['e_total']:.4f},"
+              f"{refined['t_infer'] * 1e3:.3f}", flush=True)
+        print(f"#   saving {(1 - refined['e_total'] / static['e_total']) * 100:.1f}%"
+              f" at {slack}x deadline slack; card solve {wall:.3f} s "
+              f"(CPU port {cpu[5]:.3f} s), launches "
+              f"{json.dumps({k: counts[k] for k in DP_KERNELS})}; equal to "
+              "the CPU port", flush=True)
+
+
+def _power_draws(work) -> list[float]:
+    """Power draws (W) ``nvidia-smi`` reads every 100 ms while ``work``
+    runs for ``POWER_SECONDS``."""
+    import torch
+
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=power.draw", "--format=csv,noheader,"
+         "nounits", "-lms", "100"], stdout=subprocess.PIPE, text=True)
+    try:
+        end = time.perf_counter() + POWER_SECONDS
+        while time.perf_counter() < end:
+            work()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out, _ = proc.communicate(timeout=10)
+    draws = []
+    for line in out.splitlines():
+        try:
+            draws.append(float(line.strip()))
+        except ValueError:
+            continue
+    return draws
+
+
+def power_readings(smi: str) -> None:
+    """The card's own draw idle, under a bf16 GEMM loop and under a
+    device-copy loop, beside the chip model's nominal powers."""
+    import torch
+
+    from repro_torch.hw.gpu import H100_SXM as chip
+
+    n = POWER_GEMM
+    a = torch.randn(n, n, device=DEVICE, dtype=torch.bfloat16)
+    b = torch.randn(n, n, device=DEVICE, dtype=torch.bfloat16)
+    src = torch.empty(POWER_COPY_BYTES, dtype=torch.uint8, device=DEVICE)
+    dst = torch.empty_like(src)
+
+    def gemm():
+        for _ in range(20):
+            torch.mm(a, b)
+
+    def copy():
+        for _ in range(10):
+            dst.copy_(src)
+
+    model = {"idle": chip.p_leak_total * 1.2,
+             "gemm": chip.p_sm_dyn_nom + chip.p_leak_total,
+             "copy": chip.p_hbm_dyn_nom + chip.p_leak_total}
+    what = {"idle": "p_idle = 1.2 x leakage",
+            "gemm": "SM dynamic + leakage at v_nom",
+            "copy": "HBM dynamic + leakage at v_nom"}
+    print(f"power: {smi}; model: SM {chip.p_sm_dyn_nom} W, HBM "
+          f"{chip.p_hbm_dyn_nom} W, NVLink {chip.p_nvlink_dyn_nom} W "
+          f"dynamic, {chip.p_leak_total} W leakage", flush=True)
+    for label, work in (("idle", lambda: time.sleep(0.05)), ("gemm", gemm),
+                        ("copy", copy)):
+        draws = _power_draws(work)
+        check(len(draws) > 0, f"power {label}: nvidia-smi read nothing")
+        print(f"power {label}: {len(draws)} readings, median "
+              f"{statistics.median(draws):.2f} W, max {max(draws):.2f} W "
+              f"(model {model[label]:.1f} W: {what[label]})", flush=True)
+    del a, b, src, dst
+    _free()
+
+
+def dryrun_phase(smi: str) -> None:
+    tic = time.perf_counter()
+    records = dryrun_cells()
+    dryrun_step()
+    adapter_run(records)
+    power_readings(smi)
+    print(f"phase dryrun: {time.perf_counter() - tic:.3f} s", flush=True)
+
+
+def dryrun_only(smi: str) -> int:
+    """``--dryrun``: build the prefill bf16, decode and rail-sweep
+    libraries and run the dryrun phase; no result line."""
+    from repro_torch.kernels import dp_sweep as ks
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    libs = (fa.WGMMA_LIBRARY, fd.LIBRARY, ks.LIBRARY)
+    tic = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        for path in pool.map(lambda lib: lib.build(), libs):
+            print(f"build: {path.name}", flush=True)
+    for lib in libs:
+        lib.load()
+    print(f"build: all in {time.perf_counter() - tic:.2f} s", flush=True)
+    dryrun_phase(smi)
+    return 0
+
+
 def main(argv: list[str]) -> int:
     try:
         import torch
@@ -5622,6 +5913,8 @@ def main(argv: list[str]) -> int:
         return mla_decode_only()
     if argv == ["--train"]:
         return train_only()
+    if argv == ["--dryrun"]:
+        return dryrun_only(smi)
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -5664,6 +5957,7 @@ def main(argv: list[str]) -> int:
         print(f"phase control: {time.perf_counter() - tic:.3f} s",
               flush=True)
         analysis_phase(pathlib.Path(keep))
+    dryrun_phase(smi)
     for row in rows:
         name = row["name"]
         if name in FAMILY_ROWS:

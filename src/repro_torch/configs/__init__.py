@@ -1,7 +1,8 @@
 """Config registry: ``--arch <id>`` → ModelConfig.
 
-The 10 assigned architectures (exact published configurations), the
-same data as the JAX package's registry.  The port's transformer runs
+The 10 assigned architectures (exact published configurations) and the
+four input-shape cells of the dry-run (``SHAPES``), the same data as the
+JAX package's registry.  The port's transformer runs
 all of them (see :mod:`repro_torch.models.transformer`).
 """
 
@@ -9,7 +10,13 @@ from __future__ import annotations
 
 import importlib
 
-from repro_torch.configs.base import FAMILIES, ModelConfig
+from repro_torch.configs.base import (
+    FAMILIES,
+    SHAPES,
+    SUBQUADRATIC_FAMILIES,
+    ModelConfig,
+    ShapeCell,
+)
 
 _MODULES = {
     "phi3-mini-3.8b": "phi3_mini_3_8b",
@@ -34,4 +41,25 @@ def get_config(arch: str) -> ModelConfig:
     return mod.CONFIG
 
 
-__all__ = ["ModelConfig", "FAMILIES", "ARCH_IDS", "get_config"]
+def cell_applicable(cfg: ModelConfig, shape: str) -> tuple[bool, str]:
+    """Whether a (arch × shape) cell runs, and the reason when skipped."""
+    if shape == "long_500k" and cfg.family not in SUBQUADRATIC_FAMILIES:
+        return False, ("long_500k needs sub-quadratic attention; "
+                       f"{cfg.name} is full-attention (see DESIGN.md §4)")
+    return True, ""
+
+
+def all_cells() -> list[tuple[str, str, bool, str]]:
+    """(arch, shape, applicable, skip_reason) for all 40 cells."""
+    out = []
+    for arch in ARCH_IDS:
+        cfg = get_config(arch)
+        for shape in SHAPES:
+            ok, why = cell_applicable(cfg, shape)
+            out.append((arch, shape, ok, why))
+    return out
+
+
+__all__ = ["ModelConfig", "ShapeCell", "SHAPES", "FAMILIES", "ARCH_IDS",
+           "get_config", "cell_applicable", "all_cells",
+           "SUBQUADRATIC_FAMILIES"]

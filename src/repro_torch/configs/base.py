@@ -181,3 +181,28 @@ class ModelConfig:
         )
         base.update(overrides)
         return dataclasses.replace(self, **base)
+
+
+@dataclasses.dataclass(frozen=True)
+class ShapeCell:
+    """One assigned (input-shape) cell for an architecture."""
+
+    name: str            # train_4k | prefill_32k | decode_32k | long_500k
+    seq_len: int
+    global_batch: int
+    kind: str            # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        return self.seq_len * self.global_batch
+
+
+SHAPES: dict[str, ShapeCell] = {
+    "train_4k": ShapeCell("train_4k", 4_096, 256, "train"),
+    "prefill_32k": ShapeCell("prefill_32k", 32_768, 32, "prefill"),
+    "decode_32k": ShapeCell("decode_32k", 32_768, 128, "decode"),
+    "long_500k": ShapeCell("long_500k", 524_288, 1, "decode"),
+}
+
+# sub-quadratic-only cells (skip for pure full-attention archs)
+SUBQUADRATIC_FAMILIES = ("ssm", "hybrid")

@@ -30,7 +30,10 @@ library's ``pfdnn_flash_attention_f32_plan`` on the card.
 On a tensor that lies on the CPU the wrapper computes
 :func:`flash_attention_plain`, at any head dim; on a CUDA tensor it
 launches the kernel of its dtype, built for :data:`HEAD_DIMS`, or
-raises.  Every launch adds one to :data:`LAUNCHES`.
+raises.  Every launch adds one to :data:`LAUNCHES`.  On a ``meta``
+tensor (the dry-run's) each wrapper launches nothing and returns empty
+outputs of the kernel's shapes, reporting the kernel's work
+(:mod:`repro_torch.kernels._meta`; :func:`kept_pairs`).
 
 The wrapper carries the gradient: it is a ``torch.autograd.Function``
 whose backward is :func:`flash_attention_bwd`, hand-written kernels
@@ -56,6 +59,7 @@ from typing import Callable
 import numpy as np
 import torch
 
+from repro_torch.kernels import _meta
 from repro_torch.kernels._nvcc import (
     BASE_FLAGS,
     CSRC,
@@ -200,6 +204,17 @@ def f32_blocks(b: int, h: int, sq: int, sk: int, q_offset: int,
     return blocks
 
 
+def kept_pairs(sq: int, sk: int, q_offset: int, causal: bool,
+               window: int = 0) -> int:
+    """(query, key) pairs the mask keeps in one (batch, head): keys at
+    or before each query's position when ``causal``, and (``window`` >
+    0) only the last ``window`` positions."""
+    qpos = q_offset + np.arange(sq, dtype=np.int64)
+    hi = np.minimum(sk - 1, qpos) if causal else np.full(sq, sk - 1)
+    lo = np.maximum(0, qpos - window + 1) if window > 0 else 0
+    return int(np.maximum(0, hi - lo + 1).sum())
+
+
 def softmax_scale(d: int) -> float:
     """``1/sqrt(D)`` rounded to float32, as the reference's kernel
     multiplies float32 scores by it."""
@@ -317,6 +332,13 @@ def _forward(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                                          with_stats=True)
         return flash_attention_plain(q, k, v, causal=causal,
                                      q_offset=q_offset, window=window), None
+    if q.device.type == "meta":
+        out = torch.empty_like(q)
+        stats = torch.empty((2, B * H * Sq), dtype=torch.float32,
+                            device=q.device) if with_stats else None
+        pairs = B * H * kept_pairs(Sq, Sk, q_offset, causal, window)
+        _meta.report(name, 4 * D * pairs, _meta.nbytes(q, k, v, out, stats))
+        return out, stats
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     check_cuda_operands(name, dict(q=q, k=k, v=v))
@@ -416,6 +438,16 @@ def flash_attention_bwd(dout: torch.Tensor, q: torch.Tensor,
     if q.device.type == "cpu":
         return flash_attention_bwd_plain(dout, q, k, v, out, stats=stats,
                                          **mask)
+    if q.device.type == "meta":
+        if stats is None:
+            _, stats = _forward(q, k, v, causal, q_offset, window,
+                                with_stats=True)
+        dq, dk, dv = torch.empty_like(q), torch.empty_like(k), \
+            torch.empty_like(v)
+        pairs = B * H * kept_pairs(Sq, Sk, q_offset, causal, window)
+        _meta.report(name, 10 * D * pairs, _meta.nbytes(
+            q, k, v, out, dout, stats, dq, dk, dv))
+        return dq, dk, dv
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     check_cuda_operands(name, dict(q=q, k=k, v=v, out=out, dout=dout))

@@ -27,7 +27,10 @@ plan, :func:`flash_decode_mla_split_plain`.
 
 On a tensor that lies on the CPU each wrapper computes its plain
 version; on a CUDA tensor it launches its kernel or raises.  Every
-launch adds one to :data:`LAUNCHES`.
+launch adds one to :data:`LAUNCHES`.  On a ``meta`` tensor (the
+dry-run's) each launches nothing and returns an empty output, reporting
+the kernel's work over every row of the cache
+(:mod:`repro_torch.kernels._meta`).
 """
 
 from __future__ import annotations
@@ -37,6 +40,7 @@ import functools
 
 import torch
 
+from repro_torch.kernels import _meta
 from repro_torch.kernels._nvcc import (
     BASE_FLAGS,
     CSRC,
@@ -155,6 +159,11 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          f"on {q.device}")
     if q.device.type == "cpu":
         return flash_decode_plain(q, k, v, length)
+    if q.device.type == "meta":
+        out = torch.empty_like(q)
+        _meta.report(name, 4 * D * B * H * S,
+                     _meta.nbytes(q, k, v, length, out))
+        return out
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if H // KH > MAX_GROUP:
@@ -280,6 +289,11 @@ def flash_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
                          f"on {q_lat.device}")
     if q_lat.device.type == "cpu":
         return flash_decode_mla_plain(q_lat, q_rope, ckv, krope, length)
+    if q_lat.device.type == "meta":
+        out = torch.empty_like(q_lat)
+        _meta.report(name, (2 * (R + DR) + 2 * R) * B * H * S,
+                     _meta.nbytes(q_lat, q_rope, ckv, krope, length, out))
+        return out
     if q_lat.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q_lat.device}")
     if (R, DR) != MLA_WIDTHS:

@@ -18,7 +18,9 @@ is row-major; the ``mma.sync`` kernel for every other shape.  On a
 tensor that lies on the CPU the wrapper computes
 :func:`int8_matmul_plain`; on a CUDA tensor it launches a kernel or
 raises.  Every launch adds one to :data:`LAUNCHES` and to its route's
-count in :data:`ROUTE_LAUNCHES`.
+count in :data:`ROUTE_LAUNCHES`.  On a ``meta`` tensor (the dry-run's)
+it launches nothing and returns an empty output, reporting 2·M·N·K
+operations and its bytes (:mod:`repro_torch.kernels._meta`).
 """
 
 from __future__ import annotations
@@ -27,6 +29,7 @@ import ctypes
 
 import torch
 
+from repro_torch.kernels import _meta
 from repro_torch.kernels._nvcc import (
     BASE_FLAGS,
     CSRC,
@@ -132,6 +135,11 @@ def int8_matmul(x: torch.Tensor, w: torch.Tensor, x_scale: torch.Tensor,
     _check_args(x, w, x_scale, w_scale)
     if x.device.type == "cpu":
         return int8_matmul_plain(x, w, x_scale, w_scale)
+    if x.device.type == "meta":
+        out = _out(x, w)
+        _meta.report("int8_matmul", 2 * x.shape[0] * w.shape[1] * x.shape[1],
+                     _meta.nbytes(x, w, x_scale, w_scale, out))
+        return out
     _check_cuda(x, w, x_scale, w_scale)
     M, K = x.shape
     N = w.shape[1]

@@ -57,7 +57,7 @@ def apply_mrope(x: torch.Tensor, positions: torch.Tensor,
     # per-frequency-slot section id → which position grid drives it
     sec_id = torch.repeat_interleave(
         torch.arange(len(sections), device=x.device),
-        torch.tensor(sections, device=x.device))
+        torch.tensor(sections, device=x.device), output_size=half)
     pos = positions.float()[sec_id]                   # [half, B, S]
     ang = pos.movedim(0, -1) * freqs                  # [B, S, half]
     cos = torch.cos(ang)[:, :, None, :]

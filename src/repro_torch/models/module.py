@@ -23,6 +23,8 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 
+from repro_torch.train._tree import leaves
+
 #: draw(generator, shape, device) → float32 tensor
 InitFn = Callable[[torch.Generator, tuple, torch.device], torch.Tensor]
 
@@ -76,16 +78,48 @@ def stacked(init: Initializer, n_layers: int) -> Initializer:
     return Initializer((n_layers, *init.shape), init.init)
 
 
+def stack_layer_inits(layer_fn: Callable[[], dict], n_layers: int) -> dict:
+    """Every leaf of one layer's Initializers (``layer_fn()``) stacked
+    for ``n_layers`` layers along a leading layer axis
+    (:func:`stacked`)."""
+    return _map_inits(lambda init: stacked(init, n_layers), layer_fn())
+
+
+def _map_inits(fn: Callable[[Initializer], object], tree):
+    """``fn`` over the Initializers of a (nested) dict or list."""
+    if isinstance(tree, list):
+        return [_map_inits(fn, val) for val in tree]
+    if isinstance(tree, dict):
+        return {key: _map_inits(fn, val) for key, val in tree.items()}
+    return fn(tree)
+
+
+def abstract_params(tree, dtype: torch.dtype = torch.bfloat16):
+    """Stand-ins for a dry-run: every Initializer of ``tree`` as an
+    empty ``meta`` tensor of its shape in ``dtype``; nothing is
+    allocated or drawn.  (The reference also returns partition specs;
+    one card places every leaf whole, so there are none.)"""
+    return _map_inits(
+        lambda init: torch.empty(init.shape, dtype=dtype, device="meta"),
+        tree)
+
+
+def param_count(params) -> int:
+    """Elements over the leaves of a tree of tensors (meta included)."""
+    return sum(x.numel() for x in leaves(params))
+
+
+def param_bytes(params) -> int:
+    """Bytes over the leaves of a tree of tensors (meta included)."""
+    return sum(x.numel() * x.element_size() for x in leaves(params))
+
+
 def materialize(tree, generator: torch.Generator, device,
                 dtype: torch.dtype):
     """Draw every leaf of a (nested) dict or list of Initializers, in
     the dict's (list's) order."""
-    if isinstance(tree, list):
-        return [materialize(val, generator, device, dtype) for val in tree]
-    if isinstance(tree, dict):
-        return {key: materialize(val, generator, device, dtype)
-                for key, val in tree.items()}
-    return tree.materialize(generator, device, dtype)
+    return _map_inits(
+        lambda init: init.materialize(generator, device, dtype), tree)
 
 
 # ---- numerics helpers shared across models ---------------------------

@@ -15,7 +15,10 @@ its rows, the results go back to ``[T, k, d]``, and the choices combine
 in the reference's order and dtype (``out = out + cw[:, j] · y_j``, j =
 0 … k−1, in x's dtype).  The products are ``torch.matmul``, as the
 reference leaves them to XLA; grouping needs the experts' row counts on
-the host (one device read a call).
+the host (one device read a call).  On ``meta`` tensors (the dry-run)
+there is nothing to read, and the T·k rows go evenly to the experts
+(:func:`balanced_counts`): T·k expert FFN rows, the reference oracle's
+work.
 
 The expert-parallel path (``moe_ffn_ep``: experts sharded over a mesh,
 ``all_to_all`` dispatch inside ``shard_map``) is a four-card item still
@@ -57,6 +60,14 @@ def _expert_ffn(x: torch.Tensor, w1: torch.Tensor, w3: torch.Tensor,
     return (F.silu(x @ w1) * (x @ w3)) @ w2
 
 
+def balanced_counts(rows: int, n_experts: int) -> list[int]:
+    """``rows`` (token, choice) rows spread evenly over ``n_experts``
+    (the first ``rows % n_experts`` experts take one more): the route
+    of a dry-run, whose ``meta`` router has no values to read."""
+    base, extra = divmod(rows, n_experts)
+    return [base + (e < extra) for e in range(n_experts)]
+
+
 def moe_ffn_dense(x: torch.Tensor, w_router: torch.Tensor,
                   w1: torch.Tensor, w3: torch.Tensor, w2: torch.Tensor,
                   dims: MoeDims) -> torch.Tensor:
@@ -68,7 +79,10 @@ def moe_ffn_dense(x: torch.Tensor, w_router: torch.Tensor,
     idx, cw = router_topk(x, w_router, dims)
     flat = idx.reshape(-1)                    # row r: token r // k
     order = torch.argsort(flat, stable=True)
-    counts = torch.bincount(flat, minlength=dims.n_experts).tolist()
+    if x.is_meta:
+        counts = balanced_counts(t * k, dims.n_experts)
+    else:
+        counts = torch.bincount(flat, minlength=dims.n_experts).tolist()
     xs = x[order // k]                        # rows grouped by expert
     ys = torch.empty_like(xs)
     start = 0

@@ -66,13 +66,14 @@ from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import apply_mrope, apply_rope
 from repro_torch.models.module import (
     Initializer,
+    abstract_params,
     dense,
     layer_norm,
     materialize,
     normal_init,
     ones_init,
     rms_norm,
-    stacked,
+    stack_layer_inits,
     swiglu,
     zeros_init,
 )
@@ -229,14 +230,20 @@ def init_lm(cfg: ModelConfig) -> dict:
                           else init_mlstm_layer(cfg)
                           for i in range(cfg.n_layers)]
     else:
-        tree["layers"] = {key: stacked(init, cfg.n_layers)
-                          for key, init in init_decoder_layer(cfg).items()}
+        tree["layers"] = stack_layer_inits(lambda: init_decoder_layer(cfg),
+                                           cfg.n_layers)
     if cfg.family == "audio":
-        tree["enc_layers"] = {
-            key: stacked(init, cfg.n_encoder_layers)
-            for key, init in init_encoder_layer(cfg).items()}
+        tree["enc_layers"] = stack_layer_inits(
+            lambda: init_encoder_layer(cfg), cfg.n_encoder_layers)
         tree.update(_norm_params(cfg, "enc_lnf"))
     return tree
+
+
+def abstract(cfg: ModelConfig) -> dict:
+    """The parameter tree as ``meta`` stand-ins in ``cfg.dtype`` (the
+    dry-run's parameters): nothing allocated."""
+    check_supported(cfg)
+    return abstract_params(init_lm(cfg), cfg.torch_dtype)
 
 
 def param_shapes(cfg: ModelConfig) -> dict:

@@ -29,9 +29,10 @@ from repro_torch.perfmodel import characterize_network
 from repro_torch.perfmodel.layer_costs import nominal_latency
 
 PACKAGES = ("core", "kernels", "hw", "perfmodel", "serve", "models",
-            "service", "analysis", "calib", "data")
-# the reference's ``train`` has no __init__.py: compared module by module
-MODULE_PACKAGES = PACKAGES + ("train",)
+            "service", "analysis", "calib", "data", "configs")
+# the reference's ``train`` and ``launch`` have no __init__.py: compared
+# module by module
+MODULE_PACKAGES = PACKAGES + ("train", "launch")
 
 # Names of the reference the port leaves out on purpose, by package or
 # module.  Each entry must still be missing from the port: once it is
@@ -50,19 +51,26 @@ OMITTED = {
     # repro_torch.kernels.dp_sweep under their own names
     "kernels": {"dp_multi_stacked_pallas", "kbest_multi_stacked_pallas",
                 "path_components_pallas"},
-    # the TPU adaptation (Queue 1, 4)
+    # the reference's TPU chip model: its counterpart carries the card's
+    # name (GpuChipModel, H100_SXM; RENAMED below)
     "hw": {"TpuChipModel", "TPU_V5E"},
+    "hw.tpu": {"TpuChipModel"},
+    # the reference's TPU adapter: its counterparts carry the card's name
+    # (GpuLayerCost, build_gpu_problem; RENAMED below)
+    "core.tpu_adapter": {"TpuLayerCost", "build_tpu_problem"},
+    # the production meshes of 256 and 512 devices (Queue 1, 5)
+    "launch.mesh": {"make_production_mesh"},
+    # the XLA HLO collective parser: one card runs no collective
+    # (Queue 1, 5)
+    "launch.dryrun": {"parse_collective_bytes"},
     # the jnp attention oracles (the kernels' plain versions stand in)
     "models.layers": {"AttnChunks", "decode_attention_jnp",
                       "flash_attention_jnp"},
-    # abstract shapes and parameter counts (Queue 1, 3)
-    "models.module": {"abstract_params", "param_bytes", "param_count",
-                      "stack_layer_inits"},
     # expert parallelism over a mesh of cards (moe_ffn_ep, with its
     # dispatch and quantized all_to_all helpers): the four-card item
     "models.moe": {"moe_ffn_ep"},
-    # the JAX runtime (sharding constraints, abstract evaluation)
-    "models.transformer": {"Runtime", "abstract", "constrain"},
+    # the JAX runtime (sharding constraints)
+    "models.transformer": {"Runtime", "constrain"},
     # placing a host's batch onto a mesh of cards (Queue 1, 5)
     "data": {"make_global_batch"},
     "data.pipeline": {"make_global_batch"},
@@ -98,15 +106,32 @@ def _port_modules(pkg: str) -> list[str]:
         stem = name[:-3]
         if not name.endswith(".py") or stem == "__init__":
             continue
+        # the reference's dry-run sets XLA_FLAGS (512 host devices) when
+        # imported; this process keeps its own
+        flags = os.environ.get("XLA_FLAGS")
         try:
             importlib.import_module(f"repro.{pkg}.{stem}")
         except ImportError:
             continue                 # the port's own module
+        finally:
+            if flags is None:
+                os.environ.pop("XLA_FLAGS", None)
+            else:
+                os.environ["XLA_FLAGS"] = flags
         out.append(f"{pkg}.{stem}")
     return out
 
 
 MODULES = [m for pkg in MODULE_PACKAGES for m in _port_modules(pkg)]
+
+# reference modules whose port carries the card's name in place of the
+# TPU's, with the names that change
+RENAMED = {
+    "core.tpu_adapter": ("core.gpu_adapter",
+                         {"TpuLayerCost": "GpuLayerCost",
+                          "build_tpu_problem": "build_gpu_problem"}),
+    "hw.tpu": ("hw.gpu", {"TpuChipModel": "GpuChipModel"}),
+}
 
 
 @pytest.mark.parametrize("pkg", PACKAGES)
@@ -125,6 +150,22 @@ def test_module_definitions_match_the_reference(name):
     omitted = OMITTED.get(name, set())
     assert ref - port == omitted
     assert not omitted & port
+
+
+@pytest.mark.parametrize("name", sorted(RENAMED))
+def test_renamed_module_definitions_match_the_reference(name):
+    port_name, renames = RENAMED[name]
+    ref = _defined(importlib.import_module(f"repro.{name}"))
+    port = _defined(importlib.import_module(f"repro_torch.{port_name}"))
+    omitted = OMITTED[name]
+    assert ref - port == omitted == set(renames)
+    assert {renames.get(n, n) for n in ref} == port
+
+
+def test_hw_package_exports_the_card_for_the_tpu():
+    ref = _public(importlib.import_module("repro.hw"))
+    port = _public(importlib.import_module("repro_torch.hw"))
+    assert port - ref == {"GpuChipModel", "H100_SXM"}
 
 
 def test_policies_is_a_live_view_of_the_registry():
