@@ -255,7 +255,31 @@ NVIDIA GPU:
      against the all-max static assignment; then the card's power draw
      (``nvidia-smi`` every 100 ms) idle, under a bf16 GEMM loop and under
      a device-copy loop, beside the chip model's nominal powers;
- 14. prints the card's name and power limit again, the ``kernels`` JSON
+ 14. mesh phase, the port over a mesh of ``torch.distributed`` ranks:
+     NCCL in a world of one (its version printed; deepseek-v2-lite at
+     full width cut to ``MESH_NCCL_LAYERS``, float32, ``moe_impl="ep"``
+     on a (1,1) mesh): prefill + decode against the dense path on the
+     dense path's routes (``moe_routes``) at a capacity factor that
+     drops nothing, for the native and the int8 wire; the (token,
+     choice) pairs that drop at the configuration's 1.25; one train step
+     (EP, ZeRO on) against the dense one; the MoE block's events beside
+     the dense block's.  Then four gloo ranks spawned on the card (the
+     process groups' timeout and each join ``MESH_TIMEOUT_S``; a rank's
+     exception fails the phase): which of the port's collectives gloo
+     takes on CUDA tensors; ``compressed_psum`` on CUDA against CPU
+     tensors; (a) deepseek-v2-lite cut to ``MESH_EP_LAYERS`` on (2,2),
+     the EP block and ``forward_train``'s loss and gradients against
+     rank 0's one-process dense path on its routes, then
+     ``ServingEngine(rt)`` serving ``MESH_ENGINE_PROMPTS`` (slots
+     refilled mid-batch), the same tokens on every rank; (b) tinyllama-1.1b
+     cut to ``MESH_DP_LAYERS`` on a ``"data"`` mesh of 4 with ZeRO-2
+     against one process, ZeRO on and off bit for bit, a rank's moment
+     bytes; (c) 4 ranks crash after step 7 and 2 ranks resume, against
+     the clean 4-rank run.  Launch counts are set to 0 just before the
+     EP runs and read just after: the prefill, backward and MLA-decode
+     kernels must launch.  gloo stages CUDA tensors through host memory:
+     its times are no performance figure;
+ 15. prints the card's name and power limit again, the ``kernels`` JSON
      line (the families' configurations of #4 and #5 as rows of their
      own, with the launches of their launcher or, where it has none or
      the row is float32, of their kernel-path run: ``FAMILY_ROWS``;
@@ -299,7 +323,10 @@ attention libraries and the backward's (its ``ptxas -v`` report: no
 spills) and runs the training phase; it prints the ``kernels`` line
 with the backward's row and no result line.  ``python3 chip_smoke.py
 --dryrun`` builds the prefill bf16, decode and rail-sweep libraries and
-runs the dryrun phase; it prints no result line.  Run from a ``git
+runs the dryrun phase; it prints no result line.  ``python3
+chip_smoke.py --mesh`` builds the prefill, backward and MLA-decode
+libraries and runs the mesh phase; it prints no result line.  Run from
+a ``git
 archive`` of another commit, this script times that commit's kernels
 (a tree without the float32 plan skips its check).
 """
@@ -2852,10 +2879,10 @@ def moe_routes(record: list | None = None, replay: list | None = None):
 
 
 def _path(cfg, params, batch, cache: int, steps: int, contexts,
-          feed=None) -> tuple[list, list]:
-    """Prefill + ``steps`` decode steps under ``contexts``: every step's
-    logits (float32) and the tokens fed (``feed``, or this path's greedy
-    tokens)."""
+          feed=None, rt=None) -> tuple[list, list]:
+    """Prefill + ``steps`` decode steps under ``contexts`` (on ``rt``'s
+    mesh where given): every step's logits (float32) and the tokens fed
+    (``feed``, or this path's greedy tokens)."""
     import torch
 
     from repro_torch.models.transformer import decode_step, prefill
@@ -2863,12 +2890,12 @@ def _path(cfg, params, batch, cache: int, steps: int, contexts,
     with contextlib.ExitStack() as stack:
         for ctx in contexts:
             stack.enter_context(ctx)
-        logits, st = prefill(params, cfg, batch, cache)
+        logits, st = prefill(params, cfg, batch, cache, rt=rt)
         out, fed = [logits.float()], []
         for step in range(steps):
             tok = feed[step] if feed is not None else logits.argmax(-1)
             fed.append(tok)
-            logits, st = decode_step(params, cfg, st, tok)
+            logits, st = decode_step(params, cfg, st, tok, rt=rt)
             out.append(logits.float())
         torch.cuda.synchronize()
     del st
@@ -3125,7 +3152,7 @@ def moe_profile(cfg, params) -> None:
     ops_a_step = {}
     for label, ffn in (("decode", inner),
                        ("decode without the MoE FFN",
-                        lambda p, c, x: torch.zeros_like(x))):
+                        lambda p, c, x, rt=None: torch.zeros_like(x))):
         tf._moe_ffn = ffn
         try:
             torch.cuda.synchronize()
@@ -5600,6 +5627,723 @@ def control_only() -> int:
     return 0
 
 
+# --------------------------------------------------------- mesh phase
+
+# the world of one (NCCL): deepseek-v2-lite at full width, float32, cut
+# to MESH_NCCL_LAYERS; prefill of (prompts, tokens) + decode steps; the
+# train check's (layers, rows, tokens)
+MESH_NCCL_LAYERS = 4
+MESH_PARITY = (2, 1024, 8)
+MESH_TRAIN = (2, 2, 256)
+# four gloo ranks sharing the card: deepseek-v2-lite on (2,2) cut to
+# MESH_EP_LAYERS with a global batch of (rows, tokens); tinyllama-1.1b
+# on a "data" mesh of 4 cut to MESH_DP_LAYERS, (rows, tokens) a step
+MESH_EP_LAYERS = 2
+MESH_EP_BATCH = (4, 512)
+# the serving engine on (2,2) after (a): slots, cache rows, new tokens a
+# request; prompt lengths, served three, then one step later two more
+MESH_ENGINE = (4, 64, 4)
+MESH_ENGINE_PROMPTS = (24, 40, 16, 32, 20)
+MESH_DP_LAYERS = 4
+MESH_DP_BATCH = (8, 512)
+MESH_DP_STEPS = 4
+MESH_DRILL = (12, 7, 3)             # steps, crash after, checkpoint every
+MESH_TIMEOUT_S = 60                 # process groups and each join
+MESH_DEADLINE_S = 240               # a world's ranks, from their spawn
+# limits, fixed before the phase's first run (PERF.md section 2)
+MESH_LOGIT_TOL = 1e-3               # x max |logits|, the native wire
+# the int8 wire rounds each row it carries to a step of 1/127 of the
+# row's largest value, dispatch and combine: one step of each a layer
+MESH_INT8_STEPS = 2 / 127           # x max |logits| a layer
+MESH_BLOCK_TOL = 1e-5               # x max |y|
+MESH_LOSS_TOL = 1e-5                # relative
+MESH_GRAD_TOL = 1e-4                # x max |g|, each leaf
+MESH_PARAM_TOL = 1e-4               # x max |p|, each leaf
+MESH_DRILL_TOL = 1e-5               # relative, the reference drill's
+MESH_COLLECTIVES = ("all_reduce SUM", "all_reduce MAX",
+                    "all_gather_into_tensor", "all_to_all_single",
+                    "broadcast")
+
+
+def _capacity(t: int, k: int, e: int, cf: float) -> int:
+    """``moe_ffn_ep``'s slots an expert for ``t`` tokens."""
+    return max(1, int(k * t * cf) // e)
+
+
+def no_drop_cf(routes: list, e: int, k: int, shards: int = 1) -> float:
+    """The least capacity factor (above 1.25) at which no (token,
+    choice) pair of ``routes`` (one ``[T, k]`` index tensor a router
+    call, each cut into ``shards`` row blocks routed apart) drops."""
+    import torch
+
+    cf = 1.25
+    for idx in routes:
+        for part in idx.chunk(shards):
+            t = part.shape[0]
+            need = int(torch.bincount(part.reshape(-1), minlength=e).max())
+            cf = max(cf, need * e / (k * t))
+            while _capacity(t, k, e, cf) < need:
+                cf *= 1 + 1e-6
+    return cf
+
+
+def drops_at(routes: list, e: int, k: int, cf: float) -> int:
+    """(token, choice) pairs that reach their expert's capacity."""
+    import torch
+
+    n = 0
+    for idx in routes:
+        counts = torch.bincount(idx.reshape(-1), minlength=e)
+        cap = _capacity(idx.shape[0], k, e, cf)
+        n += int((counts - cap).clamp_min(0).sum())
+    return n
+
+
+def _deepseek_ep(n_layers: int, **overrides):
+    """(EP config, dense config, seed-0 float32 weights on the card):
+    deepseek-v2-lite at full width cut to ``n_layers``, remat off (the
+    router runs once a layer, so recorded routes replay in order)."""
+    cfg, params = _model(DEEPSEEK, "float32", n_layers)
+    cfg = dataclasses.replace(cfg, moe_impl="ep", remat=False, **overrides)
+    return cfg, dataclasses.replace(cfg, moe_impl="dense"), params
+
+
+def _lm_batch(vocab: int, rows: int, seq: int, seed: int) -> dict:
+    """int32 tokens and labels (a few ignored) as numpy, from ``seed``."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    toks = rng.integers(1, vocab, (rows, seq + 1))
+    labels = toks[:, 1:].astype(np.int32)
+    labels[0, :8] = -1
+    return {"tokens": toks[:, :-1].astype(np.int32), "labels": labels}
+
+
+def mesh_nccl(root: pathlib.Path) -> dict:
+    """The production backend in a world of one: NCCL's version;
+    deepseek-v2-lite (full width, MESH_NCCL_LAYERS, float32) through
+    ``moe_impl="ep"`` on a (1,1) mesh against the dense path with its
+    routes replayed, both wires; the drops at the configuration's
+    capacity factor; one train step (EP, ZeRO on) against the dense
+    one; the EP block timed beside the dense block.  Returns the
+    launch counts of the EP runs."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import Runtime, layer_params
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.trainer import (
+        TrainConfig,
+        make_train_step,
+        value_and_grad,
+    )
+
+    print(f"mesh nccl: NCCL {'.'.join(map(str, torch.cuda.nccl.version()))}"
+          f", a world of one", flush=True)
+    dist.init_process_group(
+        "nccl", store=dist.FileStore(str(root / "nccl_store"), 1), rank=0,
+        world_size=1, timeout=datetime.timedelta(seconds=MESH_TIMEOUT_S))
+    try:
+        rt = Runtime(make_mesh((1, 1), device=DEVICE))
+        cfg, dense, params = _deepseek_ep(MESH_NCCL_LAYERS)
+        e, k = cfg.n_experts, cfg.moe_top_k
+        n, length, steps = MESH_PARITY
+        batch = {"tokens": _tokens(cfg, n, length)}
+        routes: list = []
+        want, fed = _path(dense, params, batch, length + steps, steps,
+                          [moe_routes(record=routes)])
+        cf = no_drop_cf(routes, e, k)
+        prefill_calls = cfg.n_layers
+        print(f"mesh nccl: drops at capacity factor {cfg.capacity_factor}"
+              f": prefill {drops_at(routes[:prefill_calls], e, k, cfg.capacity_factor)}"
+              f" of {n * length * k} (token, choice) pairs, decode "
+              f"{drops_at(routes[prefill_calls:], e, k, cfg.capacity_factor)}"
+              f" of {steps * n * k}; no drop at {cf!r}", flush=True)
+        _reset_counts()
+        counts = {}
+        for wire in ("native", "int8"):
+            ep = dataclasses.replace(cfg, capacity_factor=cf,
+                                     moe_dispatch_dtype=wire)
+            got, _ = _path(ep, params, batch, length + steps, steps,
+                           [moe_routes(replay=routes)], feed=fed, rt=rt)
+            err = _rel(want, got)
+            limit = MESH_LOGIT_TOL if wire == "native" \
+                else MESH_INT8_STEPS * cfg.n_layers
+            print(f"mesh nccl: {DEEPSEEK} {cfg.n_layers} layers float32, "
+                  f"{n} x {length} prefill + {steps} decode steps, EP "
+                  f"{wire} wire vs dense: max |dlogits| / max |logits| "
+                  f"{err!r} (limit {limit!r})", flush=True)
+            check(err <= limit,
+                  f"the EP path ({wire} wire) differs from the dense path")
+            del got
+        counts = _counts()
+        del want
+
+        # the EP block beside the dense block (layer 0, the prefill's
+        # tokens, the configuration's capacity factor)
+        lp = layer_params(params, 0)
+        x = torch.randn((n, length, cfg.d_model), device=DEVICE,
+                        generator=torch.Generator(device=DEVICE)
+                        .manual_seed(1))
+        times = {}
+        with torch.no_grad():
+            for wire in ("native", "int8"):
+                dims = moe.MoeDims(e, k, cfg.d_model, cfg.d_ff_expert,
+                                   cfg.capacity_factor, wire)
+                times[f"ep {wire}"] = time_ms(lambda: moe.moe_ffn_ep(
+                    x, lp["router"], lp["ew1"], lp["ew3"], lp["ew2"], dims,
+                    rt.mesh, batch_axes=("data",)))
+            dims = moe.MoeDims(e, k, cfg.d_model, cfg.d_ff_expert)
+            times["dense"] = time_ms(lambda: moe.moe_ffn_dense(
+                x.view(-1, cfg.d_model), lp["router"], lp["ew1"],
+                lp["ew3"], lp["ew2"], dims))
+        print(f"mesh nccl: MoE block, {n} x {length} tokens float32, "
+              f"capacity factor {cfg.capacity_factor} (events, ms): "
+              f"{json.dumps(times)}", flush=True)
+        del params, lp, x
+        _free()
+
+        # one train step: gradients (routes replayed) and the EP step
+        layers, rows, seq = MESH_TRAIN
+        cfg, dense, params = _deepseek_ep(layers)
+        host = _lm_batch(cfg.vocab_size, rows, seq, 2)
+        on_card = {key: torch.from_numpy(v).to(DEVICE)
+                   for key, v in host.items()}
+        routes = []
+        with moe_routes(record=routes):
+            loss_d, grads_d = value_and_grad(params, dense, on_card)
+        ep = dataclasses.replace(cfg, capacity_factor=no_drop_cf(
+            routes, e, k))
+        _reset_counts()
+        with moe_routes(replay=routes):
+            loss_e, grads_e = value_and_grad(
+                params, ep, make_global_batch(host, rt.mesh), rt)
+        train_counts = _counts()
+        l_err = abs(float(loss_e) - float(loss_d)) / abs(float(loss_d))
+        g_err = _grad_err(grads_e, grads_d)
+        del grads_d, grads_e
+        tcfg = TrainConfig(optimizer=AdamWConfig(zero_shard=True))
+        state = adamw_init(params, tcfg.optimizer)
+        _reset_counts()
+        with moe_routes(replay=routes):
+            params, state, metrics = make_train_step(ep, tcfg, rt)(
+                params, state, host)
+        train_counts = {name: n + train_counts[name]
+                        for name, n in _counts().items()}
+        s_err = abs(float(metrics["loss"]) - float(loss_d)) \
+            / abs(float(loss_d))
+        print(f"mesh nccl: train step, {layers} layers, {rows} x {seq} "
+              f"tokens float32, EP (ZeRO on) vs dense: loss rel err "
+              f"{l_err!r}, the step's {s_err!r} (limit {MESH_LOSS_TOL}); "
+              f"gradients max |dg| / max |g| {g_err!r} (limit "
+              f"{MESH_GRAD_TOL})", flush=True)
+        check(l_err <= MESH_LOSS_TOL and s_err <= MESH_LOSS_TOL
+              and g_err <= MESH_GRAD_TOL,
+              "the EP train step differs from the dense one")
+        counts = {name: n + train_counts[name] for name, n in counts.items()}
+        del params, state
+        _free()
+    finally:
+        dist.destroy_process_group()
+    return counts
+
+
+def _card_rank() -> None:
+    """A gloo rank's settings on the card: float32 products without
+    TF32, as the one-process checks run them."""
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def spawn_world(fn, world: int, root: pathlib.Path, *args) -> list:
+    """``fn(rank, *args)`` on ``world`` spawned gloo ranks sharing the
+    card (``run_world``); their results in rank order.  A rank's
+    exception, a rank still running MESH_DEADLINE_S after the spawn, or
+    one that does not join within MESH_TIMEOUT_S fails the phase."""
+    from repro_torch.launch.mesh import run_world
+
+    try:
+        return run_world(fn, world, root, *args, backend="gloo",
+                         device=DEVICE, threads=2,      # 8 cores, 4 ranks
+                         timeout_s=MESH_TIMEOUT_S,
+                         deadline_s=MESH_DEADLINE_S)
+    except RuntimeError as exc:
+        fail(f"mesh {fn.__name__}: {exc}")
+
+
+def _probe_collectives(mesh) -> dict:
+    """Which of the port's collectives gloo takes on CUDA tensors."""
+    import torch
+    import torch.distributed as dist
+
+    world = dist.get_world_size()
+    x = torch.arange(8, dtype=torch.float32, device=DEVICE) + dist.get_rank()
+    calls = {
+        "all_reduce SUM": lambda: dist.all_reduce(x.clone()),
+        "all_reduce MAX": lambda: dist.all_reduce(
+            x.clone(), op=dist.ReduceOp.MAX),
+        "all_gather_into_tensor": lambda: dist.all_gather_into_tensor(
+            torch.empty(8 * world, device=DEVICE), x),
+        "all_to_all_single": lambda: dist.all_to_all_single(
+            torch.empty(8, device=DEVICE), x),
+        "broadcast": lambda: dist.broadcast(x.clone(), 0)}
+    out = {}
+    for name in MESH_COLLECTIVES:
+        try:
+            calls[name]()
+            torch.cuda.synchronize()
+            out[name] = "takes"
+        except RuntimeError as exc:
+            out[name] = f"refuses ({str(exc).splitlines()[0][:80]})"
+    return out
+
+
+def _compressed_cuda_vs_cpu(mesh) -> dict:
+    """``compressed_psum`` in each mode on CUDA and on CPU tensors over
+    the ``"data"`` group: (int8 equal; bf16 and none within the rounding
+    of two orders of an n-term sum in the wire's dtype, n - 1 units in
+    the last place of the sum of the terms' magnitudes)."""
+    import numpy as np
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.train.grad_compress import compressed_psum
+
+    world = dist.get_world_size()
+    scales = (1.0, 3.0, 0.01, 50.0)
+    terms = [torch.randn(4096, generator=torch.Generator().manual_seed(r))
+             * scales[r % len(scales)] for r in range(world)]
+    g = terms[dist.get_rank()]
+    out = {}
+    for mode in ("int8", "bf16", "none"):
+        card = compressed_psum(g.to(DEVICE), mesh.group("data"),
+                               mode=mode).cpu()
+        host = compressed_psum(g, mesh.group("data"), mode=mode)
+        if mode == "int8":
+            out[mode] = bool(torch.equal(card, host))
+            continue
+        wire = torch.stack(terms)
+        if mode == "bf16":
+            wire = wire.bfloat16()
+        mag = wire.double().abs().sum(0).float().numpy()
+        spacing = np.spacing(mag).astype(np.float64)
+        if mode == "bf16":
+            spacing = spacing * 2.0 ** 16
+        out[mode] = bool((np.abs(card.numpy().astype(np.float64)
+                                 - host.numpy()) <= (world - 1) * spacing
+                          ).all())
+    return out
+
+
+def _broadcast_routes(routes: list, t: int, k: int, n_calls: int) -> list:
+    """Rank 0's recorded routes (``n_calls`` ``[t, k]`` tensors) on every
+    rank."""
+    import torch
+    import torch.distributed as dist
+
+    out = []
+    for i in range(n_calls):
+        idx = routes[i].contiguous() if routes else torch.empty(
+            (t, k), dtype=torch.int64, device=DEVICE)
+        dist.broadcast(idx, 0)
+        out.append(idx)
+    return out
+
+
+def _ep_rank(rank: int) -> dict:
+    """(a) on the (2,2) mesh: the EP block and forward_train's loss and
+    gradients against rank 0's one-process dense path, routes replayed,
+    at a capacity factor that drops nothing."""
+    import torch
+
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.launch.mesh import (
+        Placement,
+        gather_tree,
+        make_mesh,
+        shard_tree,
+    )
+    from repro_torch.models import moe
+    from repro_torch.models.transformer import (
+        Runtime,
+        layer_params,
+        param_placements,
+    )
+    from repro_torch.train._tree import leaves, unflatten
+    from repro_torch.train.trainer import reduce_grads, value_and_grad
+
+    mesh = make_mesh((2, 2), device=DEVICE)
+    rt = Runtime(mesh)
+    cfg, dense, full = _deepseek_ep(MESH_EP_LAYERS)
+    e, k, d = cfg.n_experts, cfg.moe_top_k, cfg.d_model
+    rows, seq = MESH_EP_BATCH
+    t = rows * seq
+    shards = mesh.shape["data"]
+    i = mesh.coord("data")
+    x = torch.randn((rows, seq, d), device=DEVICE,
+                    generator=torch.Generator(device=DEVICE).manual_seed(1))
+    lp = layer_params(full, 0)
+    dims = moe.MoeDims(e, k, d, cfg.d_ff_expert)
+    rec: list = []
+    want_y = None
+    if rank == 0:
+        with torch.no_grad(), moe_routes(record=rec):
+            want_y = moe.moe_ffn_dense(x.view(-1, d), lp["router"],
+                                       lp["ew1"], lp["ew3"], lp["ew2"],
+                                       dims).view(rows, seq, d)
+    block_routes = _broadcast_routes(rec, t, k, 1)
+    host = _lm_batch(cfg.vocab_size, rows, seq, 3)
+    rec = []
+    if rank == 0:
+        on_card = {key: torch.from_numpy(v).to(DEVICE)
+                   for key, v in host.items()}
+        with moe_routes(record=rec):
+            loss_d, grads_d = value_and_grad(full, dense, on_card)
+    routes = _broadcast_routes(rec, t, k, cfg.n_layers)
+    cf = no_drop_cf(block_routes + routes, e, k, shards)
+    pl = param_placements(cfg, rt)
+    params = shard_tree(full, pl)
+    del full, lp
+    _free()
+
+    # the block: this rank's rows of x through its expert slices
+    mine = slice(i * (rows // shards), (i + 1) * (rows // shards))
+    lp = layer_params(params, 0)
+    dims_ep = moe.MoeDims(e, k, d, cfg.d_ff_expert, cf)
+    with torch.no_grad(), moe_routes(replay=[
+            r.view(shards, -1, k)[i] for r in block_routes]):
+        y = moe.moe_ffn_ep(x[mine], lp["router"], lp["ew1"], lp["ew3"],
+                           lp["ew2"], dims_ep, mesh, batch_axes=("data",))
+    y = Placement(mesh, ("data",)).gather(y)
+    out = {"cf": cf}
+    if rank == 0:
+        out["block"] = float((y - want_y).abs().max()) \
+            / float(want_y.abs().max())
+    del y, want_y
+
+    # forward_train's loss and gradients, routes replayed
+    ep = dataclasses.replace(cfg, capacity_factor=cf)
+    _reset_counts()
+    with moe_routes(replay=[r.view(shards, -1, k)[i] for r in routes]):
+        loss, grads = value_and_grad(
+            params, ep, make_global_batch(host, mesh), rt)
+    grads = reduce_grads(grads, pl)
+    full_g = leaves(gather_tree(unflatten(params, grads), pl))
+    out["counts"] = _counts()
+    del grads
+    if rank != 0:
+        del full_g
+    # the other ranks' cached blocks go back to the card before rank 0
+    # compares its full gradients
+    _free()
+    torch.distributed.barrier()
+    if rank == 0:
+        out["loss"] = abs(float(loss) - float(loss_d)) / abs(float(loss_d))
+        out["grads"] = _grad_err(full_g, grads_d)
+        del full_g, grads_d
+    _free()
+    out["engine"] = _engine_rank(ep, params, rt)
+    return out
+
+
+def _engine_rank(cfg, params, rt) -> dict:
+    """The serving engine with ``rt``: three requests, then two more one
+    step later (a slot refilled mid-batch on each rank's shard); every
+    request's tokens, the launch counts and the wall."""
+    import torch
+
+    from repro_torch.serve.engine import EngineConfig, ServingEngine
+
+    slots, cache, new = MESH_ENGINE
+    engine = ServingEngine(cfg, params, EngineConfig(
+        max_batch=slots, cache_len=cache, max_new_tokens=new,
+        eos_token=-1), rt)
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(1, cfg.vocab_size, (n,), generator=gen).tolist()
+               for n in MESH_ENGINE_PROMPTS]
+    _reset_counts()
+    tic = time.perf_counter()
+    for prompt in prompts[:3]:
+        engine.submit(prompt)
+    engine.step()
+    for prompt in prompts[3:]:
+        engine.submit(prompt)
+    done = engine.run_to_completion()
+    return {"tokens": {r.rid: r.generated for r in done},
+            "truncated": any(r.truncated for r in done),
+            "vocab": cfg.vocab_size, "counts": _counts(),
+            "s": time.perf_counter() - tic}
+
+
+def _dp_rank(rank: int, mesh) -> dict:
+    """(b) tinyllama-1.1b at full width (MESH_DP_LAYERS, float32) on
+    ``mesh``, a ``"data"`` mesh of 4: MESH_DP_STEPS steps with ZeRO-2,
+    then without, against rank 0's one-process step on the same global
+    batches."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig, SyntheticLMStream
+    from repro_torch.launch.mesh import shard_tree
+    from repro_torch.models.transformer import (
+        Runtime,
+        init_params,
+        param_specs,
+    )
+    from repro_torch.train._tree import leaves
+    from repro_torch.train.optimizer import AdamWConfig, adamw_init
+    from repro_torch.train.trainer import (
+        TrainConfig,
+        make_train_step,
+        train_placements,
+    )
+
+    rt = Runtime(mesh)
+    cfg = dataclasses.replace(get_config(ARCH), dtype="float32",
+                              n_layers=MESH_DP_LAYERS)
+    rows, seq = MESH_DP_BATCH
+    stream = SyntheticLMStream(DataConfig(vocab_size=cfg.vocab_size,
+                                          seq_len=seq, global_batch=rows))
+    batches = [stream.batch(s) for s in range(MESH_DP_STEPS)]
+
+    def run(zero: bool, runtime):
+        tcfg = TrainConfig(optimizer=AdamWConfig(
+            lr=3e-5, warmup_steps=1, total_steps=MESH_DP_STEPS,
+            zero_shard=zero))
+        params = init_params(cfg, torch.Generator(device=DEVICE)
+                             .manual_seed(0), DEVICE)
+        if runtime is None:
+            state = adamw_init(params, tcfg.optimizer)
+        else:
+            pl = train_placements(cfg, tcfg, runtime)
+            params = shard_tree(params, pl["params"])
+            state = adamw_init(params, tcfg.optimizer,
+                               specs=param_specs(cfg),
+                               placements=pl["params"])
+        step = make_train_step(cfg, tcfg, runtime)
+        losses, walls = [], []
+        for batch in batches:
+            torch.cuda.synchronize()
+            tic = time.perf_counter()
+            params, state, metrics = step(params, state, batch)
+            losses.append(float(metrics["loss"]))
+            walls.append(time.perf_counter() - tic)
+        moments = leaves(state["m"]) + leaves(state["v"])
+        nbytes = sum(m.numel() * m.element_size() for m in moments)
+        return losses, [p.cpu() for p in leaves(params)], nbytes, walls
+
+    on = run(True, rt)
+    off = run(False, rt)
+    out = {"moment_bytes": (on[2], off[2]), "walls": on[3],
+           "bit_identical": on[0] == off[0] and all(
+               torch.equal(a, b) for a, b in zip(on[1], off[1]))}
+    del off
+    if rank == 0:
+        ref = run(False, None)
+        out["loss"] = max(abs(a - b) / abs(b) for a, b in zip(on[0], ref[0]))
+        out["params"] = _grad_err(on[1], ref[1])
+        out["walls_one"] = ref[3]
+    return out
+
+
+def _drill_rank(rank: int, ckpt: str, shape: tuple, crash_at) -> dict:
+    """(c) run_elastic on a ``"data"`` mesh of ``shape`` (reduced
+    tinyllama, ZeRO on), crashing after ``crash_at`` where given."""
+    from repro_torch.configs import get_config
+    from repro_torch.data import DataConfig
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.transformer import Runtime
+    from repro_torch.train.elastic import (
+        CrashRequested,
+        ElasticRun,
+        run_elastic,
+    )
+    from repro_torch.train.optimizer import AdamWConfig
+    from repro_torch.train.trainer import TrainConfig
+
+    _card_rank()
+    total, _, every = MESH_DRILL
+    cfg = get_config(ARCH).reduced()
+    run = ElasticRun(
+        cfg=cfg, tcfg=TrainConfig(optimizer=AdamWConfig(
+            lr=1e-3, warmup_steps=2, total_steps=total, zero_shard=True)),
+        data=DataConfig(vocab_size=cfg.vocab_size, seq_len=16,
+                        global_batch=8),
+        ckpt_dir=pathlib.Path(ckpt), ckpt_every=every)
+    rt = Runtime(make_mesh(shape, device=DEVICE))
+    try:
+        res = run_elastic(run, total_steps=total, rt=rt, crash_at=crash_at)
+    except CrashRequested:
+        return {"crashed": True}
+    return {"history": res["history"], "resumed_from": res["resumed_from"]}
+
+
+def _main_rank(rank: int, ckpt: str) -> dict:
+    """The four-rank world's work in order: the collectives gloo takes,
+    the compressed all-reduce, (a), (b) and the clean drill."""
+    from repro_torch.launch.mesh import make_mesh
+
+    _card_rank()
+    mesh = make_mesh((4, 1), device=DEVICE)
+    out = {"collectives": _probe_collectives(mesh),
+           "compressed": _compressed_cuda_vs_cpu(mesh)}
+    tic = time.perf_counter()
+    out["ep"] = _ep_rank(rank)
+    _free()
+    out["ep_s"] = time.perf_counter() - tic
+    tic = time.perf_counter()
+    out["dp"] = _dp_rank(rank, mesh)
+    _free()
+    out["dp_s"] = time.perf_counter() - tic
+    out["clean"] = _drill_rank(rank, ckpt, (4, 1), None)
+    return out
+
+
+def mesh_gloo(root: pathlib.Path) -> dict:
+    """Four gloo ranks sharing the card: which collectives gloo takes on
+    CUDA tensors, the compressed all-reduce on CUDA vs CPU tensors, (a)
+    expert parallelism on (2,2), (b) ZeRO-2 data-parallel training on a
+    ``"data"`` mesh of 4, (c) the 4 → 2 mesh-change drill.  Returns the
+    (a) run's launch counts on rank 0.  gloo stages CUDA tensors
+    through host memory: its times are no performance figure."""
+    tic = time.perf_counter()
+    main = spawn_world(_main_rank, 4, root / "main", str(root / "clean_ckpt"))
+    first = main[0]
+    print(f"mesh gloo: 4 ranks on one card, collectives on CUDA tensors: "
+          f"{json.dumps(first['collectives'])}", flush=True)
+    check(all(v == "takes" for res in main
+              for v in res["collectives"].values()),
+          "gloo refuses a collective the port uses on CUDA tensors")
+    print(f"mesh gloo: compressed_psum CUDA vs CPU tensors (int8 equal, "
+          f"bf16 / none within n - 1 ulp of the terms' magnitude): "
+          f"{json.dumps([res['compressed'] for res in main])}", flush=True)
+    check(all(all(res["compressed"].values()) for res in main),
+          "compressed_psum on CUDA tensors differs from CPU tensors")
+    ep = first["ep"]
+    print(f"mesh gloo (a): {DEEPSEEK} {MESH_EP_LAYERS} layers float32 on "
+          f"(2,2), {MESH_EP_BATCH[0]} x {MESH_EP_BATCH[1]} tokens, "
+          f"capacity factor {ep['cf']!r} (no drop), routes replayed: EP "
+          f"block max |dy| / max |y| {ep['block']!r} (limit "
+          f"{MESH_BLOCK_TOL}); loss rel err {ep['loss']!r} (limit "
+          f"{MESH_LOSS_TOL}); gradients max |dg| / max |g| "
+          f"{ep['grads']!r} (limit {MESH_GRAD_TOL}); launches by rank "
+          f"{json.dumps([res['ep']['counts'] for res in main])}; "
+          f"{first['ep_s']:.3f} s (gloo through host memory: no "
+          "performance figure)", flush=True)
+    check(ep["block"] <= MESH_BLOCK_TOL and ep["loss"] <= MESH_LOSS_TOL
+          and ep["grads"] <= MESH_GRAD_TOL,
+          "expert parallelism on (2,2) differs from the dense path")
+    check(all(res["ep"]["counts"][name] > 0 for res in main
+              for name in ("flash_attention", "flash_attention_bwd")),
+          "a rank's EP run launched no attention kernel")
+    served = [res["ep"]["engine"] for res in main]
+    tokens = served[0]["tokens"]
+    print(f"mesh gloo (a): ServingEngine(rt) on (2,2), "
+          f"{len(MESH_ENGINE_PROMPTS)} requests on {MESH_ENGINE[0]} slots "
+          f"(two refilled mid-batch), {MESH_ENGINE[2]} tokens each: "
+          f"{json.dumps(tokens)}; the same on every rank: "
+          f"{all(e['tokens'] == tokens for e in served)}; launches by rank "
+          f"{json.dumps([e['counts'] for e in served])}; "
+          f"{served[0]['s']:.3f} s (gloo: no performance figure)",
+          flush=True)
+    check(all(e["tokens"] == tokens and not e["truncated"] for e in served)
+          and sorted(tokens) == list(range(len(MESH_ENGINE_PROMPTS)))
+          and all(len(t) == MESH_ENGINE[2] and all(
+              0 <= x < served[0]["vocab"] for x in t)
+              for t in tokens.values()),
+          "the serving engine on the mesh gave different or malformed "
+          "tokens")
+    check(all(e["counts"][name] > 0 for e in served
+              for name in MLA_KERNELS),
+          "a rank's serving engine launched no prefill or MLA decode "
+          "kernel")
+    dp = first["dp"]
+    moments = [res["dp"]["moment_bytes"] for res in main]
+    print(f"mesh gloo (b): {ARCH} {MESH_DP_LAYERS} layers float32 on a "
+          f"data mesh of 4, {MESH_DP_STEPS} steps of {MESH_DP_BATCH[0]} x "
+          f"{MESH_DP_BATCH[1]} tokens, ZeRO-2 vs one process: loss rel err "
+          f"{dp['loss']!r} (limit {MESH_LOSS_TOL}), parameters max |dp| / "
+          f"max |p| {dp['params']!r} (limit {MESH_PARAM_TOL}); ZeRO on vs "
+          f"off bit-identical on every rank: "
+          f"{all(res['dp']['bit_identical'] for res in main)}; moment "
+          f"bytes by rank (ZeRO on, off) {json.dumps(moments)}; step "
+          f"walls (s, gloo: no "
+          f"performance figure) {json.dumps(dp['walls'])}, one process "
+          f"{json.dumps(dp['walls_one'])}", flush=True)
+    check(dp["loss"] <= MESH_LOSS_TOL and dp["params"] <= MESH_PARAM_TOL,
+          "ZeRO-2 data-parallel training differs from one process")
+    check(all(res["dp"]["bit_identical"] for res in main),
+          "ZeRO on and off give different parameters")
+    check(all(on < off for on, off in moments),
+          "ZeRO-2 did not shrink a rank's moments")
+    total, crash_at, every = MESH_DRILL
+    ckpt = root / "drill_ckpt"
+    crashed = spawn_world(_drill_rank, 4, root / "crash", str(ckpt), (4, 1),
+                          crash_at)
+    check(all(res.get("crashed") for res in crashed),
+          "the drill's 4 ranks did not crash")
+    resumed = spawn_world(_drill_rank, 2, root / "resume", str(ckpt), (2, 1),
+                          None)
+    clean = {h["step"]: h["loss"] for h in first["clean"]["history"]}
+    worst = max(abs(h["loss"] - clean[h["step"]]) / abs(clean[h["step"]])
+                for res in resumed for h in res["history"])
+    starts = {res["resumed_from"] for res in resumed}
+    print(f"mesh gloo (c): 4 ranks crash after step {crash_at}, 2 ranks "
+          f"resume at {sorted(starts)}: loss rel err vs the clean 4-rank "
+          f"run {worst!r} (limit {MESH_DRILL_TOL})", flush=True)
+    check(starts == {crash_at} and worst <= MESH_DRILL_TOL,
+          "the mesh-change drill diverged")
+    print(f"phase mesh gloo: {time.perf_counter() - tic:.3f} s", flush=True)
+    return first["ep"]["counts"]
+
+
+def mesh_phase() -> None:
+    """The world of one on NCCL, then four gloo ranks sharing the card;
+    the main path's kernels must launch in both."""
+    with tempfile.TemporaryDirectory() as tmp:
+        root = pathlib.Path(tmp)
+        tic = time.perf_counter()
+        counts = mesh_nccl(root)
+        print(f"mesh nccl: launches {json.dumps(counts)}", flush=True)
+        check(all(counts[name] > 0 for name in
+                  ("flash_attention", "flash_decode_mla",
+                   "flash_attention_bwd")),
+              "the world of one's EP runs did not launch every kernel of "
+              "the path")
+        print(f"phase mesh nccl: {time.perf_counter() - tic:.3f} s",
+              flush=True)
+        _free()
+        mesh_gloo(root)
+
+
+def mesh_only() -> int:
+    """``--mesh``: build the prefill, backward and MLA-decode libraries
+    and run the mesh phase; no result line."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import flash_decode as fd
+
+    libs = (fa.LIBRARY, fa.WGMMA_LIBRARY, fa.BWD_LIBRARY,
+            fa.BWD_WGMMA_LIBRARY, fd.MLA_LIBRARY)
+    tic = time.perf_counter()
+    with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
+        for path in pool.map(lambda lib: lib.build(), libs):
+            print(f"build: {path.name}", flush=True)
+    for lib in libs:
+        lib.load()
+    print(f"build: all in {time.perf_counter() - tic:.2f} s", flush=True)
+    tic = time.perf_counter()
+    mesh_phase()
+    print(f"phase mesh: {time.perf_counter() - tic:.3f} s", flush=True)
+    return 0
+
+
 # ------------------------------------------------------- dryrun phase
 
 DRYRUN_JOBS = 8                # processes of the meta dry-run's passes
@@ -5915,6 +6659,8 @@ def main(argv: list[str]) -> int:
         return train_only()
     if argv == ["--dryrun"]:
         return dryrun_only(smi)
+    if argv == ["--mesh"]:
+        return mesh_only()
     if argv:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
@@ -5958,6 +6704,9 @@ def main(argv: list[str]) -> int:
               flush=True)
         analysis_phase(pathlib.Path(keep))
     dryrun_phase(smi)
+    tic = time.perf_counter()
+    mesh_phase()
+    print(f"phase mesh: {time.perf_counter() - tic:.3f} s", flush=True)
     for row in rows:
         name = row["name"]
         if name in FAMILY_ROWS:

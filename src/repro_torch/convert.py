@@ -15,7 +15,11 @@ the port reads what the reference writes without importing it:
     ssm a list of per-layer dicts of two kinds) → the port's parameters,
     so both packages compute with the same weights;
   - :func:`opt_state_from_numpy` — a reference AdamW state ``{m, v,
-    count}`` → the port's, so both packages take the same step.
+    count}`` → the port's, so both packages take the same step;
+  - :func:`shard_lm_params` — a reference LM parameter tree → this
+    rank's blocks on a mesh of ranks (``param_placements``: the routed
+    experts cut by their specs where the model runs them
+    expert-parallel, every other leaf whole).
 
 A reference ``PowerSchedule.to_json`` payload is read by the port's own
 :meth:`~repro_torch.core.schedule.PowerSchedule.from_json` (same schema,
@@ -31,7 +35,12 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.models.transformer import param_shapes
+from repro_torch.launch.mesh import shard_tree
+from repro_torch.models.transformer import (
+    Runtime,
+    param_placements,
+    param_shapes,
+)
 from repro_torch.perfmodel.layer_costs import LayerSpec
 
 #: the padded-tensor names, in the order the kernels take them
@@ -108,6 +117,15 @@ def opt_state_from_numpy(tree: Mapping, cfg: ModelConfig,
             "v": _lm_tree(tree["v"], cfg, device, moment_dtype),
             "count": torch.tensor(int(np.asarray(tree["count"])),
                                   dtype=torch.int32, device=device)}
+
+
+def shard_lm_params(tree: Mapping, cfg: ModelConfig, rt: Runtime) -> dict:
+    """This rank's blocks of a reference parameter tree (numpy) on
+    ``rt``'s mesh, on the mesh's device, in ``cfg.dtype``: each leaf as
+    :func:`lm_params_from_numpy` makes it, cut by
+    ``param_placements(cfg, rt)``."""
+    return shard_tree(lm_params_from_numpy(tree, cfg, "cpu"),
+                      param_placements(cfg, rt))
 
 
 def _lm_tree(tree: Mapping, cfg: ModelConfig, device,

@@ -1,3 +1,7 @@
-from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
+from repro_torch.data.pipeline import (
+    DataConfig,
+    SyntheticLMStream,
+    make_global_batch,
+)
 
-__all__ = ["DataConfig", "SyntheticLMStream"]
+__all__ = ["DataConfig", "SyntheticLMStream", "make_global_batch"]

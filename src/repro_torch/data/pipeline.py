@@ -10,9 +10,9 @@ Stream properties:
   - structured tokens (a mixture of Zipf-ish unigrams and local repeats)
     so language-model losses actually decrease during smoke training.
 
-The reference's ``make_global_batch`` places a host's slice onto a mesh
-of chips; the port runs on one card and hands the batch to the train
-step as numpy (the four-card item, ``ROADMAP.md``).
+:func:`make_global_batch` places a host batch on a mesh of ranks: each
+rank takes its rows (the reference's addressable shard of the global
+array) onto its device.
 """
 
 from __future__ import annotations
@@ -21,6 +21,9 @@ import dataclasses
 from typing import Iterator
 
 import numpy as np
+import torch
+
+from repro_torch.launch.mesh import CardMesh, Placement, batch_axes
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,3 +67,22 @@ class SyntheticLMStream:
         while True:
             yield self.batch(step)
             step += 1
+
+
+def make_global_batch(host_batch: dict, mesh: CardMesh) -> dict:
+    """This rank's rows of a host batch (numpy arrays or tensors) as
+    tensors on its device: the first axis split over the mesh's
+    ``("pod", "data")`` axes (row-major) when it divides by their
+    product, and whole otherwise."""
+    axes = batch_axes(mesh)
+    n = 1
+    for a in axes:
+        n *= mesh.shape[a]
+
+    def put(x):
+        if not isinstance(x, torch.Tensor):
+            x = torch.from_numpy(np.ascontiguousarray(x))
+        spec = (axes,) if x.dim() and x.shape[0] % n == 0 else ()
+        return Placement(mesh, spec).shard(x)
+
+    return {k: put(v) for k, v in host_batch.items()}

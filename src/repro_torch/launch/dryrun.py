@@ -29,9 +29,9 @@ sLSTM loop runs 4096 steps a layer forward and back on ``meta``, takes
 the longest.  A train cell uses
 :class:`~repro_torch.train.optimizer.AdamWConfig` as the reference's
 dry-run does, with bf16 moments when ``n_params() > 5e10``, but without
-ZeRO (the port's optimizer has no ``zero_shard``: the four-card item).  The mesh's production forms (256 and 512
-devices) and the reference's HLO collective parser wait for the same
-item.
+ZeRO: the dry-run's cells run on one card, and ZeRO in them waits for
+Queue 1 item 5b with the mesh's production forms (256 and 512 devices)
+and a counter of the port's collective bytes.
 
 Records go to ``artifacts/dryrun_torch/<arch>_<shape>_card1x1.json``
 at the repo root.
@@ -334,7 +334,7 @@ def _assemble(arch: str, shape: str, variant: str, plan: dict,
             "collective_bytes_per_device": cc["coll"],
             "collective_by_op_per_device": cc["coll_by_op"],
             "method": ("layer-differencing (L=1,2) of meta runs on one "
-                       "card; no ZeRO (the four-card item)"),
+                       "card; no ZeRO (Queue 1 item 5b)"),
             "cost_pass_s": round(cost_s, 2),
         },
     }

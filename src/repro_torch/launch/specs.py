@@ -8,8 +8,8 @@ reference's names and shapes.  Each function returns the reference's
 ``(stand-ins, placements)`` pair; on the one-card mesh of
 :func:`repro_torch.launch.mesh.make_host_mesh` every leaf is placed
 whole on the mesh's card, so a placement is that ``torch.device``.
-Per-leaf partitions come with the four-card item (``ROADMAP.md``,
-Queue 1 item 5).  The modality frontends are stubs as in the reference:
+Per-leaf partitions in the dry-run wait for Queue 1 item 5b
+(``ROADMAP.md``).  The modality frontends are stubs as in the reference:
 whisper gets precomputed frame embeddings, qwen2-vl M-RoPE position
 grids.
 """

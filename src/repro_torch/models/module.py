@@ -31,10 +31,13 @@ InitFn = Callable[[torch.Generator, tuple, torch.device], torch.Tensor]
 
 @dataclasses.dataclass(frozen=True)
 class Initializer:
-    """Deferred parameter: shape + init function."""
+    """Deferred parameter: shape + init function + the reference's
+    partition spec (one entry a tensor axis: ``None`` or mesh axis
+    names; ``()`` replicated)."""
 
     shape: tuple[int, ...]
     init: InitFn
+    spec: tuple = ()
 
     def materialize(self, generator: torch.Generator, device,
                     dtype: torch.dtype) -> torch.Tensor:
@@ -66,16 +69,17 @@ def fan_in_init(fan_in: int) -> InitFn:
     return normal_init(1.0 / math.sqrt(fan_in))
 
 
-def dense(name: str, shape: tuple[int, ...],
+def dense(name: str, shape: tuple[int, ...], spec: tuple = (),
           fan_in: int | None = None) -> dict[str, Initializer]:
     fi = fan_in if fan_in is not None else shape[0]
-    return {name: Initializer(shape, fan_in_init(fi))}
+    return {name: Initializer(shape, fan_in_init(fi), spec)}
 
 
 def stacked(init: Initializer, n_layers: int) -> Initializer:
-    """The same leaf for ``n_layers`` layers along a leading axis, drawn
-    in one call."""
-    return Initializer((n_layers, *init.shape), init.init)
+    """The same leaf for ``n_layers`` layers along a leading (unsharded)
+    axis, drawn in one call."""
+    return Initializer((n_layers, *init.shape), init.init,
+                       (None, *init.spec))
 
 
 def stack_layer_inits(layer_fn: Callable[[], dict], n_layers: int) -> dict:
@@ -98,7 +102,8 @@ def abstract_params(tree, dtype: torch.dtype = torch.bfloat16):
     """Stand-ins for a dry-run: every Initializer of ``tree`` as an
     empty ``meta`` tensor of its shape in ``dtype``; nothing is
     allocated or drawn.  (The reference also returns partition specs;
-    one card places every leaf whole, so there are none.)"""
+    the dry-run's one card places every leaf whole, and
+    ``transformer.param_specs`` gives the specs.)"""
     return _map_inits(
         lambda init: torch.empty(init.shape, dtype=dtype, device="meta"),
         tree)

@@ -1,5 +1,6 @@
-"""Mixture-of-Experts FFN on one device, as ``repro.models.moe`` computes
-it for a model without a mesh (``moe_ffn_dense``).
+"""Mixture-of-Experts FFN, as ``repro.models.moe`` computes it: on one
+device (``moe_ffn_dense``) and expert-parallel over a mesh of ranks
+(``moe_ffn_ep``).
 
 Routing: float32 logits and softmax → top-k → renormalization over the
 selected experts by ``max(sum, 1e-9)``, cast to x's dtype.  Ties go to
@@ -20,10 +21,24 @@ there is nothing to read, and the T·k rows go evenly to the experts
 (:func:`balanced_counts`): T·k expert FFN rows, the reference oracle's
 work.
 
-The expert-parallel path (``moe_ffn_ep``: experts sharded over a mesh,
-``all_to_all`` dispatch inside ``shard_map``) is a four-card item still
-to port (``ROADMAP.md``); the reference's ``MoeDims.capacity_factor`` and
-``dispatch_dtype`` are read only there, so :class:`MoeDims` lacks them.
+:func:`moe_ffn_ep` is the reference's expert-parallel path over a mesh
+of ``torch.distributed`` ranks (:func:`repro_torch.launch.mesh.make_mesh`):
+experts sharded over ``ep_axis`` (``"data"``), each expert's hidden
+dimension over ``tp_axis`` (``"model"``).  Each rank routes its own rows
+with a capacity of ``max(1, int(k · T_loc · capacity_factor) // E)``
+slots an expert (the (token, choice) pairs whose rank within their
+expert, in the stable flat order of :func:`_dispatch_indices`, reaches
+it are dropped), scatters them into ``[E, C, d]``, exchanges them with
+one ``all_to_all_single`` over ``ep_axis``, runs its experts' SwiGLU
+slices as batched products, sums the partial products over ``tp_axis``
+and sends the results back with a second ``all_to_all_single``.  The
+collectives carry their own backward (``torch.autograd.Function``): an
+all-to-all's is the same all-to-all of the gradient; the sum over
+``tp_axis`` passes the gradient unchanged, and the expert path's input
+gradient is summed over ``tp_axis`` (the block's input is replicated
+there, each rank holding part of the hidden dimension).  With
+``dispatch_dtype="int8"`` both all-to-alls (and their backward) carry
+int8 rows with one float32 scale a row (:func:`_make_quantized_a2a`).
 """
 
 from __future__ import annotations
@@ -31,7 +46,10 @@ from __future__ import annotations
 import dataclasses
 
 import torch
+import torch.distributed as dist
 import torch.nn.functional as F
+
+from repro_torch.launch.mesh import copy_to, reduce_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +58,10 @@ class MoeDims:
     top_k: int
     d_model: int
     d_ff: int
+    capacity_factor: float = 1.25
+    # EP wire format: int8 dispatch/combine quantization halves the
+    # all_to_all bytes (per-row symmetric scales ride along)
+    dispatch_dtype: str = "native"    # native | int8
 
 
 def router_topk(x: torch.Tensor, w_router: torch.Tensor, dims: MoeDims
@@ -98,3 +120,160 @@ def moe_ffn_dense(x: torch.Tensor, w_router: torch.Tensor,
     for j in range(k):
         out = out + cw[:, j:j + 1] * y[:, j]
     return out
+
+
+# ------------------------------------------------- expert parallelism
+
+def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """``t [n, ...]``: block i goes to the i-th rank of ``group`` and
+    block i of the result came from it (the identity for no group)."""
+    if group is None:
+        return t
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    dist.all_to_all_single(out, t, group=group)
+    return out
+
+
+class _AllToAll(torch.autograd.Function):
+    """:func:`_all_to_all`; its transpose is itself."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _all_to_all(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _all_to_all(g, ctx.group), None
+
+
+def _quantize_rows(t: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric int8 rows: ``scale = max(amax, 1e-8) / 127`` (float32,
+    one a row of the last axis), ``q = clip(round(t / scale), ±127)``
+    (half to even, as ``jnp.round``).  XLA compiles the reference's
+    division by 127 as a product with the float32 reciprocal of 127;
+    the port computes that product, so the scales agree bit for bit."""
+    t32 = t.float()
+    scale = torch.clamp(t32.abs().amax(-1, keepdim=True), min=1e-8) \
+        * (1.0 / 127.0)
+    q = torch.clamp(torch.round(t32 / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _wire(t: torch.Tensor, group) -> torch.Tensor:
+    """``t`` through the int8 wire: quantized rows and their scales
+    exchanged, dequantized to ``t``'s dtype."""
+    q, scale = _quantize_rows(t)
+    q = _all_to_all(q, group)
+    scale = _all_to_all(scale, group)
+    return (q.float() * scale).to(t.dtype)
+
+
+class _QuantizedAllToAll(torch.autograd.Function):
+    """:func:`_wire` forward, and the gradient through the same wire."""
+
+    @staticmethod
+    def forward(ctx, t, group):
+        ctx.group = group
+        return _wire(t, group)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _wire(g, ctx.group), None
+
+
+def _make_quantized_a2a(group):
+    """int8-on-the-wire all-to-all over ``group`` with per-row scales in
+    both directions: the forward quantizes the dispatch payload, the
+    backward quantizes the gradient payload the same way (the
+    all-to-all's transpose is itself)."""
+    return lambda t: _QuantizedAllToAll.apply(t, group)
+
+
+def _dispatch_indices(idx: torch.Tensor, dims: MoeDims, capacity: int
+                      ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Flat (token, choice) → (expert, rank within its expert in the
+    stable order of the flat choices, valid: rank < capacity)."""
+    t, k = idx.shape
+    e_flat = idx.reshape(-1)                       # [T·k]
+    order = torch.argsort(e_flat, stable=True)
+    sorted_e = e_flat[order]
+    group_start = torch.searchsorted(
+        sorted_e, torch.arange(dims.n_experts, device=idx.device,
+                               dtype=sorted_e.dtype))
+    rank_sorted = torch.arange(t * k, device=idx.device) \
+        - group_start[sorted_e]
+    rank = torch.empty(t * k, dtype=torch.int32, device=idx.device)
+    rank[order] = rank_sorted.to(torch.int32)
+    return e_flat, rank, rank < capacity
+
+
+def moe_ffn_ep(x: torch.Tensor, w_router: torch.Tensor, w1: torch.Tensor,
+               w3: torch.Tensor, w2: torch.Tensor, dims: MoeDims, mesh, *,
+               ep_axis: str = "data", tp_axis: str = "model",
+               batch_axes: tuple[str, ...] = ("pod", "data")
+               ) -> torch.Tensor:
+    """Expert-parallel MoE FFN on this rank of ``mesh`` (a
+    :class:`~repro_torch.launch.mesh.CardMesh`), laid out as the
+    reference's ``in_specs``: ``x [B_loc, S, d]`` this rank's rows of the
+    batch (split over ``batch_axes``, whole over ``tp_axis``),
+    ``w_router [d, E]`` whole, ``w1``/``w3 [E_loc, d, f_loc]`` and ``w2
+    [E_loc, f_loc, d]`` this rank's experts (``E / |ep_axis|``, at its
+    ``ep_axis`` coordinate) and hidden slice (``f / |tp_axis|``).
+    Returns this rank's rows ``[B_loc, S, d]`` (the same on every rank
+    of ``tp_axis``).  Every rank of the mesh calls it together."""
+    ep = mesh.shape[ep_axis]
+    if dims.n_experts % ep:
+        raise ValueError(f"moe_ffn_ep: {dims.n_experts} experts do not "
+                         f"divide over {ep_axis} of size {ep}")
+    e_loc = dims.n_experts // ep
+    if w1.shape[0] != e_loc or w2.shape[0] != e_loc:
+        raise ValueError(f"moe_ffn_ep: expert slices of {w1.shape[0]} / "
+                         f"{w2.shape[0]} experts, this rank holds {e_loc}")
+    ep_group = mesh.group(ep_axis)
+    tp_group = mesh.group(tp_axis) if tp_axis in mesh.shape else None
+    b_loc, s, d = x.shape
+    k = dims.top_k
+    t_loc = b_loc * s
+    xt = x.reshape(t_loc, d)
+    idx, cw = router_topk(xt, w_router, dims)
+    capacity = max(1, int(dims.top_k * t_loc * dims.capacity_factor)
+                   // dims.n_experts)
+    e_flat, rank, valid = _dispatch_indices(idx, dims, capacity)
+
+    # scatter the valid (token, choice) rows into the [E, C, d] buffer
+    n_slots = dims.n_experts * capacity
+    slot = e_flat * capacity + rank
+    tok_rep = torch.arange(t_loc, device=x.device).repeat_interleave(k)
+    rows = torch.where(valid[:, None], copy_to(xt, tp_group)[tok_rep],
+                       0.0)
+    buf = xt.new_zeros((n_slots, d)).index_add(
+        0, torch.where(valid, slot, n_slots - 1), rows)
+    buf = buf.view(ep, e_loc, capacity, d)
+
+    if dims.dispatch_dtype == "int8":
+        a2a = _make_quantized_a2a(ep_group)
+    elif ep_group is None:
+        def a2a(t):
+            return t
+    else:
+        def a2a(t):
+            return _AllToAll.apply(t, ep_group)
+
+    recv = a2a(buf)
+    # recv: [ep_src, E_loc, C, d] → [E_loc, ep_src·C, d]
+    recv = recv.transpose(0, 1).reshape(e_loc, ep * capacity, d)
+    # expert FFN on this rank's slice of the hidden dim, summed over tp
+    h = F.silu(torch.matmul(recv, w1)) * torch.matmul(recv, w3)
+    part = reduce_sum(torch.matmul(h, w2), tp_group)
+
+    # route results back to the source ranks
+    back = part.view(e_loc, ep, capacity, d).transpose(0, 1).contiguous()
+    out_buf = a2a(back).reshape(n_slots, d)
+
+    # combine: gather each (token, choice) result, weight, and sum
+    gathered = torch.where(valid[:, None],
+                           out_buf[torch.where(valid, slot, 0)], 0.0)
+    contrib = gathered.view(t_loc, k, d) * cw[..., None]
+    return contrib.sum(dim=1).view(b_loc, s, d)

@@ -37,11 +37,17 @@ experts of :mod:`repro_torch.models.moe` too), and the recurrent
 mixers are the plain PyTorch of :mod:`repro_torch.models.ssm`.  Layers
 are a Python loop over the stacked per-layer tensors (the reference's
 ``lax.scan``), or over the list of per-layer dicts for the ssm family,
-whose layers differ in kind; there is no mesh, because one card holds
-the model, so MoE layers take the reference's one-device path
-(``moe_ffn_dense``) and ``moe_impl="ep"`` raises
-``NotImplementedError`` (expert parallelism is a four-card item,
-``ROADMAP.md``).
+whose layers differ in kind.  MoE layers take the reference's
+one-device path (``moe_ffn_dense``) unless a :class:`Runtime` with a mesh of ranks is
+given (``rt=``): then the reference's rule (``moe_impl="ep"``, or
+``"auto"`` on a distributed mesh whose ``"data"`` size divides the
+experts) takes ``moe_ffn_ep``, each rank holding its slice of the
+expert leaves (``param_specs``; ``repro_torch.convert.shard_lm_params``)
+and its rows of the batch, and ``forward_train``'s loss is the global
+NLL sum over the global count of valid labels.  ``moe_impl="ep"``
+without a mesh raises ``NotImplementedError``.  Every other leaf is
+whole on each rank: tensor parallelism over ``"model"`` and
+``constrain`` wait for Queue 1 item 5b (``ROADMAP.md``).
 
 Deliberate difference from the reference: where a slot's cache ends at
 ``cache_len`` (dense, moe, vlm and audio; not the encoder's cross
@@ -55,12 +61,16 @@ raises.
 
 from __future__ import annotations
 
+import dataclasses
+from typing import Any
+
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.launch.mesh import batch_axes, reduce_sum, spec_placements
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import apply_mrope, apply_rope
@@ -79,14 +89,48 @@ from repro_torch.models.module import (
 )
 
 
-def check_supported(cfg: ModelConfig) -> None:
-    """The port runs every family on one device; the expert-parallel
-    MoE path (``moe_impl="ep"``) needs a mesh of cards."""
-    if cfg.is_moe and cfg.moe_impl == "ep":
+#: the routed experts' specs (without the layer axis): experts over
+#: ``"data"`` (expert parallelism), each expert's hidden dim over
+#: ``"model"``
+EXPERT_SPECS = {"ew1": ("data", None, "model"),
+                "ew3": ("data", None, "model"),
+                "ew2": ("data", "model", None)}
+
+
+@dataclasses.dataclass(frozen=True)
+class Runtime:
+    """Execution context: mesh presence decides EP vs dense MoE (the
+    port's mesh: :class:`repro_torch.launch.mesh.CardMesh`)."""
+
+    mesh: Any = None
+
+    @property
+    def distributed(self) -> bool:
+        return self.mesh is not None and self.mesh.size > 1
+
+
+def uses_ep(cfg: ModelConfig, rt: Runtime | None) -> bool:
+    """Whether the MoE layers take ``moe_ffn_ep`` (the reference's rule):
+    ``moe_impl="ep"``, or ``"auto"`` on a distributed mesh whose
+    ``"data"`` size divides the experts."""
+    if not cfg.is_moe:
+        return False
+    rt = rt or Runtime()
+    return (cfg.moe_impl == "ep"
+            or (cfg.moe_impl == "auto" and rt.distributed
+                and "data" in rt.mesh.shape
+                and cfg.n_experts % rt.mesh.shape["data"] == 0))
+
+
+def check_supported(cfg: ModelConfig, rt: Runtime | None = None) -> None:
+    """The expert-parallel MoE path (``moe_impl="ep"``) needs a mesh of
+    ranks: ``Runtime(make_mesh(...))`` (ROADMAP.md, Queue 1 item 5)."""
+    if cfg.is_moe and cfg.moe_impl == "ep" and (rt is None
+                                                or rt.mesh is None):
         raise NotImplementedError(
             f"{cfg.name}: moe_impl='ep' shards the experts over a mesh "
-            "of cards, which the port does not run yet (see ROADMAP.md); "
-            "'auto' or 'dense' runs them on one card")
+            "of ranks; pass rt=Runtime(make_mesh(...)) (see ROADMAP.md), "
+            "or 'auto' / 'dense' to run them on one card")
 
 
 # ======================================================================
@@ -95,9 +139,11 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def _norm_params(cfg: ModelConfig, name: str) -> dict:
     if cfg.norm == "layernorm":
-        return {f"{name}_g": Initializer((cfg.d_model,), ones_init()),
-                f"{name}_b": Initializer((cfg.d_model,), zeros_init())}
-    return {f"{name}_g": Initializer((cfg.d_model,), ones_init())}
+        return {f"{name}_g": Initializer((cfg.d_model,), ones_init(),
+                                         (None,)),
+                f"{name}_b": Initializer((cfg.d_model,), zeros_init(),
+                                         (None,))}
+    return {f"{name}_g": Initializer((cfg.d_model,), ones_init(), (None,))}
 
 
 def _attn_params(cfg: ModelConfig, *, cross: bool = False) -> dict:
@@ -106,59 +152,63 @@ def _attn_params(cfg: ModelConfig, *, cross: bool = False) -> dict:
     prefix)."""
     d, hd = cfg.d_model, cfg.hd
     h, kh = cfg.n_heads, cfg.n_kv_heads
+    kv_spec = (None, "model") if (kh * hd) % 16 == 0 else (None, None)
     pre = "x" if cross else ""
     p = {}
     if cfg.is_mla and not cross:
         r, dr = cfg.kv_lora_rank, cfg.rope_head_dim
-        p.update(dense("wq", (d, h * (hd + dr))))
-        p.update(dense("wdkv", (d, r + dr)))
-        p.update(dense("wuk", (r, kh * hd), fan_in=r))
-        p.update(dense("wuv", (r, kh * hd), fan_in=r))
+        p.update(dense("wq", (d, h * (hd + dr)), (None, "model")))
+        p.update(dense("wdkv", (d, r + dr), (None, None)))
+        p.update(dense("wuk", (r, kh * hd), (None, "model"), fan_in=r))
+        p.update(dense("wuv", (r, kh * hd), (None, "model"), fan_in=r))
     else:
-        p.update(dense(f"{pre}wq", (d, h * hd)))
-        p.update(dense(f"{pre}wk", (d, kh * hd)))
-        p.update(dense(f"{pre}wv", (d, kh * hd)))
+        p.update(dense(f"{pre}wq", (d, h * hd), (None, "model")))
+        p.update(dense(f"{pre}wk", (d, kh * hd), kv_spec))
+        p.update(dense(f"{pre}wv", (d, kh * hd), kv_spec))
         if cfg.qkv_bias:
-            p[f"{pre}bq"] = Initializer((h * hd,), zeros_init())
-            p[f"{pre}bk"] = Initializer((kh * hd,), zeros_init())
-            p[f"{pre}bv"] = Initializer((kh * hd,), zeros_init())
-    p.update(dense(f"{pre}wo", (h * hd, d), fan_in=h * hd))
+            p[f"{pre}bq"] = Initializer((h * hd,), zeros_init(), ("model",))
+            p[f"{pre}bk"] = Initializer((kh * hd,), zeros_init(), (None,))
+            p[f"{pre}bv"] = Initializer((kh * hd,), zeros_init(), (None,))
+    p.update(dense(f"{pre}wo", (h * hd, d), ("model", None), fan_in=h * hd))
     return p
 
 
 def _ffn_params(cfg: ModelConfig) -> dict:
     d, f = cfg.d_model, cfg.d_ff
     if cfg.act == "swiglu":
-        return {**dense("w1", (d, f)), **dense("w3", (d, f)),
-                **dense("w2", (f, d), fan_in=f)}
-    return {**dense("w1", (d, f)), **dense("w2", (f, d), fan_in=f)}
+        return {**dense("w1", (d, f), (None, "model")),
+                **dense("w3", (d, f), (None, "model")),
+                **dense("w2", (f, d), ("model", None), fan_in=f)}
+    return {**dense("w1", (d, f), (None, "model")),
+            **dense("w2", (f, d), ("model", None), fan_in=f)}
 
 
 def _moe_params(cfg: ModelConfig) -> dict:
     d, fe, e = cfg.d_model, cfg.d_ff_expert, cfg.n_experts
-    p = {"router": Initializer((d, e), normal_init(0.02))}
-    p.update(dense("ew1", (e, d, fe), fan_in=d))
-    p.update(dense("ew3", (e, d, fe), fan_in=d))
-    p.update(dense("ew2", (e, fe, d), fan_in=fe))
+    p = {"router": Initializer((d, e), normal_init(0.02), (None, None))}
+    p.update(dense("ew1", (e, d, fe), EXPERT_SPECS["ew1"], fan_in=d))
+    p.update(dense("ew3", (e, d, fe), EXPERT_SPECS["ew3"], fan_in=d))
+    p.update(dense("ew2", (e, fe, d), EXPERT_SPECS["ew2"], fan_in=fe))
     if cfg.n_shared_experts:
         fs = cfg.n_shared_experts * fe
-        p.update(dense("sw1", (d, fs)))
-        p.update(dense("sw3", (d, fs)))
-        p.update(dense("sw2", (fs, d), fan_in=fs))
+        p.update(dense("sw1", (d, fs), (None, "model")))
+        p.update(dense("sw3", (d, fs), (None, "model")))
+        p.update(dense("sw2", (fs, d), ("model", None), fan_in=fs))
     return p
 
 
 def _mamba_params(cfg: ModelConfig) -> dict:
     d, h, hd, ss = cfg.d_model, cfg.n_heads, cfg.hd, cfg.ssm_state
+    bc_spec = (None, "model") if (h * ss) % 16 == 0 else (None, None)
     return {
-        **dense("mB", (d, h * ss)),
-        **dense("mC", (d, h * ss)),
-        **dense("mX", (d, h * hd)),
-        **dense("mdt", (d, h)),
-        "ma_log": Initializer((h,), zeros_init()),
-        "mdt_bias": Initializer((h,), zeros_init()),
-        "mnorm_g": Initializer((h * hd,), ones_init()),
-        "anorm_g": Initializer((h * hd,), ones_init()),
+        **dense("mB", (d, h * ss), bc_spec),
+        **dense("mC", (d, h * ss), bc_spec),
+        **dense("mX", (d, h * hd), (None, "model")),
+        **dense("mdt", (d, h), (None, None)),
+        "ma_log": Initializer((h,), zeros_init(), (None,)),
+        "mdt_bias": Initializer((h,), zeros_init(), (None,)),
+        "mnorm_g": Initializer((h * hd,), ones_init(), (None,)),
+        "anorm_g": Initializer((h * hd,), ones_init(), (None,)),
     }
 
 
@@ -187,15 +237,15 @@ def init_mlstm_layer(cfg: ModelConfig) -> dict:
     di = d * cfg.proj_factor
     return {
         **_norm_params(cfg, "ln1"),
-        **dense("w_up", (d, di)),
-        **dense("w_gate", (d, di)),
-        **dense("wq", (di, di), fan_in=di),
-        **dense("wk", (di, di), fan_in=di),
-        **dense("wv", (di, di), fan_in=di),
-        **dense("wi", (di, cfg.n_heads), fan_in=di),
-        **dense("wf", (di, cfg.n_heads), fan_in=di),
-        "hnorm_g": Initializer((di,), ones_init()),
-        **dense("w_down", (di, d), fan_in=di),
+        **dense("w_up", (d, di), (None, "model")),
+        **dense("w_gate", (d, di), (None, "model")),
+        **dense("wq", (di, di), (None, "model"), fan_in=di),
+        **dense("wk", (di, di), (None, "model"), fan_in=di),
+        **dense("wv", (di, di), (None, "model"), fan_in=di),
+        **dense("wi", (di, cfg.n_heads), (None, None), fan_in=di),
+        **dense("wf", (di, cfg.n_heads), (None, None), fan_in=di),
+        "hnorm_g": Initializer((di,), ones_init(), (None,)),
+        **dense("w_down", (di, d), ("model", None), fan_in=di),
     }
 
 
@@ -204,11 +254,12 @@ def init_slstm_layer(cfg: ModelConfig) -> dict:
     dh = d // h
     return {
         **_norm_params(cfg, "ln1"),
-        **dense("w_gates", (d, 4 * d)),
-        "r_gates": Initializer((4, h, dh, dh), normal_init(0.05)),
-        "hnorm_g": Initializer((d,), ones_init()),
-        **dense("w_out", (d, d)),
-        **dense("w_down", (d, d)),
+        **dense("w_gates", (d, 4 * d), (None, "model")),
+        "r_gates": Initializer((4, h, dh, dh), normal_init(0.05),
+                               (None, None, None, None)),
+        "hnorm_g": Initializer((d,), ones_init(), (None,)),
+        **dense("w_out", (d, d), (None, "model")),
+        **dense("w_down", (d, d), ("model", None)),
     }
 
 
@@ -217,14 +268,13 @@ def init_lm(cfg: ModelConfig) -> dict:
     shapes, per-layer leaves stacked on a leading layer axis (the ssm
     family, whose layers differ in kind: a list of per-layer dicts, as
     the reference keeps it)."""
-    check_supported(cfg)
     vp, d = cfg.padded_vocab, cfg.d_model
     tree: dict = {
-        "embed": Initializer((vp, d), normal_init(0.02)),
+        "embed": Initializer((vp, d), normal_init(0.02), ("model", None)),
         **_norm_params(cfg, "lnf"),
     }
     if not cfg.tie_embeddings:
-        tree.update(dense("head", (d, vp)))
+        tree.update(dense("head", (d, vp), (None, "model")))
     if cfg.family == "ssm":
         tree["layers"] = [init_slstm_layer(cfg) if _is_slstm(cfg, i)
                           else init_mlstm_layer(cfg)
@@ -242,7 +292,6 @@ def init_lm(cfg: ModelConfig) -> dict:
 def abstract(cfg: ModelConfig) -> dict:
     """The parameter tree as ``meta`` stand-ins in ``cfg.dtype`` (the
     dry-run's parameters): nothing allocated."""
-    check_supported(cfg)
     return abstract_params(init_lm(cfg), cfg.torch_dtype)
 
 
@@ -255,6 +304,30 @@ def param_shapes(cfg: ModelConfig) -> dict:
             return {k: shapes(v) for k, v in tree.items()}
         return tree.shape
     return shapes(init_lm(cfg))
+
+
+def param_specs(cfg: ModelConfig) -> dict:
+    """Every parameter's partition spec (the reference's
+    ``init_params(...)[1]``, each ``P`` as a tuple), in the tree layout
+    of :func:`init_lm`."""
+    def specs(tree):
+        if isinstance(tree, list):
+            return [specs(v) for v in tree]
+        if isinstance(tree, dict):
+            return {k: specs(v) for k, v in tree.items()}
+        return tree.spec
+    return specs(init_lm(cfg))
+
+
+def param_placements(cfg: ModelConfig, rt: Runtime) -> dict:
+    """Each parameter leaf's :class:`~repro_torch.launch.mesh.Placement`
+    on ``rt``'s mesh: the routed experts by their specs where the MoE
+    layers take expert parallelism (:func:`uses_ep`); every other leaf
+    whole (tensor parallelism over ``"model"`` waits for Queue 1 item
+    5b)."""
+    ep = uses_ep(cfg, rt)
+    return spec_placements(param_specs(cfg), rt.mesh,
+                           keep=lambda path: ep and path[-1] in EXPERT_SPECS)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -398,22 +471,33 @@ def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
     return h @ p["w2"]
 
 
-def _moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
-    """Routed experts on one device (the reference's ``moe_ffn_dense``
-    branch, which it takes without a mesh), plus the shared experts."""
+def _moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor,
+             rt: Runtime | None = None) -> torch.Tensor:
+    """Routed experts, expert-parallel over ``rt``'s mesh where
+    :func:`uses_ep` says so (``p``'s expert leaves are then this rank's
+    slices), else on one device (the reference's ``moe_ffn_dense``
+    branch), plus the shared experts."""
     b, s, d = x.shape
     dims = moe_lib.MoeDims(cfg.n_experts, cfg.moe_top_k, d,
-                           cfg.d_ff_expert)
-    out = moe_lib.moe_ffn_dense(x.reshape(b * s, d), p["router"], p["ew1"],
-                                p["ew3"], p["ew2"], dims).reshape(b, s, d)
+                           cfg.d_ff_expert, cfg.capacity_factor,
+                           dispatch_dtype=cfg.moe_dispatch_dtype)
+    if uses_ep(cfg, rt):
+        out = moe_lib.moe_ffn_ep(x, p["router"], p["ew1"], p["ew3"],
+                                 p["ew2"], dims, rt.mesh,
+                                 batch_axes=batch_axes(rt.mesh))
+    else:
+        out = moe_lib.moe_ffn_dense(
+            x.reshape(b * s, d), p["router"], p["ew1"], p["ew3"],
+            p["ew2"], dims).reshape(b, s, d)
     if cfg.n_shared_experts:
         out = out + swiglu(x @ p["sw1"], x @ p["sw3"]) @ p["sw2"]
     return out
 
 
-def _mlp(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _mlp(p: dict, cfg: ModelConfig, x: torch.Tensor,
+         rt: Runtime | None = None) -> torch.Tensor:
     """The block's feed-forward: routed experts or the dense FFN."""
-    return _moe_ffn(p, cfg, x) if cfg.is_moe else _ffn(p, cfg, x)
+    return _moe_ffn(p, cfg, x, rt) if cfg.is_moe else _ffn(p, cfg, x)
 
 
 def _mamba_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -451,7 +535,8 @@ def _fuse_hybrid(p: dict, attn: torch.Tensor,
 def decoder_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                   positions: torch.Tensor, *,
                   enc_out: torch.Tensor | None = None,
-                  return_kv: bool = False, mamba_state=None):
+                  return_kv: bool = False, mamba_state=None,
+                  rt: Runtime | None = None):
     """One decoder block, full-sequence mode.  Returns (x, extras)."""
     h = _norm(p, "ln1", x, cfg)
     window = cfg.window if cfg.family == "hybrid" else 0
@@ -475,7 +560,7 @@ def decoder_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
         x = x + _attention_cross(p, cfg, hx, xk, xv)
         extras["cross_kv"] = (xk, xv)
     if cfg.is_moe or cfg.d_ff:
-        x = x + _mlp(p, cfg, _norm(p, "ln2", x, cfg))
+        x = x + _mlp(p, cfg, _norm(p, "ln2", x, cfg), rt)
     return x, extras
 
 
@@ -612,12 +697,16 @@ def _remat(fn, on: bool):
 
 def chunked_softmax_xent(params: dict, cfg: ModelConfig, x: torch.Tensor,
                          labels: torch.Tensor,
-                         chunk: int = 1024) -> torch.Tensor:
+                         chunk: int = 1024,
+                         rt: Runtime | None = None) -> torch.Tensor:
     """Mean next-token cross-entropy without materializing ``[B, S,
     V]``: sequence chunks of ``chunk`` positions (the last one padded
     with label -1), float32 logits, label -1 ignored; each chunk's NLL
     sum and valid count added in chunk order, as the reference's scan
-    does."""
+    does.  On ``rt``'s mesh ``x`` and ``labels`` are this rank's rows:
+    the NLL sum and the count are summed over the batch axes, so every
+    rank returns the global mean, and its gradient is this rank's
+    share (its rows' NLL over the global count)."""
     b, s, d = x.shape
     w = params["embed"].t() if cfg.tie_embeddings else params["head"]
     x = _norm(params, "lnf", x, cfg)
@@ -640,19 +729,26 @@ def chunked_softmax_xent(params: dict, cfg: ModelConfig, x: torch.Tensor,
         nll = torch.where(valid, lse - picked, 0.0)
         total = total + nll.sum()
         count = count + valid.sum(dtype=torch.int32)
+    if rt is not None and rt.mesh is not None:
+        for axis in batch_axes(rt.mesh):
+            group = rt.mesh.group(axis)
+            total = reduce_sum(total, group)
+            count = reduce_sum(count, group)
     return total / count.clamp_min(1)
 
 
-def forward_train(params: dict, cfg: ModelConfig,
-                  batch: dict) -> torch.Tensor:
+def forward_train(params: dict, cfg: ModelConfig, batch: dict,
+                  rt: Runtime | None = None) -> torch.Tensor:
     """Full-sequence forward → mean cross-entropy loss (the train
     step's objective), for every family: ``batch["tokens"]`` and
     ``batch["labels"]`` ``[B, S]`` (labels -1 ignored), the vlm family's
     optional ``"positions"`` ``[3, B, S]``, the audio family's
     ``"encoder_frames"`` ``[B, S_enc, d]``.  With ``cfg.remat`` each
     layer (and each encoder layer) runs under activation checkpointing,
-    so attention runs its forward kernel twice a layer."""
-    check_supported(cfg)
+    so attention runs its forward kernel twice a layer.  On ``rt``'s
+    mesh the batch holds this rank's rows (``make_global_batch``) and
+    the loss is the global one (:func:`chunked_softmax_xent`)."""
+    check_supported(cfg, rt)
     dev = params["embed"].device
     tokens = batch["tokens"].to(dev)
     pos = _positions_for(cfg, tokens, batch.get("positions"))
@@ -665,7 +761,7 @@ def forward_train(params: dict, cfg: ModelConfig,
                                 remat=cfg.remat)
 
     def decoder(h, lp):
-        return decoder_block(lp, cfg, h, pos, enc_out=enc_out)[0]
+        return decoder_block(lp, cfg, h, pos, enc_out=enc_out, rt=rt)[0]
 
     for i in range(cfg.n_layers):
         if cfg.family == "ssm":
@@ -676,7 +772,7 @@ def forward_train(params: dict, cfg: ModelConfig,
         else:
             body = decoder
         x = _remat(body, cfg.remat)(x, layer_params(params, i))
-    return chunked_softmax_xent(params, cfg, x, batch["labels"])
+    return chunked_softmax_xent(params, cfg, x, batch["labels"], rt=rt)
 
 
 # ======================================================================
@@ -710,7 +806,8 @@ def _write_prefix(rows: torch.Tensor, k: torch.Tensor, s: int) -> None:
 
 
 def prefill(params: dict, cfg: ModelConfig, batch: dict,
-            cache_len: int) -> tuple[torch.Tensor, dict]:
+            cache_len: int, rt: Runtime | None = None
+            ) -> tuple[torch.Tensor, dict]:
     """Full-sequence forward that also builds the decode state.
 
     ``batch["tokens"]`` is ``[B, S]``; ``batch["positions"]`` (optional)
@@ -726,9 +823,11 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict,
     holding the last ``window`` positions at ``t % window`` and
     ``"mamba"`` (its :class:`GlsState` leaves stacked on the layer
     axis); ssm ``"layers"``, one state a layer.  ``cache_len`` sizes
-    the self-attention cache only.
+    the self-attention cache only.  ``rt``: the mesh whose ranks run
+    the MoE layers expert-parallel (:func:`uses_ep`), each on its own
+    ``batch``.
     """
-    check_supported(cfg)
+    check_supported(cfg, rt)
     tokens = batch["tokens"]
     b, s = tokens.shape
     dev = params["embed"].device
@@ -771,7 +870,8 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict,
         cross, msts = [], []
         for i in range(nl):
             x, extras = decoder_block(layer_params(params, i), cfg, x, pos,
-                                      enc_out=enc_out, return_kv=True)
+                                      enc_out=enc_out, return_kv=True,
+                                      rt=rt)
             for cache, t in zip(caches, extras["kv"]):
                 _write_prefix(cache[i], t, s)
             if hybrid:
@@ -878,7 +978,8 @@ def _decode_attn_mla(p: dict, cfg: ModelConfig, h: torch.Tensor,
 
 
 def decode_step(params: dict, cfg: ModelConfig, state: dict,
-                tokens: torch.Tensor, live=None) -> tuple[torch.Tensor, dict]:
+                tokens: torch.Tensor, live=None,
+                rt: Runtime | None = None) -> tuple[torch.Tensor, dict]:
     """One serving step: tokens ``[B]`` → (logits ``[B, V_padded]``,
     state).  The returned state holds the same (updated in place)
     caches (``k``/``v`` or MLA's ``ckv``/``krope``; audio's ``xk``/``xv``
@@ -894,8 +995,8 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
     this from the lengths it keeps on the host), and a slot outside
     ``live`` that is past its cache skips its cache write on the device,
     as the JAX reference drops such writes.  Hybrid rings and ssm states
-    never fill."""
-    check_supported(cfg)
+    never fill.  ``rt`` as in :func:`prefill`."""
+    check_supported(cfg, rt)
     lengths = state["lengths"]
     new_state = dict(state)
     x = embed_tokens(params, cfg, tokens.to(lengths.device)[:, None])
@@ -951,7 +1052,7 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
                                        enc_len)
                 x = x + xatt.reshape(x.shape[0], 1, -1) @ lp["xwo"]
             if cfg.is_moe or cfg.d_ff:
-                x = x + _mlp(lp, cfg, _norm(lp, "ln2", x, cfg))
+                x = x + _mlp(lp, cfg, _norm(lp, "ln2", x, cfg), rt)
     new_state["lengths"] = lengths + 1
     logits = lm_head(params, cfg, x)[:, 0]
     return logits, new_state

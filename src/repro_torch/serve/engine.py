@@ -32,7 +32,21 @@ past it raises ``ValueError`` naming its slot (the reference drops
 that write silently); a hybrid ring wraps and an ssm slot has no
 cache, so those never fill.
 
-The engine runs on the device that holds the parameters.
+The engine runs on the device that holds the parameters.  With ``rt``
+(a :class:`~repro_torch.models.transformer.Runtime` over a mesh of
+ranks), a served MoE takes expert parallelism as the reference's does:
+every rank runs the same engine on the same requests, in lock step
+(each step's collectives pair up), holding its slice of the expert
+leaves.  The slots are sharded over the mesh's batch axes (``("pod",
+"data")``) as the reference's ``shard_map`` shards them:
+``max_batch`` must divide by their size, each rank prefills and
+decodes its own rows of the slots (``make_global_batch``) and keeps
+their decode state, and the logits are all-gathered, so every rank
+holds every slot's next token.  A refill of one slot runs its request
+once on each rank of the batch axes (one row each, so that every
+rank's EP block takes part) and only the slot's owner keeps its
+state; the reference's ``shard_map`` refuses a batch of one on such a
+mesh.
 """
 
 from __future__ import annotations
@@ -43,7 +57,10 @@ import numpy as np
 import torch
 
 from repro_torch.configs.base import ModelConfig
+from repro_torch.data.pipeline import make_global_batch
+from repro_torch.launch.mesh import Placement, batch_axes
 from repro_torch.models.transformer import (
+    Runtime,
     decode_step,
     prefill,
     state_fills,
@@ -109,11 +126,26 @@ def _scatter_slot(bleaf, sleaf, slot: int, max_batch: int):
 
 
 class ServingEngine:
-    def __init__(self, cfg: ModelConfig, params: dict, ecfg: EngineConfig):
+    def __init__(self, cfg: ModelConfig, params: dict, ecfg: EngineConfig,
+                 rt: Runtime | None = None):
         self.cfg = cfg
         self.params = params
         self.ecfg = ecfg
+        self.rt = rt or Runtime()
         self.device = params["embed"].device
+        # the slots' shards: this rank holds _rows slots from
+        # _index * _rows on
+        mesh = self.rt.mesh
+        parts, index = 1, 0
+        for a in batch_axes(mesh) if mesh is not None else ():
+            parts *= mesh.shape[a]
+            index = index * mesh.shape[a] + mesh.coord(a)
+        if ecfg.max_batch % parts:
+            raise ValueError(f"engine: max_batch {ecfg.max_batch} does not "
+                             f"divide into the mesh's {parts} batch shards")
+        self._parts = parts
+        self._rows = ecfg.max_batch // parts
+        self._index = index
         self.queue: list[Request] = []
         self.active: dict[int, Request] = {}     # slot → request
         self.completed: list[Request] = []       # finished, un-consumed
@@ -131,12 +163,28 @@ class ServingEngine:
         return rid
 
     # -- internals -----------------------------------------------------
+    def _rows_of(self, host: np.ndarray) -> torch.Tensor:
+        """This rank's rows of a host array of ``_parts`` x k rows (all
+        of them without a mesh) on the engine's device."""
+        t = torch.from_numpy(np.ascontiguousarray(host, np.int64))
+        if self.rt.mesh is None:
+            return t.to(self.device)
+        return make_global_batch({"t": t}, self.rt.mesh)["t"]
+
+    def _all_logits(self, logits: torch.Tensor) -> np.ndarray:
+        """Every slot's logits from this rank's rows (a collective on a
+        mesh), as a float32 host copy."""
+        if self.rt.mesh is not None:
+            logits = Placement(self.rt.mesh,
+                               (batch_axes(self.rt.mesh),)).gather(logits)
+        return _host_logits(logits)
+
     def _prefill_inputs(self, toks: np.ndarray) -> dict:
-        batch = {"tokens": torch.from_numpy(
-            np.ascontiguousarray(toks, np.int64)).to(self.device)}
+        batch = {"tokens": self._rows_of(toks)}
         if self.cfg.family == "audio":
             batch["encoder_frames"] = torch.zeros(
-                (toks.shape[0], self.cfg.encoder_seq, self.cfg.d_model),
+                (batch["tokens"].shape[0], self.cfg.encoder_seq,
+                 self.cfg.d_model),
                 dtype=self.cfg.torch_dtype, device=self.device)
         return batch
 
@@ -150,24 +198,27 @@ class ServingEngine:
             toks[slot, max_len - len(r.prompt):] = r.prompt
         logits, state = prefill(self.params, self.cfg,
                                 self._prefill_inputs(toks),
-                                cache_len=ec.cache_len)
+                                cache_len=ec.cache_len, rt=self.rt)
         self.state = state
         self.active = dict(enumerate(requests))
         self._lengths[:] = max_len
-        self._logits = _host_logits(logits)
+        self._logits = self._all_logits(logits)
 
     def _prefill_slot(self, slot: int, r: Request) -> None:
-        """Prefill one request as a batch of one and write its decode
-        state into the live batch state at ``slot``: the other slots'
-        caches and recurrent states are untouched."""
+        """Prefill one request as a batch of one (on a mesh, one row on
+        each rank of the batch axes) and write its decode state into the
+        live batch state at ``slot`` on the rank that holds the slot: the
+        other slots' caches and recurrent states are untouched."""
+        toks = np.repeat(r.prompt[None, :], self._parts, axis=0)
         logits, state1 = prefill(self.params, self.cfg,
-                                 self._prefill_inputs(r.prompt[None, :]),
-                                 cache_len=self.ecfg.cache_len)
-        self.state = _scatter_slot(self.state, state1, slot,
-                                   self.ecfg.max_batch)
+                                 self._prefill_inputs(toks),
+                                 cache_len=self.ecfg.cache_len, rt=self.rt)
+        owner, local = divmod(slot, self._rows)
+        if owner == self._index:
+            self.state = _scatter_slot(self.state, state1, local, self._rows)
         self.active[slot] = r
         self._lengths[slot] = len(r.prompt)
-        self._logits[slot] = _host_logits(logits)[0]
+        self._logits[slot] = self._all_logits(logits)[owner]
 
     def _retire_finished(self) -> None:
         for slot, r in list(self.active.items()):
@@ -223,11 +274,13 @@ class ServingEngine:
                         f"row {self._lengths[slot]} (a prompt of "
                         f"{len(r.prompt)} tokens and {len(r.generated)} "
                         f"generated), but its cache ends at {ec.cache_len}")
+            mine = slice(self._index * self._rows,
+                         (self._index + 1) * self._rows)
             logits, self.state = decode_step(
-                self.params, self.cfg, self.state,
-                torch.from_numpy(feed).to(self.device), live=live)
+                self.params, self.cfg, self.state, self._rows_of(feed),
+                live=live[mine], rt=self.rt)
             self._lengths += 1
-            self._logits = _host_logits(logits)
+            self._logits = self._all_logits(logits)
         return emitted
 
     def run_to_completion(self, max_steps: int = 10_000

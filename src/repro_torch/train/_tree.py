@@ -9,22 +9,25 @@ from __future__ import annotations
 from typing import Any, Callable
 
 
-def leaves(tree: Any) -> list:
-    """The tree's leaves in JAX's flatten order."""
+def leaves(tree: Any, tuples: bool = False) -> list:
+    """The tree's leaves in JAX's flatten order (with ``tuples``, a
+    tuple is a leaf: the trees of shapes and partition specs)."""
     out: list = []
-    _collect(tree, out)
+    _collect(tree, out, tuple if tuples else ())
     return out
 
 
-def _collect(tree: Any, out: list) -> None:
+def _collect(tree: Any, out: list, leaf_types) -> None:
     if tree is None:
         return
-    if isinstance(tree, dict):
+    if isinstance(tree, leaf_types):
+        out.append(tree)
+    elif isinstance(tree, dict):
         for key in sorted(tree):
-            _collect(tree[key], out)
+            _collect(tree[key], out, leaf_types)
     elif isinstance(tree, (list, tuple)):
         for node in tree:
-            _collect(node, out)
+            _collect(node, out, leaf_types)
     else:
         out.append(tree)
 

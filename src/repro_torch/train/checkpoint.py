@@ -21,11 +21,18 @@ Fault-tolerance contract (the drill of ``repro_torch.train.elastic``):
     place) and serializes on one background thread, at most one save in
     flight.
 
+On a mesh of ranks (``placements``: a tree of
+:class:`~repro_torch.launch.mesh.Placement` matching the saved tree),
+``save_checkpoint`` gathers each leaf's blocks into the full array of
+the reference's format (a collective: every rank calls it) and one rank
+writes; ``restore_checkpoint(placements=)`` reads the full arrays and
+cuts each rank's blocks for its mesh, which may differ from the one
+that saved (elastic restart; the reference's ``shardings=``).
+
 Deliberate differences: the manifest's ``"treedef"`` is the port's own
 text of the tree (JAX's ``PyTreeDef`` repr cannot be written without
 JAX; neither package's restore reads it), and ``restore_checkpoint``
-takes a ``device`` for the leaves in place of the reference's mesh
-``shardings`` (re-sharding onto a mesh waits for the four-card item).
+takes a ``device`` for the leaves without a mesh.
 """
 
 from __future__ import annotations
@@ -39,7 +46,9 @@ from typing import Any
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.launch.mesh import gather_tree, shard_tree
 from repro_torch.train._tree import describe, leaves, tree_map, unflatten
 
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -68,9 +77,33 @@ def _raw(t: torch.Tensor) -> tuple[np.ndarray, str]:
     return flat.view(torch.uint8).numpy(), _NAMES[t.dtype]
 
 
+def _mesh_of(placements: Any):
+    return leaves(placements)[0].mesh
+
+
+def _commit_point(mesh) -> None:
+    """Every rank of ``mesh`` waits here for the writer (an all-reduce
+    over the world)."""
+    flag = torch.zeros(1, device=mesh.device)
+    dist.all_reduce(flag)
+
+
 def save_checkpoint(directory: str | pathlib.Path, step: int, tree: Any,
-                    *, meta: dict | None = None) -> pathlib.Path:
-    """Atomic synchronous save; returns the committed directory."""
+                    *, meta: dict | None = None,
+                    placements: Any = None) -> pathlib.Path:
+    """Atomic synchronous save; returns the committed directory.  With
+    ``placements`` (a collective) the leaves' blocks are gathered, the
+    mesh's writer rank writes, and every rank returns once the
+    directory is committed."""
+    if placements is not None:
+        mesh = _mesh_of(placements)
+        full = gather_tree(tree, placements)
+        path = pathlib.Path(directory) / f"step_{step:08d}"
+        if mesh.is_writer:
+            path = save_checkpoint(directory, step, full, meta=meta)
+        if mesh.size > 1:
+            _commit_point(mesh)
+        return path
     directory = pathlib.Path(directory)
     final = directory / f"step_{step:08d}"
     tmp = directory / f".tmp_step_{step:08d}"
@@ -116,11 +149,13 @@ def latest_step(directory: str | pathlib.Path) -> int | None:
 
 def restore_checkpoint(directory: str | pathlib.Path, step: int,
                        example_tree: Any, *,
-                       device: str | torch.device = "cpu"
-                       ) -> tuple[Any, dict]:
+                       device: str | torch.device = "cpu",
+                       placements: Any = None) -> tuple[Any, dict]:
     """Restore ``step`` into the structure of ``example_tree`` (its
     leaves' values and dtypes are not read), each leaf a tensor of its
-    stored dtype and shape on ``device``; returns (tree, meta)."""
+    stored dtype and shape on ``device``, or, with ``placements``, this
+    rank's block of it on the placement's mesh (re-sharding onto a mesh
+    other than the one that saved); returns (tree, meta)."""
     path = pathlib.Path(directory) / f"step_{step:08d}"
     if not (path / "COMMITTED").exists():
         raise CheckpointCorruption(f"{path} has no COMMITTED sentinel")
@@ -139,11 +174,14 @@ def restore_checkpoint(directory: str | pathlib.Path, step: int,
                     f"{entry['dtype']!r}, which the port does not read")
             t = torch.from_numpy(raw.view(np.uint8).copy())
             t = t.view(dtype) if dtype != torch.bool else t.bool()
-            values.append(t.reshape(entry["shape"]).to(device))
+            t = t.reshape(entry["shape"])
+            values.append(t if placements is not None else t.to(device))
     try:
         tree = unflatten(example_tree, values)
     except ValueError as exc:
         raise CheckpointCorruption(f"{path}: {exc}") from None
+    if placements is not None:
+        tree = shard_tree(tree, placements)
     return tree, manifest["meta"]
 
 
@@ -161,14 +199,21 @@ class AsyncCheckpointer:
 
     ``maybe_save`` copies the tree to the host (blocking) before it
     returns, then serializes on a worker thread so the train loop keeps
-    stepping; ``wait()`` joins before process exit.
+    stepping; ``wait()`` joins before process exit.  With
+    ``placements`` (a mesh of ranks) ``maybe_save`` gathers the leaves'
+    blocks first (a collective: every rank calls it) and only the
+    mesh's writer rank serializes; ``wait()`` then returns on every rank
+    once the writer has committed.
     """
 
     def __init__(self, directory: str | pathlib.Path, *,
-                 every_steps: int = 100, keep: int = 3):
+                 every_steps: int = 100, keep: int = 3,
+                 placements: Any = None):
         self.directory = pathlib.Path(directory)
         self.every_steps = every_steps
         self.keep = keep
+        self.placements = placements
+        self._pending = False
         self._thread: threading.Thread | None = None
         self.saved_steps: list[int] = []
 
@@ -177,6 +222,12 @@ class AsyncCheckpointer:
         if step % self.every_steps != 0:
             return False
         self.wait()
+        if self.placements is not None:
+            tree = gather_tree(tree, self.placements)
+            self._pending = _mesh_of(self.placements).size > 1
+            if not _mesh_of(self.placements).is_writer:
+                self.saved_steps.append(step)
+                return True
         host_tree = tree_map(_host, tree)
 
         def work():
@@ -192,3 +243,6 @@ class AsyncCheckpointer:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._pending:
+            self._pending = False
+            _commit_point(_mesh_of(self.placements))

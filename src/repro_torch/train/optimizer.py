@@ -1,21 +1,32 @@
-"""AdamW with mixed-precision moments, as ``repro.train.optimizer``
-computes it: the same float32 arithmetic and cast points (bf16 or
-float32 moments, weight decay on tensors of two or more dims, the clip
-scale ``min(1, clip / max(norm, 1e-12))``, bias corrections from the
-step count as float32).
+"""AdamW with mixed-precision moments and ZeRO-2 moment sharding, as
+``repro.train.optimizer`` computes it: the same float32 arithmetic and
+cast points (bf16 or float32 moments, weight decay on tensors of two or
+more dims, the clip scale ``min(1, clip / max(norm, 1e-12))``, bias
+corrections from the step count as float32).
 
-  - ``adamw_init(params, cfg)`` → opt_state ``{"m", "v", "count"}``
-  - ``adamw_update(grads, opt_state, params, cfg)`` → (params, state,
-    metrics)
+  - ``adamw_init(params, cfg, specs=, placements=)`` → opt_state
+    ``{"m", "v", "count"}``
+  - ``adamw_update(grads, opt_state, params, cfg, placements=,
+    moments=)`` → (params, state, metrics)
+
+On a mesh of ranks (``placements``: each parameter leaf's
+:class:`~repro_torch.launch.mesh.Placement`) the gradients are the
+reduced ones, each rank holding the leaves' blocks as the parameters
+do; the clip's norm sums every block's squares over the axes the leaf
+is cut on.  ``zero_shard`` (ZeRO-2): each moment is cut over
+``"data"`` along the axis the reference's ``_zero_spec`` picks (the
+first axis its spec leaves unsharded that divides by the ``"data"``
+size; a leaf already over ``"data"``, as the routed experts, is left
+alone); a rank keeps its slice of such moments, updates its slice of
+the parameter and all-gathers the parameter over ``"data"``.  ZeRO on
+and off give the same bits.
 
 Deliberate differences from the reference: ``adamw_init`` returns the
-state alone (the reference also returns its partition specs, which
-need a mesh), and :class:`AdamWConfig` has no ``zero_shard`` (ZeRO-2
-moment sharding over a mesh of cards; passing it raises ``TypeError``):
-both wait for the four-card item (``ROADMAP.md``).  ``adamw_update``
-writes the new parameters and moments into the given tensors in place
-(one float32 leaf of scratch at a time instead of a second copy of the
-parameters and moments) and returns them.
+state alone (the moments' placements come from
+:func:`moment_placements`), and ``adamw_update`` writes the new
+parameters and moments into the given tensors in place (one float32
+leaf of scratch at a time instead of a second copy of the parameters
+and moments) and returns them.
 """
 
 from __future__ import annotations
@@ -25,8 +36,10 @@ import math
 from typing import Any
 
 import torch
+import torch.distributed as dist
 
-from repro_torch.train._tree import leaves, tree_map
+from repro_torch.launch.mesh import Placement, all_gather_axis, mesh_axes
+from repro_torch.train._tree import leaves, tree_map, unflatten
 
 
 @dataclasses.dataclass(frozen=True)
@@ -40,6 +53,7 @@ class AdamWConfig:
     warmup_steps: int = 100
     total_steps: int = 10_000
     moment_dtype: str = "float32"     # or "bfloat16" (1T-scale memory)
+    zero_shard: bool = False          # ZeRO-2 moment sharding over `data`
 
 
 def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
@@ -52,38 +66,120 @@ def lr_schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
     return cfg.lr * warm * cos
 
 
-def adamw_init(params: Any, cfg: AdamWConfig) -> dict:
-    """Zero moments of each parameter's shape in ``cfg.moment_dtype``
-    and a step count of 0 (int32), on the parameters' device."""
+def _zero_spec(spec: tuple, shape: tuple[int, ...], data_size: int
+               ) -> tuple:
+    """Shard the first unsharded, divisible axis over `data` (ZeRO-2).
+
+    A mesh axis may appear at most once per spec — tensors already
+    sharded over `data` (e.g. expert-parallel MoE weights) are left
+    unchanged."""
+    parts = list(spec) + [None] * (len(shape) - len(spec))
+    if any("data" in mesh_axes(p) for p in parts):
+        return tuple(parts)
+    for i, (p, dim) in enumerate(zip(parts, shape)):
+        if p is None and dim % data_size == 0 and dim >= data_size:
+            parts[i] = "data"
+            return tuple(parts)
+    return tuple(parts)
+
+
+def moment_placements(cfg: AdamWConfig, placements: Any, specs: Any,
+                      shapes: Any) -> Any:
+    """Each moment leaf's placement on the mesh of ``placements`` (the
+    parameters'): its parameter's, or, where ``cfg.zero_shard`` and
+    :func:`_zero_spec` of the leaf's reference spec (``specs``, the
+    tree of ``param_specs``) and full shape (``shapes``, of
+    ``param_shapes``) cut a whole leaf over ``"data"``, that cut."""
+    pls = leaves(placements)
+    mesh = pls[0].mesh
+    data = mesh.shape.get("data", 1)
+    if not cfg.zero_shard or data == 1:
+        return placements
+    out = []
+    for pl, spec, shape in zip(pls, leaves(specs, tuples=True),
+                               leaves(shapes, tuples=True)):
+        zero = _zero_spec(spec, shape, data)
+        padded = tuple(spec) + (None,) * (len(shape) - len(spec))
+        if pl.spec or zero == padded:
+            out.append(pl)
+        else:
+            out.append(Placement(mesh, tuple(
+                "data" if z == "data" else None for z in zero)))
+    return unflatten(placements, out)
+
+
+def adamw_init(params: Any, cfg: AdamWConfig, *, specs: Any = None,
+               placements: Any = None) -> dict:
+    """Zero moments in ``cfg.moment_dtype`` and a step count of 0
+    (int32), on the parameters' device: each moment of its parameter's
+    shape, or, on a mesh (``placements``, the parameters' placement
+    tree, and ``specs``, ``param_specs`` of the model) with
+    ``cfg.zero_shard``, of this rank's ZeRO slice
+    (:func:`moment_placements`)."""
     mdt = torch.bfloat16 if cfg.moment_dtype == "bfloat16" \
         else torch.float32
-
-    def zeros(x):
-        return torch.zeros(x.shape, dtype=mdt, device=x.device)
-
     count = torch.zeros((), dtype=torch.int32,
                         device=leaves(params)[0].device)
-    return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+    if placements is None:
+        def zeros(x):
+            return torch.zeros(x.shape, dtype=mdt, device=x.device)
+
+        return {"m": tree_map(zeros, params), "v": tree_map(zeros, params),
+                "count": count}
+    shapes = tree_map(lambda x, pl: pl.global_shape(tuple(x.shape)),
+                      params, placements)
+    mpl = moment_placements(cfg, placements, specs, shapes)
+
+    def zeros_on(x, pl, mp):
+        shape = mp.local_shape(pl.global_shape(tuple(x.shape)))
+        return torch.zeros(shape, dtype=mdt, device=x.device)
+
+    return {"m": tree_map(zeros_on, params, placements, mpl),
+            "v": tree_map(zeros_on, params, placements, mpl),
             "count": count}
 
 
-def global_norm(tree: Any) -> torch.Tensor:
+def global_norm(tree: Any, placements: Any = None) -> torch.Tensor:
     """sqrt of the float32 sum of squares, summed over the leaves in
-    flatten order."""
-    sq = sum(torch.sum(torch.square(x.float())) for x in leaves(tree))
+    flatten order; on a mesh (``placements``), the squares of the leaves
+    cut over mesh axes are summed over those axes' ranks first (each
+    set of axes as one sum)."""
+    if placements is None:
+        sq = sum(torch.sum(torch.square(x.float())) for x in leaves(tree))
+        return torch.sqrt(sq)
+    whole, cut = [], {}
+    for x, pl in zip(leaves(tree), leaves(placements)):
+        s = torch.sum(torch.square(x.float()))
+        axes = tuple(a for e in pl.spec for a in mesh_axes(e)
+                     if pl.mesh.shape[a] > 1)
+        (cut.setdefault(axes, []) if axes else whole).append(s)
+    mesh = leaves(placements)[0].mesh
+    sq = sum(whole) if whole else torch.zeros((), device=mesh.device)
+    for axes, parts in cut.items():
+        part = sum(parts)
+        for axis in axes:
+            dist.all_reduce(part, group=mesh.group(axis))
+        sq = sq + part
     return torch.sqrt(sq)
 
 
 @torch.no_grad()
-def adamw_update(grads: Any, state: dict, params: Any, cfg: AdamWConfig
+def adamw_update(grads: Any, state: dict, params: Any, cfg: AdamWConfig,
+                 placements: Any = None, moments: Any = None
                  ) -> tuple[Any, dict, dict]:
     """One AdamW step; returns (params, state, metrics) with the
     parameters and moments updated in place and a new count; metrics
-    ``lr`` and ``grad_norm`` are 0-d float32 tensors."""
+    ``lr`` and ``grad_norm`` are 0-d float32 tensors.  On a mesh
+    (``placements``) the gradients are the reduced ones in the
+    parameters' blocks; ``moments`` (:func:`moment_placements`; default
+    the parameters' placements) says which moments are ZeRO slices: a
+    moment cut over ``"data"`` where its parameter is not is this
+    rank's slice along that axis; the rank updates that slice and
+    all-gathers the parameter over ``"data"``."""
     count = state["count"] + 1
     count_f = count.float()
     lr = lr_schedule(cfg, count_f)
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads, placements)
     if cfg.grad_clip > 0:
         scale = torch.clamp(cfg.grad_clip / torch.clamp(gnorm, min=1e-12),
                             max=1.0)
@@ -106,9 +202,24 @@ def adamw_update(grads: Any, state: dict, params: Any, cfg: AdamWConfig
         m.copy_(m32)
         v.copy_(v32)
 
-    for args in zip(leaves(params), leaves(grads), leaves(state["m"]),
-                    leaves(state["v"])):
-        upd(*args)
+    pls = leaves(placements) if placements is not None \
+        else [None] * len(leaves(params))
+    mps = leaves(moments) if moments is not None else pls
+    for p, g, m, v, pl, mp in zip(leaves(params), leaves(grads),
+                                  leaves(state["m"]), leaves(state["v"]),
+                                  pls, mps):
+        if mp is None or mp.spec == pl.spec:
+            upd(p, g, m, v)
+            continue
+        # ZeRO-2: this rank's slice along the axis the moments cut
+        axis = tuple(mp.spec).index("data")
+        n = m.shape[axis]
+        mesh = pl.mesh
+        start = mesh.coord("data") * n
+        piece = p.narrow(axis, start, n).clone()
+        upd(piece, g.narrow(axis, start, n), m, v)
+        p.copy_(all_gather_axis(piece, mesh.group("data"),
+                                mesh.shape["data"], axis))
     metrics = {"lr": lr, "grad_norm": gnorm}
     return params, {"m": state["m"], "v": state["v"], "count": count}, \
         metrics

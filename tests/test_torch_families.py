@@ -333,10 +333,10 @@ def test_launcher_prints_the_reference_lines(arch, monkeypatch):
 
 def test_tied_embeddings_match_reference_and_ep_is_refused():
     """Tied embeddings (no config ties them) read the embedding's
-    transpose, as the reference does; the four-card expert-parallel MoE
-    path is the one setting the port refuses (every config initialises
-    and prefills: ``tests/test_torch_lm.py`` and
-    ``tests/test_torch_ssm.py``)."""
+    transpose, as the reference does; the expert-parallel MoE path
+    without a mesh of ranks is the one setting the port refuses (every
+    config initialises and prefills: ``tests/test_torch_lm.py`` and
+    ``tests/test_torch_ssm.py``; on a mesh: ``tests/test_torch_ep.py``)."""
     rcfg = dataclasses.replace(ref_get_config("tinyllama-1.1b").reduced(),
                                tie_embeddings=True)
     rparams, _ = ref_tf.init_params(rcfg, jax.random.PRNGKey(0))

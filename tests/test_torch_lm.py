@@ -37,6 +37,8 @@ from repro_torch.configs import ARCH_IDS, get_config
 from repro_torch.convert import lm_params_from_numpy
 from repro_torch.core import OrchestratorConfig, compile_power_schedule
 from repro_torch.launch import serve as launch_serve
+from repro_torch.launch.mesh import make_host_mesh
+from repro_torch.models import transformer as tf
 from repro_torch.models.edge_cnn import edge_network
 from repro_torch.models.transformer import (
     decode_step,
@@ -133,9 +135,10 @@ def test_init_params_shapes_and_seeded_draws():
 def test_families_other_than_dense_are_still_to_port():
     """None is left: every config of ``configs/`` (dense, moe with and
     without MLA, vlm, audio, hybrid, ssm) initialises and prefills on the
-    CPU; the four-card expert-parallel MoE path alone is refused
-    (``tests/test_torch_families.py`` holds the new families against the
-    reference)."""
+    CPU; the expert-parallel MoE path initialises as the reference's does
+    and runs on a mesh alone (``tests/test_torch_families.py`` holds the
+    new families against the reference, ``tests/test_torch_ep.py`` the
+    expert-parallel path)."""
     families = set()
     for arch in ARCH_IDS:
         cfg = get_config(arch).reduced()
@@ -149,10 +152,15 @@ def test_families_other_than_dense_are_still_to_port():
         assert list(state["lengths"]) == [4, 4]
         families.add(cfg.family)
     assert families == {"dense", "moe", "vlm", "audio", "hybrid", "ssm"}
+    ep = dataclasses.replace(get_config("deepseek-v2-lite-16b").reduced(),
+                             moe_impl="ep")
+    params = init_params(ep, torch.Generator().manual_seed(0), "cpu")
+    batch = {"tokens": torch.ones((2, 4), dtype=torch.int64)}
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        init_params(dataclasses.replace(
-            get_config("deepseek-v2-lite-16b").reduced(), moe_impl="ep"),
-            torch.Generator().manual_seed(0), "cpu")
+        prefill(params, ep, batch, 6)
+    logits, _ = prefill(params, ep, batch, 6,
+                        rt=tf.Runtime(make_host_mesh("cpu")))
+    assert bool(torch.isfinite(logits).all())
 
 
 # ---------------------------------------------------- prefill / decode

@@ -345,8 +345,8 @@ def test_hybrid_and_ssm_never_fill_a_cache():
 def test_families_still_to_port_are_refused():
     """No family is left to port: all ten configs of ``configs/``
     initialise and prefill, hymba with tied embeddings too (the
-    embedding's transpose is its head); only ``moe_impl="ep"``, which
-    shards experts over a mesh of cards, is refused."""
+    embedding's transpose is its head); only ``moe_impl="ep"`` without
+    a mesh of ranks to shard the experts over is refused."""
     from repro_torch.configs import ARCH_IDS
 
     for arch in ARCH_IDS:

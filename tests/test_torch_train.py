@@ -204,13 +204,14 @@ def test_adamw_update_matches_the_reference(moment_dtype):
 
 
 def test_adamw_config_and_schedule_match_the_reference():
-    """The port's AdamWConfig is the reference's without ``zero_shard``
-    (ZeRO-2 over a mesh: refused by name); the schedule's values."""
-    ref_fields = {f.name for f in dataclasses.fields(ref_opt.AdamWConfig)}
-    assert {f.name for f in dataclasses.fields(opt.AdamWConfig)} == \
-        ref_fields - {"zero_shard"}
-    with pytest.raises(TypeError, match="zero_shard"):
-        opt.AdamWConfig(zero_shard=True)
+    """The port's AdamWConfig has the reference's fields, ``zero_shard``
+    (ZeRO-2 over a mesh's ``"data"`` ranks) among them, with the same
+    defaults; the schedule's values."""
+    ref_fields = {f.name: f.default
+                  for f in dataclasses.fields(ref_opt.AdamWConfig)}
+    assert {f.name: f.default for f in dataclasses.fields(
+        opt.AdamWConfig)} == ref_fields
+    assert opt.AdamWConfig(zero_shard=True).zero_shard
     rc = ref_opt.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=20)
     pc = opt.AdamWConfig(lr=3e-3, warmup_steps=5, total_steps=20)
     for step in (0, 1, 4, 5, 6, 13, 20, 25):
