@@ -254,7 +254,11 @@ NVIDIA GPU:
      port: paths, energies and times equal, every deadline met, energy
      against the all-max static assignment; then the card's power draw
      (``nvidia-smi`` every 100 ms) idle, under a bf16 GEMM loop and under
-     a device-copy loop, beside the chip model's nominal powers;
+     a device-copy loop, beside the chip model's nominal powers; and
+     ``DRYRUN_POD_CELLS`` on the production meshes ``pod16x16`` and
+     ``pod2x16x16`` (rank 0's step on an abstract mesh: per-device
+     peak, fits one card, the port's own collectives by op, kimi-k2's
+     train cell with ZeRO);
  14. mesh phase, the port over a mesh of ``torch.distributed`` ranks:
      NCCL in a world of one (its version printed; deepseek-v2-lite at
      full width cut to ``MESH_NCCL_LAYERS``, float32, ``moe_impl="ep"``
@@ -263,7 +267,8 @@ NVIDIA GPU:
      drops nothing, for the native and the int8 wire; the (token,
      choice) pairs that drop at the configuration's 1.25; one train step
      (EP, ZeRO on) against the dense one; the MoE block's events beside
-     the dense block's.  Then four gloo ranks spawned on the card (the
+     the dense block's; the tensor-parallel path runs there over groups
+     of one (every logged collective of size 1).  Then four gloo ranks spawned on the card (the
      process groups' timeout and each join ``MESH_TIMEOUT_S``; a rank's
      exception fails the phase): which of the port's collectives gloo
      takes on CUDA tensors; ``compressed_psum`` on CUDA against CPU
@@ -274,8 +279,16 @@ NVIDIA GPU:
      refilled mid-batch), the same tokens on every rank; (b) tinyllama-1.1b
      cut to ``MESH_DP_LAYERS`` on a ``"data"`` mesh of 4 with ZeRO-2
      against one process, ZeRO on and off bit for bit, a rank's moment
-     bytes; (c) 4 ranks crash after step 7 and 2 ranks resume, against
-     the clean 4-rank run.  Launch counts are set to 0 just before the
+     bytes; (d) tensor parallelism: tinyllama-1.1b cut to
+     ``MESH_TP_LAYERS`` on (1,4) (8 query heads over one KV head a rank)
+     and (2,2) against rank 0's one process (prefill and decode logits,
+     the loss, the reduced gradients gathered; ``ServingEngine(rt)``'s
+     tokens), then on (2,2) one train, prefill and decode step of
+     tinyllama and deepseek-v2-lite (EP) each with its collectives
+     logged, every rank's log and held bytes equal to the dry-run
+     counter's on an abstract (2,2) mesh; (a) runs EP with tensor
+     parallelism (MLA's 8 heads a rank); (c) 4 ranks crash after step 7
+     and 2 ranks resume, against the clean 4-rank run.  Launch counts are set to 0 just before the
      EP runs and read just after: the prefill, backward and MLA-decode
      kernels must launch.  gloo stages CUDA tensors through host memory:
      its times are no performance figure;
@@ -324,7 +337,7 @@ spills) and runs the training phase; it prints the ``kernels`` line
 with the backward's row and no result line.  ``python3 chip_smoke.py
 --dryrun`` builds the prefill bf16, decode and rail-sweep libraries and
 runs the dryrun phase; it prints no result line.  ``python3
-chip_smoke.py --mesh`` builds the prefill, backward and MLA-decode
+chip_smoke.py --mesh`` builds the prefill, backward, decode and MLA-decode
 libraries and runs the mesh phase; it prints no result line.  Run from
 a ``git
 archive`` of another commit, this script times that commit's kernels
@@ -333,6 +346,7 @@ archive`` of another commit, this script times that commit's kernels
 
 from __future__ import annotations
 
+import collections
 import concurrent.futures
 import contextlib
 import dataclasses
@@ -1024,6 +1038,10 @@ ATTENTION_SHAPES = (
     (2, 16, 4, 1000, 1000, 64, False, "float32"),
     (1, 4, 2, 100, 60, 64, True, "float32"),
     (1, 8, 2, 300, 170, 128, True, "float32"),
+    # tensor parallelism's local heads: tinyllama-1.1b on "model" = 4, 8
+    # query heads over one KV head
+    (16, 8, 1, 1024, 1024, 64, True, "bfloat16"),
+    (16, 8, 1, 1024, 1024, 64, True, "float32"),
 )
 # the rows whose back-to-back time is printed too: the serving shapes
 SERVING_ROWS = 2
@@ -1045,6 +1063,9 @@ DECODE_SHAPES = (
     (3, 777, 8, 8, 64, "bfloat16", True),
     (2, 1500, 2, 32, 64, "bfloat16", True),
     (3, 300, 1, 12, 48, "float32", True),
+    # tensor parallelism's local heads (tinyllama-1.1b on "model" = 4)
+    (16, 2048, 1, 8, 64, "bfloat16", False),
+    (16, 2048, 1, 8, 64, "float32", False),
 )
 ATTN_TOL = {"float32": 3e-5, "bfloat16": 2e-2}
 
@@ -1446,6 +1467,9 @@ FAMILY_PREFILL_SHAPES = (
      (2, 20, 20, 1500, 1500, 64, False, "float32")),
     ("flash_attention_cross", (2, 20, 20, 448, 1500, 64, False, "bfloat16")),
     ("flash_attention_kimi", (2, 64, 8, 512, 512, 112, True, "bfloat16")),
+    # tensor parallelism's local heads: deepseek-v2-lite on "model" = 2
+    ("flash_attention_mla", (2, 8, 8, 1024, 1024, 192, True, "bfloat16")),
+    ("flash_attention_mla_f32", (2, 8, 8, 1024, 1024, 192, True, "float32")),
 )
 # (b, s, h, dtype, lengths): MLA's absorbed decode (16 query heads of one
 # latent head, keys of 512 + 64, values of 512) at batch 16 over a
@@ -1470,6 +1494,10 @@ MLA_DECODE_SHAPES = (
     (6, 1001, 32, "float32", MLA_EDGE_LENGTHS + (1001,)),
     (2, 1, 16, "bfloat16", (0, 1)),
     (2, 1, 16, "float32", (0, 1)),
+    # tensor parallelism's local heads (deepseek-v2-lite on "model" = 2):
+    # 8 heads, half of the CTA's 16 rows padding
+    (16, 2048, 8, "bfloat16", None),
+    (16, 2048, 8, "float32", None),
 )
 # (b, s, h, kh, d, dtype): whisper's cross-attention decode, every
 # query reads all 1500 encoder rows (group 1)
@@ -3298,10 +3326,10 @@ def audio_phase() -> dict:
                           "made causal")
             inner, spent = tf._encode_audio, [0.0]
 
-            def timed(*args):
+            def timed(*args, **kwargs):
                 torch.cuda.synchronize()
                 t0 = time.perf_counter()
-                out = inner(*args)
+                out = inner(*args, **kwargs)
                 torch.cuda.synchronize()
                 spent[0] += time.perf_counter() - t0
                 return out
@@ -3393,6 +3421,11 @@ BWD_SHAPES = (
     ("edge", (1, 10, 2, 300, 300, 64, True, 0, 1, "float32")),
     ("edge", (1, 10, 2, 300, 1000, 48, True, 700, 333, "bfloat16")),
     ("edge", (1, 10, 2, 300, 1000, 96, True, 700, 333, "float32")),
+    # tensor parallelism's local heads: tinyllama-1.1b on "model" = 4,
+    # deepseek-v2-lite's MLA on "model" = 2
+    ("tp tinyllama", (8, 8, 1, 2048, 2048, 64, True, 0, 0, "bfloat16")),
+    ("tp tinyllama", (8, 8, 1, 2048, 2048, 64, True, 0, 0, "float32")),
+    ("tp mla", (2, 8, 8, 1024, 1024, 192, True, 0, 0, "bfloat16")),
 )
 # float32: within 1e-4 x the largest |gradient| of the three (sums in
 # another order); bf16: the kernel's error against the float32 plain
@@ -5660,6 +5693,26 @@ MESH_LOSS_TOL = 1e-5                # relative
 MESH_GRAD_TOL = 1e-4                # x max |g|, each leaf
 MESH_PARAM_TOL = 1e-4               # x max |p|, each leaf
 MESH_DRILL_TOL = 1e-5               # relative, the reference drill's
+# (d) tensor parallelism in the four-rank world: tinyllama-1.1b at full
+# width cut to MESH_TP_LAYERS, float32, on each mesh of MESH_TP_MESHES
+# against one process: a prefill of (rows, tokens) and decode steps
+# (logits within MESH_LOGIT_TOL), a train batch of (rows, tokens) (loss
+# within MESH_LOSS_TOL, gathered gradients within MESH_GRAD_TOL), the
+# engine's tokens (identical); then on (2,2) the exact-count cells of
+# (rows, tokens): tinyllama (MESH_TP_LAYERS) and deepseek-v2-lite
+# (MESH_EP_LAYERS, expert parallelism), each rank's logged collectives
+# and held bytes equal to the dry-run counter's on an abstract (2,2)
+# mesh, exactly
+MESH_TP_LAYERS = 4
+MESH_TP_MESHES = ((1, 4), (2, 2))
+MESH_TP_PARITY = (4, 512, 8)
+MESH_TP_TRAIN = (4, 256)
+MESH_TP_EXACT = (4, 16)
+#: (d)'s models: arch → config overrides (full width, float32)
+MESH_TP_CONFIGS = {ARCH: {"dtype": "float32", "n_layers": MESH_TP_LAYERS},
+                   DEEPSEEK: {"dtype": "float32",
+                              "n_layers": MESH_EP_LAYERS,
+                              "moe_impl": "ep", "remat": False}}
 MESH_COLLECTIVES = ("all_reduce SUM", "all_reduce MAX",
                     "all_gather_into_tensor", "all_to_all_single",
                     "broadcast")
@@ -5733,9 +5786,13 @@ def mesh_nccl(root: pathlib.Path) -> dict:
     import torch.distributed as dist
 
     from repro_torch.data.pipeline import make_global_batch
-    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.launch.mesh import log_collectives, make_mesh
     from repro_torch.models import moe
-    from repro_torch.models.transformer import Runtime, layer_params
+    from repro_torch.models.transformer import (
+        Runtime,
+        layer_params,
+        tp_plan,
+    )
     from repro_torch.train.optimizer import AdamWConfig, adamw_init
     from repro_torch.train.trainer import (
         TrainConfig,
@@ -5769,8 +5826,22 @@ def mesh_nccl(root: pathlib.Path) -> dict:
         for wire in ("native", "int8"):
             ep = dataclasses.replace(cfg, capacity_factor=cf,
                                      moe_dispatch_dtype=wire)
-            got, _ = _path(ep, params, batch, length + steps, steps,
-                           [moe_routes(replay=routes)], feed=fed, rt=rt)
+            with log_collectives() as log:
+                got, _ = _path(ep, params, batch, length + steps, steps,
+                               [moe_routes(replay=routes)], feed=fed, rt=rt)
+            if wire == "native":
+                plan = tp_plan(ep, rt)
+                kinds = collections.Counter(k for k, _, _ in log)
+                print(f"mesh nccl: tensor parallelism over groups of one "
+                      f"(attention {plan.attn}, shared experts "
+                      f"{plan.shared}, vocab {plan.vocab}): {dict(kinds)} "
+                      f"over groups of {sorted({g for _, g, _ in log})}",
+                      flush=True)
+                check(plan.attn and plan.shared and plan.vocab
+                      and kinds["all-reduce"] > 0
+                      and {g for _, g, _ in log} == {1},
+                      "the world of one did not run the tensor-parallel "
+                      "path over groups of one")
             err = _rel(want, got)
             limit = MESH_LOGIT_TOL if wire == "native" \
                 else MESH_INT8_STEPS * cfg.n_layers
@@ -6092,11 +6163,7 @@ def _dp_rank(rank: int, mesh) -> dict:
     from repro_torch.configs import get_config
     from repro_torch.data import DataConfig, SyntheticLMStream
     from repro_torch.launch.mesh import shard_tree
-    from repro_torch.models.transformer import (
-        Runtime,
-        init_params,
-        param_specs,
-    )
+    from repro_torch.models.transformer import Runtime, init_params
     from repro_torch.train._tree import leaves
     from repro_torch.train.optimizer import AdamWConfig, adamw_init
     from repro_torch.train.trainer import (
@@ -6125,7 +6192,6 @@ def _dp_rank(rank: int, mesh) -> dict:
             pl = train_placements(cfg, tcfg, runtime)
             params = shard_tree(params, pl["params"])
             state = adamw_init(params, tcfg.optimizer,
-                               specs=param_specs(cfg),
                                placements=pl["params"])
         step = make_train_step(cfg, tcfg, runtime)
         losses, walls = [], []
@@ -6185,9 +6251,167 @@ def _drill_rank(rank: int, ckpt: str, shape: tuple, crash_at) -> dict:
     return {"history": res["history"], "resumed_from": res["resumed_from"]}
 
 
+def _held(*trees) -> int:
+    """Bytes of the distinct storages under ``trees``."""
+    from repro_torch.launch._count import tensors_of
+
+    seen = {}
+    for t in tensors_of(trees):
+        st = t.untyped_storage()
+        seen[st.data_ptr(), st.nbytes()] = st.nbytes()
+    return sum(seen.values())
+
+
+def _tp_exact(rank: int, mesh) -> dict:
+    """(d) on (2,2): one train, prefill and decode step of each
+    MESH_TP_CONFIGS model at MESH_TP_EXACT, each under a collective log:
+    {(arch, kind): (log, bytes held)}."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.launch import dryrun
+    from repro_torch.launch.mesh import log_collectives, shard_tree
+    from repro_torch.models import transformer as tf
+    from repro_torch.train.optimizer import adamw_init
+    from repro_torch.train.trainer import TrainConfig, make_train_step
+
+    rt = tf.Runtime(mesh)
+    rows, seq = MESH_TP_EXACT
+    out = {}
+    for arch, overrides in MESH_TP_CONFIGS.items():
+        cfg = dataclasses.replace(get_config(arch), **overrides)
+        pls = tf.param_placements(cfg, rt)
+        params = shard_tree(tf.init_params(
+            cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE), pls)
+        ocfg = dryrun.train_optimizer(cfg, mesh)
+        opt = adamw_init(params, ocfg, placements=pls)
+        host = _lm_batch(cfg.vocab_size, rows, seq, 5)
+        step = make_train_step(cfg, TrainConfig(optimizer=ocfg), rt)
+        held = _held(params, opt)       # the step cuts its rows from host
+        with log_collectives() as log:
+            step(params, opt, host)
+        out[arch, "train"] = (list(log), held)
+        del opt
+        batch = make_global_batch(host, mesh)
+        batch.pop("labels")
+        held = _held(params, batch)
+        with torch.no_grad(), log_collectives() as log:
+            tf.prefill(params, cfg, batch, cache_len=seq, rt=rt)
+        out[arch, "prefill"] = (list(log), held)
+        with torch.no_grad():
+            _, state = tf.prefill(params, cfg,
+                                  {"tokens": batch["tokens"][:, :4]},
+                                  cache_len=seq, rt=rt)
+            tokens = batch["tokens"][:, 0].contiguous()
+            held = _held(params, state, tokens)
+            with log_collectives() as log:
+                tf.decode_step(params, cfg, state, tokens,
+                               live=[True] * tokens.shape[0], rt=rt)
+        out[arch, "decode"] = (list(log), held)
+        del params, state
+        _free()
+    return out
+
+
+def tp_counted() -> dict:
+    """The dry-run counter's collectives and argument bytes of the
+    ``_tp_exact`` cells on an abstract (2,2) mesh (``meta``, this
+    process)."""
+    from repro_torch.configs import ShapeCell
+    from repro_torch.launch import dryrun
+
+    rows, seq = MESH_TP_EXACT
+    out = {}
+    for arch, overrides in MESH_TP_CONFIGS.items():
+        for kind in ("train", "prefill", "decode"):
+            res = dryrun.count_cell(arch, ShapeCell(kind, seq, rows, kind),
+                                    overrides, "pod2x2")
+            out[arch, kind] = (res["collective_log"],
+                               res["memory"]["argument_bytes"])
+    return out
+
+
+def _tp_rank(rank: int) -> dict:
+    """(d) tensor parallelism: tinyllama-1.1b (full width,
+    MESH_TP_LAYERS, float32) on each mesh of MESH_TP_MESHES against rank
+    0's one process: prefill and decode logits (gathered over the batch
+    axes and the vocab), the loss and the gathered, reduced gradients of
+    one batch, the serving engine's tokens; then ``_tp_exact``."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.launch.mesh import (
+        batch_axes,
+        gather_tree,
+        make_mesh,
+        shard_tree,
+    )
+    from repro_torch.models import transformer as tf
+    from repro_torch.train._tree import leaves, unflatten
+    from repro_torch.train.trainer import reduce_grads, value_and_grad
+
+    cfg = dataclasses.replace(get_config(ARCH), **MESH_TP_CONFIGS[ARCH])
+    full = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                          DEVICE)
+    n, length, steps = MESH_TP_PARITY
+    toks = _tokens(cfg, n, length)
+    feed = _tokens(cfg, steps, n, seed=3)
+    host = _lm_batch(cfg.vocab_size, *MESH_TP_TRAIN, 4)
+    want = None
+    if rank == 0:
+        want, _ = _path(cfg, full, {"tokens": toks}, length + steps, steps,
+                        [], feed=feed)
+        loss_1, grads_1 = value_and_grad(
+            full, cfg, {k: torch.from_numpy(v).to(DEVICE)
+                        for k, v in host.items()})
+        engine_1 = _engine_rank(cfg, full, tf.Runtime())["tokens"]
+    out = {}
+    for shape in MESH_TP_MESHES:
+        tic = time.perf_counter()
+        mesh = make_mesh(shape, device=DEVICE)
+        rt = tf.Runtime(mesh)
+        pl = tf.param_placements(cfg, rt)
+        params = shard_tree(full, pl)
+        plan = tf.tp_plan(cfg, rt)
+        have = (batch_axes(mesh), "model" if plan.vocab else None)
+
+        def rows(t):
+            return make_global_batch({"t": t}, mesh)["t"]
+
+        _reset_counts()
+        got, _ = _path(cfg, params, {"tokens": rows(toks)}, length + steps,
+                       steps, [], feed=[rows(t) for t in feed], rt=rt)
+        got = [tf.constrain(x, rt, None, None, have=have) for x in got]
+        loss, grads = value_and_grad(params, cfg,
+                                     make_global_batch(host, mesh), rt)
+        grads = reduce_grads(grads, pl)
+        g_full = leaves(gather_tree(unflatten(params, grads), pl))
+        res = {"counts": _counts(),
+               "heads": (cfg.n_heads // plan.size, plan.kv_heads(cfg)),
+               "engine": _engine_rank(cfg, params, rt)}
+        del grads
+        if rank == 0:
+            res["logits"] = _rel(want, got)
+            res["loss"] = abs(float(loss) - float(loss_1)) \
+                / abs(float(loss_1))
+            res["grads"] = _grad_err(g_full, grads_1)
+            res["engine_one"] = engine_1
+        del got, g_full, params
+        _free()
+        res["s"] = time.perf_counter() - tic
+        out[shape] = res
+        if shape == (2, 2):
+            del full
+            _free()
+            out["exact"] = _tp_exact(rank, mesh)
+    return out
+
+
 def _main_rank(rank: int, ckpt: str) -> dict:
     """The four-rank world's work in order: the collectives gloo takes,
-    the compressed all-reduce, (a), (b) and the clean drill."""
+    the compressed all-reduce, (a), (b), (d) and the clean drill."""
     from repro_torch.launch.mesh import make_mesh
 
     _card_rank()
@@ -6202,6 +6426,10 @@ def _main_rank(rank: int, ckpt: str) -> dict:
     out["dp"] = _dp_rank(rank, mesh)
     _free()
     out["dp_s"] = time.perf_counter() - tic
+    tic = time.perf_counter()
+    out["tp"] = _tp_rank(rank)
+    _free()
+    out["tp_s"] = time.perf_counter() - tic
     out["clean"] = _drill_rank(rank, ckpt, (4, 1), None)
     return out
 
@@ -6283,6 +6511,7 @@ def mesh_gloo(root: pathlib.Path) -> dict:
           "ZeRO on and off give different parameters")
     check(all(on < off for on, off in moments),
           "ZeRO-2 did not shrink a rank's moments")
+    tp_check(main, first)
     total, crash_at, every = MESH_DRILL
     ckpt = root / "drill_ckpt"
     crashed = spawn_world(_drill_rank, 4, root / "crash", str(ckpt), (4, 1),
@@ -6302,6 +6531,53 @@ def mesh_gloo(root: pathlib.Path) -> dict:
           "the mesh-change drill diverged")
     print(f"phase mesh gloo: {time.perf_counter() - tic:.3f} s", flush=True)
     return first["ep"]["counts"]
+
+
+def tp_check(main: list, first: dict) -> None:
+    """(d)'s lines and checks: parity with one process, the engine, the
+    local heads' launches, and the collectives and held bytes against
+    the dry-run counter's."""
+    n, length, steps = MESH_TP_PARITY
+    for shape in MESH_TP_MESHES:
+        res = first["tp"][shape]
+        engines = [r["tp"][shape]["engine"] for r in main]
+        tokens = engines[0]["tokens"]
+        q, kv = res["heads"]
+        print(f"mesh gloo (d): {ARCH} {MESH_TP_LAYERS} layers float32 on "
+              f"{shape}, {q} query heads over {kv} KV head(s) a rank: "
+              f"prefill {n} x {length} + {steps} decode steps, max "
+              f"|dlogits| / max |logits| {res['logits']!r} (limit "
+              f"{MESH_LOGIT_TOL}); loss rel err {res['loss']!r} (limit "
+              f"{MESH_LOSS_TOL}); gradients max |dg| / max |g| "
+              f"{res['grads']!r} (limit {MESH_GRAD_TOL}); engine tokens "
+              f"{json.dumps(tokens)}, the same on every rank "
+              f"{all(e['tokens'] == tokens for e in engines)} and as one "
+              f"process {tokens == res['engine_one']}; launches by rank "
+              f"{json.dumps([r['tp'][shape]['counts'] for r in main])}; "
+              f"{res['s']:.3f} s (gloo: no performance figure)", flush=True)
+        check(res["logits"] <= MESH_LOGIT_TOL
+              and res["loss"] <= MESH_LOSS_TOL
+              and res["grads"] <= MESH_GRAD_TOL,
+              f"tensor parallelism on {shape} differs from one process")
+        check(all(e["tokens"] == tokens and not e["truncated"]
+                  for e in engines) and tokens == res["engine_one"],
+              f"the tensor-parallel engine on {shape} served other tokens")
+        check(all(r["tp"][shape]["counts"][name] > 0 for r in main
+                  for name in ("flash_attention", "flash_decode",
+                               "flash_attention_bwd")),
+              f"a rank of {shape} launched no attention kernel at its "
+              "local head counts")
+    want = tp_counted()
+    for key, (log, held) in sorted(want.items()):
+        got = [r["tp"]["exact"][key] for r in main]
+        kinds = collections.Counter(k for k, _, _ in log)
+        print(f"mesh gloo (d) exact: {key[0]} {key[1]} on (2,2): "
+              f"{len(log)} collectives {dict(kinds)}, "
+              f"{sum(b for _, _, b in log)} B; every rank's log equal "
+              f"{all(g[0] == log for g in got)}; held bytes {held} equal "
+              f"{all(g[1] == held for g in got)}", flush=True)
+        check(all(g[0] == log and g[1] == held for g in got),
+              f"the dry-run counter's {key} differs from the ranks'")
 
 
 def mesh_phase() -> None:
@@ -6324,13 +6600,13 @@ def mesh_phase() -> None:
 
 
 def mesh_only() -> int:
-    """``--mesh``: build the prefill, backward and MLA-decode libraries
-    and run the mesh phase; no result line."""
+    """``--mesh``: build the prefill, backward, decode and MLA-decode
+    libraries and run the mesh phase; no result line."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
 
     libs = (fa.LIBRARY, fa.WGMMA_LIBRARY, fa.BWD_LIBRARY,
-            fa.BWD_WGMMA_LIBRARY, fd.MLA_LIBRARY)
+            fa.BWD_WGMMA_LIBRARY, fd.LIBRARY, fd.MLA_LIBRARY)
     tic = time.perf_counter()
     with concurrent.futures.ThreadPoolExecutor(len(libs)) as pool:
         for path in pool.map(lambda lib: lib.build(), libs):
@@ -6359,6 +6635,13 @@ ADAPTER_SLACK = (1.2, 2.0, 4.0)
 POWER_SECONDS = 3.0            # each power condition, sampled every 100 ms
 POWER_GEMM = 8192              # bf16 GEMM of POWER_GEMM^3
 POWER_COPY_BYTES = 4 << 30     # device-to-device copy
+#: the cells dry-run on the production meshes (every cell of them is
+#: counted on the CPU: PERF.md); kimi-k2's train cell takes ZeRO.  Their
+#: passes run in this process: a spawned one costs more than they do
+DRYRUN_POD_CELLS = (("tinyllama-1.1b", "decode_32k"),
+                    ("tinyllama-1.1b", "train_4k"),
+                    ("deepseek-v2-lite-16b", "train_4k"),
+                    ("kimi-k2-1t-a32b", "train_4k"))
 
 
 def dryrun_cells() -> dict:
@@ -6397,7 +6680,43 @@ def dryrun_cells() -> dict:
               flush=True)
     print(f"dryrun: {len(cells)} cells in {wall:.3f} s on {DRYRUN_JOBS} "
           "processes", flush=True)
+    pod_cells(roofline)
     return {(r["arch"], r["shape"]): r for r in records}
+
+
+def pod_cells(roofline) -> None:
+    """DRYRUN_POD_CELLS on both production meshes: rank 0's step on an
+    abstract mesh, per device, with the port's own collectives."""
+    from repro_torch.launch import dryrun
+
+    tic = time.perf_counter()
+    meshes = ("pod16x16", "pod2x16x16")
+    records = dryrun.run_cells(list(DRYRUN_POD_CELLS), force=True,
+                               meshes=meshes)
+    for rec in records:
+        name = f"{rec['arch']} {rec['shape']} {rec['mesh']}"
+        check(rec["status"] == "OK",
+              f"dry-run {name}: {rec['status']} {rec.get('error', '')} "
+              f"{rec.get('traceback', '')}")
+        row = roofline.analyze_record(rec)
+        coll = rec["collectives_raw"]
+        print(f"dryrun pod cell: {name}: per device peak "
+              f"{row['peak_gib']:.2f} GiB fits "
+              f"{'yes' if row['fits_hbm'] else 'NO'}; collectives "
+              f"{json.dumps(coll['counts'])} "
+              f"{json.dumps(coll['bytes_per_device_by_op'])} B; layer-"
+              f"differenced {rec['cost']['collective_bytes_per_device']} "
+              f"B; compute {row['t_compute_s']:.6f} s memory "
+              f"{row['t_memory_s']:.6f} s collective "
+              f"{row['t_collective_s']:.6f} s; {rec['cost']['method']}",
+              flush=True)
+        check(coll["bytes_per_device_total"] > 0,
+              f"dry-run {name} counted no collective")
+        zero = rec["arch"] == "kimi-k2-1t-a32b"
+        check(("ZeRO" in rec["cost"]["method"]) == zero,
+              f"dry-run {name}: ZeRO where the reference has it not")
+    print(f"dryrun: {len(records)} production-mesh records in "
+          f"{time.perf_counter() - tic:.3f} s", flush=True)
 
 
 def dryrun_step() -> None:

@@ -69,20 +69,30 @@ class SyntheticLMStream:
             step += 1
 
 
+def batch_axis(key: str, x) -> int:
+    """The batch axis of array ``key`` of a batch: the first, but the
+    second of ``"positions"`` (the vlm family's M-RoPE grids ``[3, B,
+    S]``)."""
+    return 1 if key == "positions" and x.ndim == 3 else 0
+
+
 def make_global_batch(host_batch: dict, mesh: CardMesh) -> dict:
     """This rank's rows of a host batch (numpy arrays or tensors) as
-    tensors on its device: the first axis split over the mesh's
+    tensors on its device: the batch axis split over the mesh's
     ``("pod", "data")`` axes (row-major) when it divides by their
-    product, and whole otherwise."""
+    product, and whole otherwise; its batch axis is
+    :func:`batch_axis`'s."""
     axes = batch_axes(mesh)
     n = 1
     for a in axes:
         n *= mesh.shape[a]
 
-    def put(x):
+    def put(key, x):
         if not isinstance(x, torch.Tensor):
             x = torch.from_numpy(np.ascontiguousarray(x))
-        spec = (axes,) if x.dim() and x.shape[0] % n == 0 else ()
+        axis = batch_axis(key, x)
+        spec = ((None,) * axis + (axes,)
+                if x.dim() and x.shape[axis] % n == 0 else ())
         return Placement(mesh, spec).shard(x)
 
-    return {k: put(v) for k, v in host_batch.items()}
+    return {k: put(k, v) for k, v in host_batch.items()}

@@ -36,6 +36,14 @@ value computed) is counted three ways:
     alive before the run (the step's arguments) are entered with
     :meth:`CostCounter.hold`.
 
+**Collectives** (on an abstract mesh, where the port's collectives are
+logged and not made: :func:`repro_torch.launch.mesh.log_collectives`)
+are kept apart from the aten counts: ``collectives`` lists each one's
+``(kind, group size, operand bytes)`` in call order, and
+:func:`collective_totals` sums them in the reference's schema (operand
+bytes per device, by the reference's op names).  A collective moves no
+HBM bytes in ``bytes``.
+
 Operations that touch no ``meta`` tensor (a host scalar such as a
 rounded ``1/sqrt(d)``) pass through uncounted.  An operation that
 neither writes an input nor returns an alias is run once per distinct
@@ -55,6 +63,7 @@ from torch.utils._python_dispatch import TorchDispatchMode
 from torch.utils.flop_counter import flop_registry
 
 from repro_torch.kernels import _meta
+from repro_torch.launch.mesh import log_collectives
 
 _EMPTY = frozenset({"aten::empty", "aten::empty_like", "aten::empty_strided",
                     "aten::new_empty", "aten::new_empty_strided"})
@@ -149,7 +158,8 @@ class CostCounter(TorchDispatchMode):
     ``flops`` and ``bytes`` are the totals; ``kernels`` maps each
     hand-written kernel's name to its ``[calls, flops, bytes]``;
     ``live`` and ``peak`` are bytes of ``meta`` storages, with the
-    storages given to :meth:`hold` counted from the start.
+    storages given to :meth:`hold` counted from the start;
+    ``collectives`` the collectives logged inside it.
     """
 
     def __init__(self):
@@ -163,6 +173,8 @@ class CostCounter(TorchDispatchMode):
         self._storages: dict[int, int] = {}
         self._ops: dict = {}
         self._cache: dict = {}
+        self.collectives: list = []
+        self._log = None
 
     # ---- memory -------------------------------------------------------
 
@@ -202,12 +214,15 @@ class CostCounter(TorchDispatchMode):
 
     def __enter__(self):
         _meta.push(self)
+        self._log = log_collectives()
+        self.collectives = self._log.__enter__()
         return super().__enter__()
 
     def __exit__(self, *exc):
         try:
             return super().__exit__(*exc)
         finally:
+            self._log.__exit__(None, None, None)
             _meta.pop(self)
 
     # ---- aten operations ----------------------------------------------
@@ -276,6 +291,22 @@ class CostCounter(TorchDispatchMode):
             read += sum(_size(t) for t in written_args
                         if isinstance(t, torch.Tensor))
         return flops, read + sum(_size(t) for t in outs)
+
+
+def collective_totals(log: list) -> dict:
+    """A log of ``(kind, group size, operand bytes)`` in the reference's
+    ``collectives_raw`` schema: operand bytes per device by op,
+    ``counts`` by op, and their total.  A group of one rank exchanges
+    nothing and counts nothing."""
+    by_op: dict[str, float] = {}
+    counts: dict[str, int] = {}
+    for kind, size, nbytes in log:
+        if size <= 1:
+            continue
+        by_op[kind] = by_op.get(kind, 0.0) + float(nbytes)
+        counts[kind] = counts.get(kind, 0) + 1
+    return {"bytes_per_device_by_op": by_op, "counts": counts,
+            "bytes_per_device_total": float(sum(by_op.values()))}
 
 
 def _shares_storage(out, ins: list) -> bool:

@@ -11,32 +11,47 @@ coordinates.  :func:`make_host_mesh` is the degenerate ``(1, 1)`` mesh
 of one card with no process group, which the dry-run's specs place
 every tensor on whole.
 
-A :class:`Placement` is the counterpart of a ``NamedSharding``: a mesh
-and a spec (one entry a tensor axis: ``None``, an axis name, or a
-tuple of axis names) that say which block of a full tensor this rank
-holds.
+:func:`make_production_mesh` is the reference's production mesh,
+``(16, 16)`` over ``("data", "model")`` or ``(2, 16, 16)`` over
+``("pod", "data", "model")``, as an *abstract* mesh
+(:func:`abstract_mesh`): no process group, this rank at coordinate 0
+of every axis, device ``meta``.  The dry-run builds one rank's step on
+it.  Its groups are :class:`AbstractGroup`\\ s, never ``None``: an
+abstract mesh of 256 is never taken for one card.
 
-The collectives that need their own backward are
+A :class:`Placement` is the counterpart of a ``NamedSharding``: a mesh
+and a spec (one entry a tensor axis: ``None``, an axis name, a tuple
+of axis names, or a :class:`Part`) that say which block of a full
+tensor this rank holds.  A :class:`Part` cuts a tensor axis into fewer
+blocks than its mesh axis has ranks, each block held by a group of
+consecutive ranks (the KV heads that several ranks' query heads read);
+:meth:`CardMesh.subgroup` is that group.
+
+Every collective of the port goes through :func:`all_reduce`,
+:func:`all_gather_axis` or :func:`all_to_all`.  Each call is appended
+to every log that :func:`log_collectives` has opened (its kind in the
+reference's HLO names, its group's size and its operand's bytes); on
+an abstract mesh it is only logged, and raises for a tensor that is not
+on ``meta``.  The port makes no other collective: no broadcast, no
+reduce-scatter.  The collectives that need their own backward are
 ``torch.autograd.Function``\\ s: :func:`reduce_sum` (an all-reduce
-whose backward is the identity: the sum of the expert block's partial
-products over ``"model"``, the loss over the batch axes) and
-:func:`copy_to` (the identity whose backward all-reduces: a value
-replicated over a group that each member uses for its own part).  The
-port uses only collectives that NCCL and gloo both take on CUDA
-tensors: ``all_reduce`` (SUM, MAX), ``all_gather_into_tensor``,
-``all_to_all_single`` and ``broadcast``.
+whose backward is the identity: a row-parallel product's partial sums
+over ``"model"``, the loss over the batch axes) and :func:`copy_to`
+(the identity whose backward all-reduces: a value replicated over a
+group that each member uses for its own part).  The port uses only
+collectives that NCCL and gloo both take on CUDA tensors:
+``all_reduce`` (SUM, MAX), ``all_gather_into_tensor`` and
+``all_to_all_single``.
 
 :func:`run_world` spawns a world of ranks on one host
 (``torch.multiprocessing``'s ``spawn``), each joined to the process
 group over a ``FileStore`` under a given directory (so worlds started at
 once never share a port), and returns what a function gave on each.
-
-The production meshes of 256 and 512 devices (``make_production_mesh``)
-wait for Queue 1 item 5b (``ROADMAP.md``).
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import datetime
 import math
@@ -53,11 +68,22 @@ from repro_torch.train._tree import tree_map
 
 
 @dataclasses.dataclass(frozen=True)
+class AbstractGroup:
+    """The group along ``axis`` of an abstract mesh, of ``size`` ranks:
+    a collective over it is logged, not made."""
+
+    axis: str
+    size: int
+
+
+@dataclasses.dataclass(frozen=True)
 class CardMesh:
     """``axis_names`` × ``axis_sizes`` ranks, this one on ``device``;
-    ``groups`` maps an axis name to the process group along it and
-    ``coords`` is this rank's coordinate on each axis (one card: every
-    size 1, no groups)."""
+    ``groups`` maps an axis name to the process group along it (and
+    ``(axis, parts)`` to the groups of :meth:`subgroup`) and ``coords``
+    is this rank's coordinate on each axis (one card: every size 1, no
+    groups).  ``abstract``: a mesh of no process group whose
+    collectives are only logged (:func:`abstract_mesh`)."""
 
     device: torch.device
     axis_names: tuple[str, ...] = ("data", "model")
@@ -65,6 +91,7 @@ class CardMesh:
     groups: dict = dataclasses.field(default_factory=dict, compare=False,
                                      hash=False, repr=False)
     coords: tuple[int, ...] = ()
+    abstract: bool = False
 
     @property
     def shape(self) -> dict[str, int]:
@@ -77,8 +104,10 @@ class CardMesh:
 
     @property
     def name(self) -> str:
-        """The dry-run records' mesh name, e.g. ``card1x1``."""
-        return "card" + "x".join(map(str, self.axis_sizes))
+        """The dry-run records' mesh name: ``card1x1``, or ``pod16x16``
+        and ``pod2x16x16`` for the abstract production meshes."""
+        return ("pod" if self.abstract else "card") \
+            + "x".join(map(str, self.axis_sizes))
 
     def coord(self, axis: str) -> int:
         """This rank's coordinate on ``axis`` (0 on one card)."""
@@ -87,16 +116,60 @@ class CardMesh:
 
     def group(self, axis: str):
         """The process group along ``axis`` (``None`` on a mesh without
-        process groups: one card, nothing to exchange).  An axis of size
-        1 has its group of one rank, so a world of one still runs every
+        process groups: one card, nothing to exchange; an
+        :class:`AbstractGroup` on an abstract mesh).  An axis of size 1
+        has its group of one rank, so a world of one still runs every
         collective."""
+        if self.abstract:
+            return AbstractGroup(axis, self.shape[axis])
         return self.groups.get(axis)
+
+    def subgroup(self, axis: str, parts: int):
+        """The group of the ranks that hold the same block of a tensor
+        axis cut into ``parts`` blocks over ``axis`` (:class:`Part`):
+        ``size // parts`` ranks of consecutive coordinates on ``axis``,
+        alike on every other axis (``parts`` 1: the axis's group).  The
+        groups of ``(axis, parts)`` are made at its first call, which is
+        collective: every rank makes the same first calls, in the same
+        order."""
+        size = self.shape[axis]
+        if parts < 1 or size % parts:
+            raise ValueError(f"subgroup: {parts} blocks do not divide axis "
+                             f"{axis!r} of size {size}")
+        if parts == 1:
+            return self.group(axis)
+        if self.abstract:
+            return AbstractGroup(axis, size // parts)
+        if not self.groups:
+            return None
+        if (axis, parts) not in self.groups:
+            self.groups[axis, parts] = _subgroup(
+                self.axis_sizes, self.axis_names, axis, parts)
+        return self.groups[axis, parts]
 
     @property
     def is_writer(self) -> bool:
         """Whether this rank writes what the mesh writes once (global
         rank 0, or the one card)."""
         return not self.coords or all(c == 0 for c in self.coords)
+
+
+def _subgroup(sizes: tuple[int, ...], names: tuple[str, ...], axis: str,
+              parts: int):
+    """This rank's process group of :meth:`CardMesh.subgroup`.
+    ``new_group`` is collective: every rank makes every group of
+    ``(axis, parts)``, in this order."""
+    i = names.index(axis)
+    size = sizes[i]
+    grid = torch.arange(math.prod(sizes)).reshape(sizes)
+    # axis i last, then blocks of size // parts consecutive ranks
+    lines = torch.movedim(grid, i, -1).reshape(-1, size // parts)
+    mine = None
+    for ranks in lines.tolist():
+        group = dist.new_group(ranks)
+        if dist.get_rank() in ranks:
+            mine = group
+    return mine
 
 
 def make_mesh(axis_sizes: tuple[int, ...],
@@ -139,25 +212,63 @@ def make_host_mesh(device: str | torch.device = "cuda") -> CardMesh:
     return CardMesh(torch.device(device))
 
 
+def abstract_mesh(axis_sizes: tuple[int, ...],
+                  axis_names: tuple[str, ...] = ("data", "model")
+                  ) -> CardMesh:
+    """An abstract mesh of ``axis_sizes`` over ``axis_names``: rank 0 of
+    it (coordinate 0 on every axis) on ``meta``, with no process group;
+    its collectives are logged, never made."""
+    sizes = tuple(int(s) for s in axis_sizes)
+    if len(sizes) != len(axis_names):
+        raise ValueError(f"abstract_mesh: {len(sizes)} sizes for axes "
+                         f"{axis_names}")
+    return CardMesh(torch.device("meta"), tuple(axis_names), sizes,
+                    coords=(0,) * len(sizes), abstract=True)
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> CardMesh:
+    """The reference's production mesh as an abstract mesh: ``(16,
+    16)`` over ``("data", "model")`` (one pod of 256 devices), or ``(2,
+    16, 16)`` over ``("pod", "data", "model")`` (two pods, 512)."""
+    if multi_pod:
+        return abstract_mesh((2, 16, 16), ("pod", "data", "model"))
+    return abstract_mesh((16, 16), ("data", "model"))
+
+
 def batch_axes(mesh: CardMesh) -> tuple[str, ...]:
     return tuple(a for a in ("pod", "data") if a in mesh.shape)
 
 
 # ---------------------------------------------------------- placements
 
+@dataclasses.dataclass(frozen=True)
+class Part:
+    """A spec entry: the tensor axis cut into ``parts`` blocks over the
+    mesh axis ``axis`` (whose size ``parts`` divides), block ``c //
+    (size // parts)`` held by the rank at coordinate ``c``: each block
+    by ``size // parts`` ranks of consecutive coordinates.  ``Part(a,
+    size)`` is the entry ``a``; ``Part(a, 1)`` leaves the axis whole."""
+
+    axis: str
+    parts: int
+
+
 def mesh_axes(entry) -> tuple[str, ...]:
     """A spec entry's axis names (``None`` → none)."""
     if entry is None:
         return ()
+    if isinstance(entry, Part):
+        return (entry.axis,)
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
 
 @dataclasses.dataclass(frozen=True)
 class Placement:
     """A full tensor's block on this rank of ``mesh``: tensor axis i is
-    cut over the mesh axes of ``spec[i]`` (row-major over several),
-    each rank holding the block at its coordinates; axes past the
-    spec's end and ``None`` entries stay whole."""
+    cut over the mesh axes of ``spec[i]`` (row-major over several; a
+    :class:`Part` into fewer blocks than its axis has ranks), each rank
+    holding the block at its coordinates; axes past the spec's end and
+    ``None`` entries stay whole."""
 
     mesh: CardMesh
     spec: tuple
@@ -166,12 +277,19 @@ class Placement:
         """(tensor axis, parts, this rank's part) for each cut axis."""
         out = []
         for i, entry in enumerate(tuple(self.spec)[:ndim]):
-            names = mesh_axes(entry)
-            parts, index = 1, 0
-            for name in names:
-                size = self.mesh.shape[name]
-                parts *= size
-                index = index * size + self.mesh.coord(name)
+            if isinstance(entry, Part):
+                size = self.mesh.shape[entry.axis]
+                if size % entry.parts:
+                    raise ValueError(f"placement {self.spec}: {entry} does "
+                                     f"not divide an axis of {size}")
+                parts = entry.parts
+                index = self.mesh.coord(entry.axis) // (size // parts)
+            else:
+                parts, index = 1, 0
+                for name in mesh_axes(entry):
+                    size = self.mesh.shape[name]
+                    parts *= size
+                    index = index * size + self.mesh.coord(name)
             if parts > 1:
                 out.append((i, parts, index))
         return out
@@ -209,12 +327,80 @@ class Placement:
         """The full tensor from every rank's block (a collective: every
         rank of the mesh calls it with its block)."""
         full = local
-        for i, parts, _ in reversed(self._cuts(local.dim())):
-            names = mesh_axes(self.spec[i])
-            for name in reversed(names):
-                full = all_gather_axis(full, self.mesh.groups[name],
+        cut = {i for i, _, _ in self._cuts(local.dim())}
+        for i in sorted(cut, reverse=True):
+            entry = self.spec[i]
+            if isinstance(entry, Part):
+                size = self.mesh.shape[entry.axis]
+                full = all_gather_axis(full, self.mesh.group(entry.axis),
+                                       size, i)
+                # each block came from size // parts ranks: keep one
+                n = full.shape[i] // size
+                rep = size // entry.parts
+                full = full.unflatten(i, (entry.parts, rep, n)).select(
+                    i + 1, 0).flatten(i, i + 1)
+                continue
+            for name in reversed(mesh_axes(entry)):
+                full = all_gather_axis(full, self.mesh.group(name),
                                        self.mesh.shape[name], i)
-        return full
+        return full.contiguous()
+
+
+# --------------------------------------------------------- collectives
+
+#: the logs that :func:`log_collectives` has opened
+_LOGS: list[list] = []
+
+
+@contextlib.contextmanager
+def log_collectives():
+    """A list that receives ``(kind, group size, operand bytes)`` for
+    each collective made (or, on an abstract mesh, logged) while it is
+    open, in call order; ``kind`` is the reference's HLO name
+    (``all-reduce``, ``all-gather``, ``all-to-all``)."""
+    log: list = []
+    _LOGS.append(log)
+    try:
+        yield log
+    finally:
+        _LOGS.remove(log)
+
+
+def _collective(kind: str, t: torch.Tensor, group) -> bool:
+    """Log one collective of operand ``t`` over ``group``; whether to
+    make it (not on an abstract mesh, where ``t`` must be on
+    ``meta``)."""
+    abstract = isinstance(group, AbstractGroup)
+    if abstract and not t.is_meta:
+        raise RuntimeError(f"a {kind} over the abstract mesh's "
+                           f"{group.axis!r} axis of {group.size} ranks "
+                           f"got a tensor on {t.device}: an abstract mesh "
+                           "holds no data; run the step on meta tensors")
+    if _LOGS:
+        size = group.size if abstract else dist.get_world_size(group)
+        entry = (kind, size, t.numel() * t.element_size())
+        for log in _LOGS:
+            log.append(entry)
+    return not abstract
+
+
+def all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
+    """``t`` reduced (``"sum"`` or ``"max"``) over ``group`` in place;
+    returns ``t``."""
+    if _collective("all-reduce", t, group):
+        dist.all_reduce(t, op={"sum": dist.ReduceOp.SUM,
+                               "max": dist.ReduceOp.MAX}[op], group=group)
+    return t
+
+
+def all_to_all(t: torch.Tensor, group) -> torch.Tensor:
+    """``t [n, ...]``: block i goes to the i-th rank of ``group`` and
+    block i of the result came from it."""
+    t = t.contiguous()
+    out = torch.empty_like(t)
+    if _collective("all-to-all", t, group):
+        dist.all_to_all_single(out, t, group=group)
+    return out
 
 
 def all_gather_axis(t: torch.Tensor, group, parts: int,
@@ -226,7 +412,8 @@ def all_gather_axis(t: torch.Tensor, group, parts: int,
     front = torch.movedim(t, axis, 0).contiguous()
     out = torch.empty((parts * front.shape[0], *front.shape[1:]),
                       dtype=t.dtype, device=t.device)
-    dist.all_gather_into_tensor(out, front, group=group)
+    if _collective("all-gather", front, group):
+        dist.all_gather_into_tensor(out, front, group=group)
     return torch.movedim(out, 0, axis)
 
 
@@ -262,9 +449,7 @@ class _ReduceSum(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, x, group):
-        out = x.contiguous().clone()
-        dist.all_reduce(out, group=group)
-        return out
+        return all_reduce(x.contiguous().clone(), group)
 
     @staticmethod
     def backward(ctx, g):
@@ -281,9 +466,7 @@ class _CopyTo(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
-        g = g.contiguous().clone()
-        dist.all_reduce(g, group=ctx.group)
-        return g, None
+        return all_reduce(g.contiguous().clone(), ctx.group), None
 
 
 def reduce_sum(x: torch.Tensor, group) -> torch.Tensor:

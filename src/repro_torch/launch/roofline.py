@@ -1,5 +1,7 @@
 """Roofline analysis over the dry-run records
-(:mod:`repro_torch.launch.dryrun`), one card by default.
+(:mod:`repro_torch.launch.dryrun`) of one mesh: the one card by
+default, or a production mesh (``--mesh pod16x16``, ``pod2x16x16``),
+whose records are per device.
 
 Per (arch × shape), with the rates of a chip model
 (:class:`~repro_torch.hw.gpu.GpuChipModel`, the H100 SXM by default):
@@ -9,7 +11,9 @@ Per (arch × shape), with the rates of a chip model
   collective term = collective_bytes_per_device / chip.nvlink_bw_per_link
 
 (per-device numerator ≡ global/(devices·rate) under SPMD balance; 0
-collective bytes on one card).  Also reports MODEL_FLOPS/counted FLOPs
+collective bytes on one card; across the production meshes' 256 or 512
+cards most collective bytes would cross the network between hosts, not
+NVLink, so the collective term is a lower bound there).  Also reports MODEL_FLOPS/counted FLOPs
 (the useful-compute ratio; catches remat and masked-attention waste),
 the dominant term per cell, and whether the peak fits the chip's HBM.
 

@@ -46,10 +46,9 @@ from __future__ import annotations
 import dataclasses
 
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 
-from repro_torch.launch.mesh import copy_to, reduce_sum
+from repro_torch.launch.mesh import all_to_all, copy_to, reduce_sum
 
 
 @dataclasses.dataclass(frozen=True)
@@ -129,10 +128,7 @@ def _all_to_all(t: torch.Tensor, group) -> torch.Tensor:
     block i of the result came from it (the identity for no group)."""
     if group is None:
         return t
-    t = t.contiguous()
-    out = torch.empty_like(t)
-    dist.all_to_all_single(out, t, group=group)
-    return out
+    return all_to_all(t, group)
 
 
 class _AllToAll(torch.autograd.Function):
@@ -212,8 +208,8 @@ def _dispatch_indices(idx: torch.Tensor, dims: MoeDims, capacity: int
 def moe_ffn_ep(x: torch.Tensor, w_router: torch.Tensor, w1: torch.Tensor,
                w3: torch.Tensor, w2: torch.Tensor, dims: MoeDims, mesh, *,
                ep_axis: str = "data", tp_axis: str = "model",
-               batch_axes: tuple[str, ...] = ("pod", "data")
-               ) -> torch.Tensor:
+               batch_axes: tuple[str, ...] = ("pod", "data"),
+               reduce: bool = True) -> torch.Tensor:
     """Expert-parallel MoE FFN on this rank of ``mesh`` (a
     :class:`~repro_torch.launch.mesh.CardMesh`), laid out as the
     reference's ``in_specs``: ``x [B_loc, S, d]`` this rank's rows of the
@@ -222,7 +218,16 @@ def moe_ffn_ep(x: torch.Tensor, w_router: torch.Tensor, w1: torch.Tensor,
     [E_loc, f_loc, d]`` this rank's experts (``E / |ep_axis|``, at its
     ``ep_axis`` coordinate) and hidden slice (``f / |tp_axis|``).
     Returns this rank's rows ``[B_loc, S, d]`` (the same on every rank
-    of ``tp_axis``).  Every rank of the mesh calls it together."""
+    of ``tp_axis``); with ``reduce=False`` this rank's partial sum of
+    them over ``tp_axis`` (the caller sums it there, with the shared
+    experts' partial sums; the combine weights then go through
+    ``copy_to``, since each rank weighs only its part; the native wire
+    only, since the int8 wire quantizes the sum, as the reference's
+    does).  Every rank of the mesh calls it together."""
+    if not reduce and dims.dispatch_dtype != "native":
+        raise ValueError("moe_ffn_ep: reduce=False needs the native wire; "
+                         f"the {dims.dispatch_dtype} wire quantizes the "
+                         "sum over the tp axis")
     ep = mesh.shape[ep_axis]
     if dims.n_experts % ep:
         raise ValueError(f"moe_ffn_ep: {dims.n_experts} experts do not "
@@ -266,7 +271,11 @@ def moe_ffn_ep(x: torch.Tensor, w_router: torch.Tensor, w1: torch.Tensor,
     recv = recv.transpose(0, 1).reshape(e_loc, ep * capacity, d)
     # expert FFN on this rank's slice of the hidden dim, summed over tp
     h = F.silu(torch.matmul(recv, w1)) * torch.matmul(recv, w3)
-    part = reduce_sum(torch.matmul(h, w2), tp_group)
+    part = torch.matmul(h, w2)
+    if reduce:
+        part = reduce_sum(part, tp_group)
+    else:
+        cw = copy_to(cw, tp_group)
 
     # route results back to the source ranks
     back = part.view(e_loc, ep, capacity, d).transpose(0, 1).contiguous()

@@ -45,9 +45,37 @@ experts) takes ``moe_ffn_ep``, each rank holding its slice of the
 expert leaves (``param_specs``; ``repro_torch.convert.shard_lm_params``)
 and its rows of the batch, and ``forward_train``'s loss is the global
 NLL sum over the global count of valid labels.  ``moe_impl="ep"``
-without a mesh raises ``NotImplementedError``.  Every other leaf is
-whole on each rank: tensor parallelism over ``"model"`` and
-``constrain`` wait for Queue 1 item 5b (``ROADMAP.md``).
+without a mesh raises ``NotImplementedError``.
+
+Tensor parallelism over ``"model"`` (:func:`tp_plan`, one rule for
+which leaves are cut; :func:`param_placements`): attention by whole
+query heads, its KV heads by blocks (held by a group of ranks where
+there are fewer KV heads than ranks), the FFN's and the shared
+experts' columns and rows, the embedding's vocab rows and the head's
+vocab columns.  A column-parallel product takes ``copy_to(x,
+"model")`` and a row-parallel one ends in ``reduce_sum(·, "model")``;
+the embedding is a masked lookup plus ``reduce_sum``; ``lm_head``
+returns this rank's vocab columns of the logits and
+:func:`chunked_softmax_xent` is vocab-parallel (a MAX all-reduce of the
+row maximum, a SUM of the exponentials, the target's logit from its
+owner), so the loss is the same on every ``"model"`` rank.  Each rank
+keeps the cache of its own KV heads (MLA's latent cache whole).  The
+hybrid and ssm families keep their mixers' leaves whole (hymba's
+attention and Mamba heads, the mLSTM and sLSTM projections: their cuts
+are Queue 1 item 5c) and cut their vocab and hymba's FFN.  The
+activations take their cut from the products around them, so the
+reference's five ``constrain`` markers have no counterpart here;
+:func:`constrain` is the gather that brings a block from one cut to
+another (the engine's logits, the tests).
+
+Deliberate differences from the reference's specs (``ROADMAP.md``):
+where ``n_kv_heads`` does not divide by the ``"model"`` size each rank
+holds the KV head its query heads read, a block shared by a group of
+ranks (:class:`~repro_torch.launch.mesh.Part`), where the reference
+cuts the KV columns evenly, through heads; ``bk``/``bv`` follow their
+KV heads where the reference keeps them whole; where ``n_heads`` does
+not divide, the attention leaves stay whole; the decode caches are cut
+by KV heads where the reference's are whole over ``"model"``.
 
 Deliberate difference from the reference: where a slot's cache ends at
 ``cache_len`` (dense, moe, vlm and audio; not the encoder's cross
@@ -70,7 +98,16 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
-from repro_torch.launch.mesh import batch_axes, reduce_sum, spec_placements
+from repro_torch.launch.mesh import (
+    Part,
+    Placement,
+    all_reduce,
+    batch_axes,
+    copy_to,
+    mesh_axes,
+    reduce_sum,
+    spec_placements,
+)
 from repro_torch.models import moe as moe_lib
 from repro_torch.models import ssm as ssm_lib
 from repro_torch.models.layers import apply_mrope, apply_rope
@@ -96,17 +133,125 @@ EXPERT_SPECS = {"ew1": ("data", None, "model"),
                 "ew3": ("data", None, "model"),
                 "ew2": ("data", "model", None)}
 
+#: the families whose mixers keep their "model" leaves whole (item 5c):
+#: only their vocab and FFN are cut
+WHOLE_FAMILIES = ("hybrid", "ssm")
+#: leaves by their part of tensor parallelism (names of init_lm)
+_Q_LEAVES = frozenset({"wq", "bq", "wo", "xwq", "xbq", "xwo"})
+_KV_LEAVES = frozenset({"wk", "wv", "bk", "bv", "xwk", "xwv", "xbk", "xbv",
+                        "wuk", "wuv"})
+_FFN_LEAVES = frozenset({"w1", "w2", "w3"})
+_SHARED_LEAVES = frozenset({"sw1", "sw2", "sw3"})
+_VOCAB_LEAVES = frozenset({"embed", "head"})
+
 
 @dataclasses.dataclass(frozen=True)
 class Runtime:
-    """Execution context: mesh presence decides EP vs dense MoE (the
-    port's mesh: :class:`repro_torch.launch.mesh.CardMesh`)."""
+    """Execution context: mesh presence decides EP vs dense MoE and
+    tensor parallelism (the port's mesh:
+    :class:`repro_torch.launch.mesh.CardMesh`)."""
 
     mesh: Any = None
 
     @property
     def distributed(self) -> bool:
         return self.mesh is not None and self.mesh.size > 1
+
+
+@dataclasses.dataclass(frozen=True)
+class TpPlan:
+    """Which leaves a model cuts over ``"model"`` on a mesh whose
+    ``"model"`` axis has ``size`` ranks (:func:`tp_plan`), and this
+    rank's place on it: ``attn`` (attention by query heads),
+    ``kv_parts`` (the KV heads' blocks: ``size``, or fewer, each held by
+    ``size // kv_parts`` ranks), ``ffn``, ``shared`` (the shared
+    experts), ``vocab`` (embedding rows, head columns); ``group`` the
+    ``"model"`` process group (``None``: nothing to exchange) and
+    ``coord`` this rank's coordinate on it."""
+
+    size: int = 1
+    attn: bool = False
+    kv_parts: int = 1
+    ffn: bool = False
+    shared: bool = False
+    vocab: bool = False
+    group: Any = None
+    coord: int = 0
+
+    def over(self, cut: bool):
+        """The ``"model"`` group where ``cut``, else ``None``."""
+        return self.group if cut else None
+
+    def kv_heads(self, cfg: ModelConfig) -> int:
+        """This rank's KV heads (MLA's ``wuk``/``wuv`` heads)."""
+        return cfg.n_kv_heads // self.kv_parts if self.attn \
+            else cfg.n_kv_heads
+
+    def kv_entry(self):
+        """The spec entry of a KV-head axis: ``"model"``, a
+        :class:`~repro_torch.launch.mesh.Part` where fewer blocks than
+        ranks, or ``None`` (whole) where attention is not cut."""
+        if not self.attn:
+            return None
+        return "model" if self.kv_parts == self.size \
+            else Part("model", self.kv_parts)
+
+
+def tp_plan(cfg: ModelConfig, rt: "Runtime | None" = None) -> TpPlan:
+    """The rule of tensor parallelism over ``rt``'s ``"model"`` axis
+    (none without a mesh): attention is cut by whole query heads where
+    ``n_heads`` divides by its size and the KV heads line up (each
+    rank's KV heads, or the one KV head its query heads read where
+    ``n_kv_heads`` is a divisor of the size), else whole; the dense
+    FFN, the shared experts and the padded vocab where their widths
+    divide.  The hybrid and ssm families cut no mixer (attention whole)."""
+    mesh = rt.mesh if rt is not None else None
+    if mesh is None or "model" not in mesh.shape:
+        return TpPlan()
+    m = mesh.shape["model"]
+    h, kh = cfg.n_heads, cfg.n_kv_heads
+    attn = (cfg.family not in WHOLE_FAMILIES and h % m == 0
+            and (kh % m == 0 or m % kh == 0))
+    fs = cfg.n_shared_experts * cfg.d_ff_expert
+    return TpPlan(
+        size=m, attn=attn, kv_parts=(m if kh % m == 0 else kh) if attn else 1,
+        ffn=bool(cfg.d_ff) and not cfg.is_moe and cfg.d_ff % m == 0,
+        shared=fs > 0 and fs % m == 0,
+        vocab=cfg.padded_vocab % m == 0,
+        group=mesh.group("model"), coord=mesh.coord("model"))
+
+
+def constrain(x: torch.Tensor, rt: "Runtime | None", *spec,
+              have: tuple) -> torch.Tensor:
+    """``x``, this rank's block of a tensor cut as ``have``, brought to
+    the cut of ``spec`` (one entry a tensor axis, as the reference's
+    ``PartitionSpec``; axes the mesh lacks are dropped): gathered over
+    the axes that ``spec`` drops (a collective without a backward) and
+    cut to this rank's block where ``spec`` adds one.  Off a
+    distributed mesh it returns ``x``, as the reference does."""
+    if rt is None or not rt.distributed:
+        return x
+    mesh = rt.mesh
+
+    def filt(entry):
+        kept = tuple(a for a in mesh_axes(entry) if a in mesh.shape)
+        return kept or None
+
+    want = [filt(e) for e in spec]
+    now = [filt(e) for e in have]
+    for i in range(x.dim()):
+        a = now[i] if i < len(now) else None
+        b = want[i] if i < len(want) else None
+        if a == b:
+            continue
+        cut = [None] * x.dim()
+        if a is not None:
+            cut[i] = a
+            x = Placement(mesh, tuple(cut)).gather(x)
+        if b is not None:
+            cut[i] = b
+            x = Placement(mesh, tuple(cut)).shard(x)
+    return x
 
 
 def uses_ep(cfg: ModelConfig, rt: Runtime | None) -> bool:
@@ -319,15 +464,51 @@ def param_specs(cfg: ModelConfig) -> dict:
     return specs(init_lm(cfg))
 
 
+def _tp_spec(name: str, spec: tuple, plan: TpPlan, ep: bool) -> tuple:
+    """The port's spec of one leaf from the reference's: its
+    ``"model"`` entry kept where ``plan`` cuts the leaf's part (a KV
+    leaf's head axis, its last, as ``"model"`` or a
+    :class:`~repro_torch.launch.mesh.Part` of ``plan.kv_parts``
+    blocks), its ``"data"`` entry where the experts are expert-parallel
+    (``ep``); every other entry whole."""
+    if name in EXPERT_SPECS:
+        keep = ep
+    elif name in _Q_LEAVES or name in _KV_LEAVES:
+        keep = plan.attn
+    elif name in _FFN_LEAVES:
+        keep = plan.ffn
+    elif name in _SHARED_LEAVES:
+        keep = plan.shared
+    elif name in _VOCAB_LEAVES:
+        keep = plan.vocab
+    else:
+        keep = False
+    if not keep:
+        return (None,) * len(spec)
+    if name in _KV_LEAVES:
+        return (None,) * (len(spec) - 1) + (plan.kv_entry(),)
+    return tuple(spec)
+
+
+def tp_specs(cfg: ModelConfig, rt: Runtime) -> dict:
+    """Every parameter's spec on ``rt``'s mesh (:func:`tp_plan`, the
+    routed experts by :func:`uses_ep`), in the tree layout of
+    :func:`init_lm`."""
+    plan, ep = tp_plan(cfg, rt), uses_ep(cfg, rt)
+
+    def walk(tree, name=None):
+        if isinstance(tree, list):
+            return [walk(v) for v in tree]
+        if isinstance(tree, dict):
+            return {k: walk(v, k) for k, v in tree.items()}
+        return _tp_spec(name, tree.spec, plan, ep)
+    return walk(init_lm(cfg))
+
+
 def param_placements(cfg: ModelConfig, rt: Runtime) -> dict:
     """Each parameter leaf's :class:`~repro_torch.launch.mesh.Placement`
-    on ``rt``'s mesh: the routed experts by their specs where the MoE
-    layers take expert parallelism (:func:`uses_ep`); every other leaf
-    whole (tensor parallelism over ``"model"`` waits for Queue 1 item
-    5b)."""
-    ep = uses_ep(cfg, rt)
-    return spec_placements(param_specs(cfg), rt.mesh,
-                           keep=lambda path: ep and path[-1] in EXPERT_SPECS)
+    on ``rt``'s mesh (:func:`tp_specs`)."""
+    return spec_placements(tp_specs(cfg, rt), rt.mesh)
 
 
 def init_params(cfg: ModelConfig, generator: torch.Generator,
@@ -376,8 +557,10 @@ def _rope(cfg: ModelConfig, x: torch.Tensor,
 
 def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor
          ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """Q, K, V ``[B, S, heads, hd]`` of the heads whose columns ``p``
+    holds (this rank's under tensor parallelism)."""
     b, s, _ = x.shape
-    h, kh, hd = cfg.n_heads, cfg.n_kv_heads, cfg.hd
+    hd = cfg.hd
     q = x @ p["wq"]
     k = x @ p["wk"]
     v = x @ p["wv"]
@@ -385,19 +568,22 @@ def _qkv(p: dict, cfg: ModelConfig, x: torch.Tensor
         q = q + p["bq"]
         k = k + p["bk"]
         v = v + p["bv"]
-    return (q.reshape(b, s, h, hd), k.reshape(b, s, kh, hd),
-            v.reshape(b, s, kh, hd))
+    return (q.reshape(b, s, -1, hd), k.reshape(b, s, -1, hd),
+            v.reshape(b, s, -1, hd))
 
 
 def _mla_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
-             positions: torch.Tensor):
+             positions: torch.Tensor, group=None):
     """MLA (DeepSeek-V2): latent-compressed KV + decoupled RoPE head.
     Returns (q_nope [B,S,H,hd], q_rope [B,S,H,dr], c_kv [B,S,r], k_rope
-    [B,S,1,dr])."""
+    [B,S,1,dr]) for the heads whose columns ``p`` holds; the queries
+    take ``copy_to(x, group)``, the latent (whole on every rank) ``x``
+    as it is."""
     b, s, _ = x.shape
-    h, hd = cfg.n_heads, cfg.hd
+    hd = cfg.hd
     r = cfg.kv_lora_rank
-    q = (x @ p["wq"]).reshape(b, s, h, -1)
+    q = (copy_to(x, group) @ p["wq"]).reshape(b, s, -1,
+                                              hd + cfg.rope_head_dim)
     q_nope, q_rope = q[..., :hd], _rope(cfg, q[..., hd:], positions)
     ckv_full = x @ p["wdkv"]
     c_kv = ckv_full[..., :r]
@@ -407,68 +593,81 @@ def _mla_qkv(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def _mla_expand_kv(p: dict, cfg: ModelConfig, c_kv: torch.Tensor):
     b, s, _ = c_kv.shape
-    kh, hd = cfg.n_kv_heads, cfg.hd
-    return ((c_kv @ p["wuk"]).reshape(b, s, kh, hd),
-            (c_kv @ p["wuv"]).reshape(b, s, kh, hd))
+    hd = cfg.hd
+    return ((c_kv @ p["wuk"]).reshape(b, s, -1, hd),
+            (c_kv @ p["wuv"]).reshape(b, s, -1, hd))
 
 
 def _attention_full(p: dict, cfg: ModelConfig, x: torch.Tensor,
                     positions: torch.Tensor, *, causal: bool = True,
-                    window: int = 0, return_kv: bool = False):
+                    window: int = 0, return_kv: bool = False,
+                    group=None):
     """Full-sequence attention (prefill, whisper's encoder with
     ``causal=False``), through ``flash_attention``; ``window`` > 0 keeps
     the keys of the last ``window`` positions of each query (hymba).
     MLA folds the decoupled RoPE head into an extended head of hd + dr
     (its 1/sqrt(hd + dr) scale is MLA's definition), with V zero-padded
     to it and the output cut back to hd, as the reference does; its
-    ``kv`` is the latent cache's (c_kv, k_rope)."""
+    ``kv`` is the latent cache's (c_kv, k_rope).  ``group``: the
+    ``"model"`` group whose ranks each hold their heads' columns (the
+    input goes through ``copy_to``, the output through ``reduce_sum``;
+    MLA's whole latent through ``copy_to`` before its heads use it)."""
     b, s, _ = x.shape
     if cfg.is_mla:
-        q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions)
-        k_nope, v = _mla_expand_kv(p, cfg, c_kv)
+        q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, x, positions,
+                                                group)
+        k_nope, v = _mla_expand_kv(p, cfg, copy_to(c_kv, group))
         dr = cfg.rope_head_dim
         q = torch.cat([q_nope, q_rope], dim=-1)
-        k = torch.cat([k_nope, k_rope.expand(b, s, cfg.n_kv_heads, dr)],
-                      dim=-1)
+        k = torch.cat([k_nope, copy_to(k_rope, group).expand(
+            b, s, k_nope.shape[2], dr)], dim=-1)
         v_pad = F.pad(v, (0, dr))
         out = ops.attention_bshd(q, k, v_pad, causal=causal,
                                  window=window)[..., :cfg.hd]
         kv = (c_kv, k_rope)
     else:
-        q, k, v = _qkv(p, cfg, x)
+        q, k, v = _qkv(p, cfg, copy_to(x, group))
         q = _rope(cfg, q, positions)
         k = _rope(cfg, k, positions)
         out = ops.attention_bshd(q, k, v, causal=causal, window=window)
         kv = (k, v)
-    out = out.reshape(b, s, -1) @ p["wo"]
+    out = reduce_sum(out.reshape(b, s, -1) @ p["wo"], group)
     if return_kv:
         return out, kv
     return out
 
 
 def _attention_cross(p: dict, cfg: ModelConfig, x: torch.Tensor,
-                     k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
+                     k: torch.Tensor, v: torch.Tensor,
+                     group=None) -> torch.Tensor:
     """Whisper's cross-attention of the decoder's positions over the
-    encoder's (non-causal, Sq != Sk)."""
+    encoder's (non-causal, Sq != Sk); ``group`` as in
+    :func:`_attention_full`."""
     b, s, _ = x.shape
-    q = (x @ p["xwq"]).reshape(b, s, cfg.n_heads, cfg.hd)
+    q = (copy_to(x, group) @ p["xwq"]).reshape(b, s, -1, cfg.hd)
     out = ops.attention_bshd(q, k, v, causal=False)
-    return out.reshape(b, s, -1) @ p["xwo"]
+    return reduce_sum(out.reshape(b, s, -1) @ p["xwo"], group)
 
 
-def _cross_kv(p: dict, cfg: ModelConfig, enc_out: torch.Tensor):
+def _cross_kv(p: dict, cfg: ModelConfig, enc_out: torch.Tensor,
+              group=None):
     b, s, _ = enc_out.shape
-    kh, hd = cfg.n_kv_heads, cfg.hd
-    return ((enc_out @ p["xwk"]).reshape(b, s, kh, hd),
-            (enc_out @ p["xwv"]).reshape(b, s, kh, hd))
+    hd = cfg.hd
+    enc_out = copy_to(enc_out, group)
+    return ((enc_out @ p["xwk"]).reshape(b, s, -1, hd),
+            (enc_out @ p["xwv"]).reshape(b, s, -1, hd))
 
 
-def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+def _ffn(p: dict, cfg: ModelConfig, x: torch.Tensor,
+         group=None) -> torch.Tensor:
+    """The dense FFN; ``group``: the ``"model"`` group whose ranks each
+    hold their columns of ``w1``/``w3`` and rows of ``w2``."""
+    x = copy_to(x, group)
     if cfg.act == "swiglu":
         h = swiglu(x @ p["w1"], x @ p["w3"])
     else:
         h = F.gelu(x @ p["w1"], approximate="tanh")
-    return h @ p["w2"]
+    return reduce_sum(h @ p["w2"], group)
 
 
 def _moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -476,28 +675,47 @@ def _moe_ffn(p: dict, cfg: ModelConfig, x: torch.Tensor,
     """Routed experts, expert-parallel over ``rt``'s mesh where
     :func:`uses_ep` says so (``p``'s expert leaves are then this rank's
     slices), else on one device (the reference's ``moe_ffn_dense``
-    branch), plus the shared experts."""
+    branch), plus the shared experts (their columns and rows over
+    ``"model"`` where :func:`tp_plan` cuts them).  Where both the
+    experts' hidden slices and the shared experts' are cut over
+    ``"model"`` and the wire is native, their partial sums meet in one
+    ``reduce_sum``."""
     b, s, d = x.shape
     dims = moe_lib.MoeDims(cfg.n_experts, cfg.moe_top_k, d,
                            cfg.d_ff_expert, cfg.capacity_factor,
                            dispatch_dtype=cfg.moe_dispatch_dtype)
-    if uses_ep(cfg, rt):
+    tp = tp_plan(cfg, rt)
+    sg = tp.over(tp.shared)
+    ep = uses_ep(cfg, rt)
+    # the EP block's partial sums wait for the shared experts' (the
+    # int8 wire quantizes the sum over "model", as the reference does)
+    one_sum = (ep and bool(cfg.n_shared_experts) and sg is not None
+               and cfg.moe_dispatch_dtype == "native")
+    if ep:
         out = moe_lib.moe_ffn_ep(x, p["router"], p["ew1"], p["ew3"],
                                  p["ew2"], dims, rt.mesh,
-                                 batch_axes=batch_axes(rt.mesh))
+                                 batch_axes=batch_axes(rt.mesh),
+                                 reduce=not one_sum)
     else:
         out = moe_lib.moe_ffn_dense(
             x.reshape(b * s, d), p["router"], p["ew1"], p["ew3"],
             p["ew2"], dims).reshape(b, s, d)
     if cfg.n_shared_experts:
-        out = out + swiglu(x @ p["sw1"], x @ p["sw3"]) @ p["sw2"]
+        xc = copy_to(x, sg)
+        shared = swiglu(xc @ p["sw1"], xc @ p["sw3"]) @ p["sw2"]
+        if one_sum:
+            return reduce_sum(out + shared, sg)
+        out = out + reduce_sum(shared, sg)
     return out
 
 
 def _mlp(p: dict, cfg: ModelConfig, x: torch.Tensor,
          rt: Runtime | None = None) -> torch.Tensor:
     """The block's feed-forward: routed experts or the dense FFN."""
-    return _moe_ffn(p, cfg, x, rt) if cfg.is_moe else _ffn(p, cfg, x)
+    if cfg.is_moe:
+        return _moe_ffn(p, cfg, x, rt)
+    tp = tp_plan(cfg, rt)
+    return _ffn(p, cfg, x, tp.over(tp.ffn))
 
 
 def _mamba_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
@@ -538,10 +756,12 @@ def decoder_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                   return_kv: bool = False, mamba_state=None,
                   rt: Runtime | None = None):
     """One decoder block, full-sequence mode.  Returns (x, extras)."""
+    tp = tp_plan(cfg, rt)
+    ag = tp.over(tp.attn)
     h = _norm(p, "ln1", x, cfg)
     window = cfg.window if cfg.family == "hybrid" else 0
     attn = _attention_full(p, cfg, h, positions, window=window,
-                           return_kv=return_kv)
+                           return_kv=return_kv, group=ag)
     kv = None
     if return_kv:
         attn, kv = attn
@@ -556,8 +776,8 @@ def decoder_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
         x = x + attn
     if cfg.family == "audio" and enc_out is not None:
         hx = _norm(p, "lnx", x, cfg)
-        xk, xv = _cross_kv(p, cfg, enc_out)
-        x = x + _attention_cross(p, cfg, hx, xk, xv)
+        xk, xv = _cross_kv(p, cfg, enc_out, ag)
+        x = x + _attention_cross(p, cfg, hx, xk, xv, ag)
         extras["cross_kv"] = (xk, xv)
     if cfg.is_moe or cfg.d_ff:
         x = x + _mlp(p, cfg, _norm(p, "ln2", x, cfg), rt)
@@ -618,12 +838,23 @@ def slstm_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
 # embedding / head
 # ======================================================================
 
-def embed_tokens(params: dict, cfg: ModelConfig,
-                 tokens: torch.Tensor) -> torch.Tensor:
+def embed_tokens(params: dict, cfg: ModelConfig, tokens: torch.Tensor,
+                 rt: Runtime | None = None) -> torch.Tensor:
+    """The tokens' embedding rows; where :func:`tp_plan` cuts the vocab,
+    a masked lookup of this rank's rows summed over ``"model"``."""
     # F.embedding, not advanced indexing: its backward sums each row's
     # gradient in a fixed order on the CPU and the card (indexing's
     # accumulating index_put_ does not), so a train step repeats exactly
-    return F.embedding(tokens.long(), params["embed"]).to(cfg.torch_dtype)
+    tp = tp_plan(cfg, rt)
+    tokens = tokens.long()
+    if not tp.vocab:
+        return F.embedding(tokens, params["embed"]).to(cfg.torch_dtype)
+    rows = params["embed"].shape[0]
+    local = tokens - tp.coord * rows
+    own = (local >= 0) & (local < rows)
+    x = F.embedding(torch.where(own, local, 0), params["embed"])
+    x = x * own[..., None].to(x.dtype)
+    return reduce_sum(x, tp.group).to(cfg.torch_dtype)
 
 
 def _sinusoidal(positions: torch.Tensor, d: int,
@@ -643,12 +874,14 @@ def _sinusoidal(positions: torch.Tensor, d: int,
     return pe.to(dtype)
 
 
-def lm_head(params: dict, cfg: ModelConfig,
-            x: torch.Tensor) -> torch.Tensor:
-    """Full logits ``[B, S, V_padded]`` in the model dtype (the
-    embedding's transpose where the config ties them)."""
+def lm_head(params: dict, cfg: ModelConfig, x: torch.Tensor,
+            rt: Runtime | None = None) -> torch.Tensor:
+    """Logits ``[B, S, V_padded]`` in the model dtype (the embedding's
+    transpose where the config ties them); where :func:`tp_plan` cuts
+    the vocab, this rank's columns ``[B, S, V_padded / model]``."""
     w = params["embed"].t() if cfg.tie_embeddings else params["head"]
-    return _norm(params, "lnf", x, cfg) @ w
+    tp = tp_plan(cfg, rt)
+    return copy_to(_norm(params, "lnf", x, cfg), tp.over(tp.vocab)) @ w
 
 
 def _positions_for(cfg: ModelConfig, tokens: torch.Tensor,
@@ -665,8 +898,8 @@ def _positions_for(cfg: ModelConfig, tokens: torch.Tensor,
 
 
 def _encode_audio(params: dict, cfg: ModelConfig,
-                  frames: torch.Tensor, *,
-                  remat: bool = False) -> torch.Tensor:
+                  frames: torch.Tensor, *, remat: bool = False,
+                  rt: Runtime | None = None) -> torch.Tensor:
     """Whisper's encoder over stub frame embeddings ``[B, S_enc, d]``:
     sinusoidal positions, non-causal attention blocks, a final norm;
     ``remat``: each layer under activation checkpointing (training)."""
@@ -676,10 +909,13 @@ def _encode_audio(params: dict, cfg: ModelConfig,
     pos = torch.arange(x.shape[1], device=x.device)[None].expand(
         x.shape[0], -1)
 
+    tp = tp_plan(cfg, rt)
+
     def body(h, lp):
         h = h + _attention_full(lp, cfg, _norm(lp, "ln1", h, cfg), pos,
-                                causal=False)
-        return h + _ffn(lp, cfg, _norm(lp, "ln2", h, cfg))
+                                causal=False, group=tp.over(tp.attn))
+        return h + _ffn(lp, cfg, _norm(lp, "ln2", h, cfg),
+                        tp.over(tp.ffn))
 
     for i in range(cfg.n_encoder_layers):
         x = _remat(body, remat)(x, layer_params(params, i, "enc_layers"))
@@ -706,10 +942,17 @@ def chunked_softmax_xent(params: dict, cfg: ModelConfig, x: torch.Tensor,
     does.  On ``rt``'s mesh ``x`` and ``labels`` are this rank's rows:
     the NLL sum and the count are summed over the batch axes, so every
     rank returns the global mean, and its gradient is this rank's
-    share (its rows' NLL over the global count)."""
+    share (its rows' NLL over the global count).  Where :func:`tp_plan`
+    cuts the vocab, each rank holds its columns of the logits: the row
+    maximum is all-reduced (MAX, a shift with no gradient), then the
+    sum of the exponentials (SUM), and the target's logit comes from
+    the rank that holds it (SUM); the loss is then the same on every
+    ``"model"`` rank, and is not summed over them."""
     b, s, d = x.shape
     w = params["embed"].t() if cfg.tie_embeddings else params["head"]
-    x = _norm(params, "lnf", x, cfg)
+    tp = tp_plan(cfg, rt)
+    vg = tp.over(tp.vocab)
+    x = copy_to(_norm(params, "lnf", x, cfg), vg)
     labels = labels.to(x.device)
     c = min(chunk, s)
     nc = -(-s // c)
@@ -722,9 +965,12 @@ def chunked_softmax_xent(params: dict, cfg: ModelConfig, x: torch.Tensor,
     for j in range(nc):
         xb, lb = x[:, j * c:(j + 1) * c], labels[:, j * c:(j + 1) * c]
         logits = (xb @ w).float()
-        lse = torch.logsumexp(logits, dim=-1)
-        picked = torch.gather(logits, -1,
-                              lb.clamp_min(0).long()[..., None])[..., 0]
+        if tp.vocab:
+            lse, picked = _vocab_parallel_terms(logits, lb, tp)
+        else:
+            lse = torch.logsumexp(logits, dim=-1)
+            picked = torch.gather(
+                logits, -1, lb.clamp_min(0).long()[..., None])[..., 0]
         valid = lb >= 0
         nll = torch.where(valid, lse - picked, 0.0)
         total = total + nll.sum()
@@ -735,6 +981,24 @@ def chunked_softmax_xent(params: dict, cfg: ModelConfig, x: torch.Tensor,
             total = reduce_sum(total, group)
             count = reduce_sum(count, group)
     return total / count.clamp_min(1)
+
+
+def _vocab_parallel_terms(logits: torch.Tensor, labels: torch.Tensor,
+                          tp: TpPlan):
+    """(log-sum-exp, the label's logit) of rows whose logits ``[..., n]``
+    are this rank's vocab columns ``[coord · n, (coord + 1) · n)``, each
+    the same on every ``"model"`` rank."""
+    n = logits.shape[-1]
+    top = logits.detach().amax(-1)
+    if tp.group is not None:
+        all_reduce(top, tp.group, "max")
+    total = reduce_sum(torch.exp(logits - top[..., None]).sum(-1), tp.group)
+    local = labels.long() - tp.coord * n
+    own = (local >= 0) & (local < n)
+    picked = torch.gather(logits, -1,
+                          local.clamp(0, n - 1)[..., None])[..., 0]
+    picked = reduce_sum(torch.where(own, picked, 0.0), tp.group)
+    return top + torch.log(total), picked
 
 
 def forward_train(params: dict, cfg: ModelConfig, batch: dict,
@@ -752,13 +1016,13 @@ def forward_train(params: dict, cfg: ModelConfig, batch: dict,
     dev = params["embed"].device
     tokens = batch["tokens"].to(dev)
     pos = _positions_for(cfg, tokens, batch.get("positions"))
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, rt)
     enc_out = None
     if cfg.family == "audio":
         x = x + _sinusoidal(torch.arange(tokens.shape[1], device=dev),
                             cfg.d_model, x.dtype)[None]
         enc_out = _encode_audio(params, cfg, batch["encoder_frames"],
-                                remat=cfg.remat)
+                                remat=cfg.remat, rt=rt)
 
     def decoder(h, lp):
         return decoder_block(lp, cfg, h, pos, enc_out=enc_out, rt=rt)[0]
@@ -824,8 +1088,10 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict,
     ``"mamba"`` (its :class:`GlsState` leaves stacked on the layer
     axis); ssm ``"layers"``, one state a layer.  ``cache_len`` sizes
     the self-attention cache only.  ``rt``: the mesh whose ranks run
-    the MoE layers expert-parallel (:func:`uses_ep`), each on its own
-    ``batch``.
+    the MoE layers expert-parallel (:func:`uses_ep`) and the cut leaves
+    tensor-parallel (:func:`tp_plan`), each on its own ``batch``: the
+    logits are then this rank's vocab columns where the vocab is cut,
+    and ``k``/``v`` (and ``xk``/``xv``) hold this rank's KV heads.
     """
     check_supported(cfg, rt)
     tokens = batch["tokens"]
@@ -833,14 +1099,14 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict,
     dev = params["embed"].device
     tokens = tokens.to(dev)
     pos = _positions_for(cfg, tokens, batch.get("positions"))
-    x = embed_tokens(params, cfg, tokens)
+    x = embed_tokens(params, cfg, tokens, rt)
     state: dict = {"lengths": torch.full((b,), s, dtype=torch.int32,
                                          device=dev)}
     enc_out = None
     if cfg.family == "audio":
         x = x + _sinusoidal(torch.arange(s, device=dev), cfg.d_model,
                             x.dtype)[None]
-        enc_out = _encode_audio(params, cfg, batch["encoder_frames"])
+        enc_out = _encode_audio(params, cfg, batch["encoder_frames"], rt=rt)
     if cfg.family == "ssm":
         states = []
         for i in range(cfg.n_layers):
@@ -864,7 +1130,8 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict,
                       (nl, b, rows, 1, cfg.rope_head_dim))
         else:
             names = ("k", "v")
-            shapes = ((nl, b, rows, cfg.n_kv_heads, cfg.hd),) * 2
+            shapes = ((nl, b, rows, tp_plan(cfg, rt).kv_heads(cfg),
+                       cfg.hd),) * 2
         caches = [torch.zeros(shape, dtype=dt, device=dev)
                   for shape in shapes]
         cross, msts = [], []
@@ -885,7 +1152,7 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict,
         if enc_out is not None:
             state["xk"] = torch.stack([xk for xk, _ in cross])
             state["xv"] = torch.stack([xv for _, xv in cross])
-    logits = lm_head(params, cfg, x[:, -1:])[:, 0]
+    logits = lm_head(params, cfg, x[:, -1:], rt)[:, 0]
     return logits, state
 
 
@@ -915,17 +1182,19 @@ def _decode_positions(cfg: ModelConfig, lengths: torch.Tensor
 
 def _decode_attn_dense(p: dict, cfg: ModelConfig, h: torch.Tensor,
                        state_k: torch.Tensor, state_v: torch.Tensor,
-                       lengths: torch.Tensor, room: torch.Tensor | None):
+                       lengths: torch.Tensor, room: torch.Tensor | None,
+                       group=None):
     """One-token attention against one layer's cache ``[B, C, KH, D]``;
     writes the new K/V rows at ``lengths`` IN PLACE and returns (out,
     k cache, v cache).  With ``room`` ([B] bool), a row without room
     keeps its cache as it is (its write goes to row C - 1 unchanged).
     A hybrid cache is a ring of ``window`` rows: the row goes to slot
     ``lengths % window`` and attention reads ``min(lengths + 1,
-    window)`` rows."""
+    window)`` rows.  ``group`` as in :func:`_attention_full` (the
+    cache holds this rank's KV heads)."""
     b = h.shape[0]
     positions = _decode_positions(cfg, lengths)
-    q, k, v = _qkv(p, cfg, h)
+    q, k, v = _qkv(p, cfg, copy_to(h, group))
     q = _rope(cfg, q, positions)
     k = _rope(cfg, k, positions)
     if cfg.family == "hybrid":                     # ring buffer
@@ -936,33 +1205,35 @@ def _decode_attn_dense(p: dict, cfg: ModelConfig, h: torch.Tensor,
         state_v[ar, slot] = v[:, 0]
         valid = torch.clamp(lengths + 1, max=window)
         out = ops.decode_bshd(q, state_k, state_v, valid)
-        out = out.reshape(b, 1, -1) @ p["wo"]
+        out = reduce_sum(out.reshape(b, 1, -1) @ p["wo"], group)
         return out, state_k, state_v
     _write_row(state_k, k[:, 0], lengths, room)
     _write_row(state_v, v[:, 0], lengths, room)
     out = ops.decode_bshd(q, state_k, state_v, lengths + 1)
-    out = out.reshape(b, 1, -1) @ p["wo"]
+    out = reduce_sum(out.reshape(b, 1, -1) @ p["wo"], group)
     return out, state_k, state_v
 
 
 def _decode_attn_mla(p: dict, cfg: ModelConfig, h: torch.Tensor,
                      ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
-                     lengths: torch.Tensor, room: torch.Tensor | None):
+                     lengths: torch.Tensor, room: torch.Tensor | None,
+                     group=None):
     """Absorbed MLA decode: scores in latent space, no K/V expansion.
     Writes the new latent rows at ``lengths`` IN PLACE (``room`` as in
     :func:`_decode_attn_dense`).  W_uk is absorbed into q (each latent
     head repeated over its query group), and q is rescaled by
     ``sqrt((r + dr) / (hd + dr))`` rounded to q's dtype, in q's dtype,
     as the reference does before the decode attention's own
-    ``1/sqrt(r + dr)``."""
+    ``1/sqrt(r + dr)``.  ``group`` as in :func:`_attention_full`: this
+    rank's heads over the whole latent cache."""
     b = h.shape[0]
-    r, dr, hd, nh = (cfg.kv_lora_rank, cfg.rope_head_dim, cfg.hd,
-                     cfg.n_heads)
-    kh = cfg.n_kv_heads
-    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, h, lengths[:, None])
+    r, dr, hd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.hd
+    q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, h, lengths[:, None],
+                                            group)
     _write_row(ckv_cache, c_kv[:, 0], lengths, room)
     _write_row(krope_cache, k_rope[:, 0], lengths, room)
-    g = nh // kh
+    kh = p["wuk"].shape[-1] // hd
+    g = q_nope.shape[2] // kh
     wuk = p["wuk"].reshape(r, kh, hd).repeat_interleave(g, dim=1)
     q_eff = torch.einsum("bshe,rhe->bshr", q_nope, wuk)    # [B,1,H,r]
     # rounded to q's dtype on the host; the product rounds in q's dtype
@@ -973,7 +1244,7 @@ def _decode_attn_mla(p: dict, cfg: ModelConfig, h: torch.Tensor,
                              lengths + 1)                  # [B,H,r]
     wuv = p["wuv"].reshape(r, kh, hd).repeat_interleave(g, dim=1)
     out = torch.einsum("bhr,rhe->bhe", out_lat, wuv)
-    out = out.reshape(b, 1, -1) @ p["wo"]
+    out = reduce_sum(out.reshape(b, 1, -1) @ p["wo"], group)
     return out, ckv_cache, krope_cache
 
 
@@ -997,9 +1268,11 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
     as the JAX reference drops such writes.  Hybrid rings and ssm states
     never fill.  ``rt`` as in :func:`prefill`."""
     check_supported(cfg, rt)
+    tp = tp_plan(cfg, rt)
+    ag = tp.over(tp.attn)
     lengths = state["lengths"]
     new_state = dict(state)
-    x = embed_tokens(params, cfg, tokens.to(lengths.device)[:, None])
+    x = embed_tokens(params, cfg, tokens.to(lengths.device)[:, None], rt)
     if cfg.family == "audio":
         x = x + _sinusoidal(lengths, cfg.d_model, x.dtype)[:, None]
     if cfg.family == "ssm":
@@ -1034,10 +1307,11 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
             if cfg.is_mla:
                 attn, _, _ = _decode_attn_mla(
                     lp, cfg, h, state["ckv"][i], state["krope"][i],
-                    lengths, room)
+                    lengths, room, ag)
             else:
                 attn, _, _ = _decode_attn_dense(
-                    lp, cfg, h, state["k"][i], state["v"][i], lengths, room)
+                    lp, cfg, h, state["k"][i], state["v"][i], lengths, room,
+                    ag)
             if mamba is not None:
                 mst = ssm_lib.GlsState(*(leaf[i] for leaf in mamba))
                 my, mst2 = _mamba_mix(lp, cfg, h, mst, decode=True)
@@ -1047,12 +1321,14 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
             x = x + attn
             if "xk" in state:
                 hx = _norm(lp, "lnx", x, cfg)
-                q = (hx @ lp["xwq"]).reshape(-1, 1, cfg.n_heads, cfg.hd)
+                q = (copy_to(hx, ag) @ lp["xwq"]).reshape(
+                    x.shape[0], 1, -1, cfg.hd)
                 xatt = ops.decode_bshd(q, state["xk"][i], state["xv"][i],
                                        enc_len)
-                x = x + xatt.reshape(x.shape[0], 1, -1) @ lp["xwo"]
+                x = x + reduce_sum(
+                    xatt.reshape(x.shape[0], 1, -1) @ lp["xwo"], ag)
             if cfg.is_moe or cfg.d_ff:
                 x = x + _mlp(lp, cfg, _norm(lp, "ln2", x, cfg), rt)
     new_state["lengths"] = lengths + 1
-    logits = lm_head(params, cfg, x)[:, 0]
+    logits = lm_head(params, cfg, x, rt)[:, 0]
     return logits, new_state

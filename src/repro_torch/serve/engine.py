@@ -37,12 +37,15 @@ The engine runs on the device that holds the parameters.  With ``rt``
 ranks), a served MoE takes expert parallelism as the reference's does:
 every rank runs the same engine on the same requests, in lock step
 (each step's collectives pair up), holding its slice of the expert
-leaves.  The slots are sharded over the mesh's batch axes (``("pod",
-"data")``) as the reference's ``shard_map`` shards them:
+leaves, and the cut leaves tensor-parallel over ``"model"``
+(``tp_plan``).  The slots are sharded over the mesh's batch axes
+(``("pod", "data")``) as the reference's ``shard_map`` shards them:
 ``max_batch`` must divide by their size, each rank prefills and
 decodes its own rows of the slots (``make_global_batch``) and keeps
-their decode state, and the logits are all-gathered, so every rank
-holds every slot's next token.  A refill of one slot runs its request
+their decode state (under tensor parallelism, its KV heads' cache),
+and the logits are all-gathered over the batch axes and, where the
+vocab is cut, over ``"model"``, so every rank holds every slot's next
+token.  A refill of one slot runs its request
 once on each rank of the batch axes (one row each, so that every
 rank's EP block takes part) and only the slot's owner keeps its
 state; the reference's ``shard_map`` refuses a batch of one on such a
@@ -58,12 +61,14 @@ import torch
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import make_global_batch
-from repro_torch.launch.mesh import Placement, batch_axes
+from repro_torch.launch.mesh import batch_axes
 from repro_torch.models.transformer import (
     Runtime,
+    constrain,
     decode_step,
     prefill,
     state_fills,
+    tp_plan,
 )
 
 
@@ -172,11 +177,14 @@ class ServingEngine:
         return make_global_batch({"t": t}, self.rt.mesh)["t"]
 
     def _all_logits(self, logits: torch.Tensor) -> np.ndarray:
-        """Every slot's logits from this rank's rows (a collective on a
-        mesh), as a float32 host copy."""
-        if self.rt.mesh is not None:
-            logits = Placement(self.rt.mesh,
-                               (batch_axes(self.rt.mesh),)).gather(logits)
+        """Every slot's logits over the whole vocab from this rank's rows
+        (and, under tensor parallelism, its vocab columns): a collective
+        on a mesh, as a float32 host copy."""
+        mesh = self.rt.mesh
+        if mesh is not None:
+            vocab = "model" if tp_plan(self.cfg, self.rt).vocab else None
+            logits = constrain(logits, self.rt, None, None,
+                               have=(batch_axes(mesh), vocab))
         return _host_logits(logits)
 
     def _prefill_inputs(self, toks: np.ndarray) -> dict:

@@ -48,7 +48,7 @@ import numpy as np
 import torch
 import torch.distributed as dist
 
-from repro_torch.launch.mesh import gather_tree, shard_tree
+from repro_torch.launch.mesh import all_reduce, gather_tree, shard_tree
 from repro_torch.train._tree import describe, leaves, tree_map, unflatten
 
 _TORCH_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32,
@@ -85,7 +85,7 @@ def _commit_point(mesh) -> None:
     """Every rank of ``mesh`` waits here for the writer (an all-reduce
     over the world)."""
     flag = torch.zeros(1, device=mesh.device)
-    dist.all_reduce(flag)
+    all_reduce(flag, dist.group.WORLD)
 
 
 def save_checkpoint(directory: str | pathlib.Path, step: int, tree: Any,

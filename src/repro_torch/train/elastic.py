@@ -25,11 +25,7 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import DataConfig, SyntheticLMStream
 from repro_torch.launch.mesh import shard_tree
-from repro_torch.models.transformer import (
-    Runtime,
-    init_params,
-    param_specs,
-)
+from repro_torch.models.transformer import Runtime, init_params
 from repro_torch.train.checkpoint import (
     AsyncCheckpointer,
     latest_step,
@@ -79,7 +75,6 @@ def run_elastic(run: ElasticRun, *, total_steps: int,
         placements = train_placements(run.cfg, run.tcfg, rt)
         params = shard_tree(params, placements["params"])
         opt_state = adamw_init(params, run.tcfg.optimizer,
-                               specs=param_specs(run.cfg),
                                placements=placements["params"])
     else:
         opt_state = adamw_init(params, run.tcfg.optimizer)

@@ -24,8 +24,8 @@ from __future__ import annotations
 from typing import Any
 
 import torch
-import torch.distributed as dist
 
+from repro_torch.launch.mesh import all_reduce
 from repro_torch.train._tree import leaves, tree_map, unflatten
 
 
@@ -38,12 +38,11 @@ def _quantize(g: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
     return q, scale
 
 
-def _all_reduce(t: torch.Tensor, group, op=dist.ReduceOp.SUM
-                ) -> torch.Tensor:
+def _all_reduce(t: torch.Tensor, group, op: str = "sum") -> torch.Tensor:
     """A reduced copy of ``t`` over ``group`` (``None``: one rank)."""
     t = t.clone()
     if group is not None:
-        dist.all_reduce(t, op=op, group=group)
+        all_reduce(t, group, op)
     return t
 
 
@@ -61,7 +60,7 @@ def compressed_psum(g: torch.Tensor, group, *,
     q, scale = _quantize(g)
     # int32 sum (int8 accumulation overflows); the scale's max over ranks
     total = _all_reduce(q.to(torch.int32), group)
-    scale = _all_reduce(scale, group, dist.ReduceOp.MAX)
+    scale = _all_reduce(scale, group, "max")
     return (total.float() * scale).to(g.dtype)
 
 

@@ -4,7 +4,7 @@ cast points (bf16 or float32 moments, weight decay on tensors of two or
 more dims, the clip scale ``min(1, clip / max(norm, 1e-12))``, bias
 corrections from the step count as float32).
 
-  - ``adamw_init(params, cfg, specs=, placements=)`` → opt_state
+  - ``adamw_init(params, cfg, placements=)`` → opt_state
     ``{"m", "v", "count"}``
   - ``adamw_update(grads, opt_state, params, cfg, placements=,
     moments=)`` → (params, state, metrics)
@@ -13,13 +13,16 @@ On a mesh of ranks (``placements``: each parameter leaf's
 :class:`~repro_torch.launch.mesh.Placement`) the gradients are the
 reduced ones, each rank holding the leaves' blocks as the parameters
 do; the clip's norm sums every block's squares over the axes the leaf
-is cut on.  ``zero_shard`` (ZeRO-2): each moment is cut over
-``"data"`` along the axis the reference's ``_zero_spec`` picks (the
-first axis its spec leaves unsharded that divides by the ``"data"``
-size; a leaf already over ``"data"``, as the routed experts, is left
-alone); a rank keeps its slice of such moments, updates its slice of
-the parameter and all-gathers the parameter over ``"data"``.  ZeRO on
-and off give the same bits.
+is cut on (a block that a group of ranks holds, a
+:class:`~repro_torch.launch.mesh.Part`, once).  ``zero_shard``
+(ZeRO-2): each moment is cut over ``"data"`` along the axis the
+reference's ``_zero_spec`` picks from the parameter's placement (the
+first axis it leaves whole that divides by the ``"data"`` size; a leaf
+already over ``"data"``, as the routed experts, is left alone), so the
+cut composes with the parameter's over ``"model"``; a rank keeps its
+slice of such moments, updates its slice of the parameter and
+all-gathers the parameter over ``"data"``.  ZeRO on and off give the
+same bits.
 
 Deliberate differences from the reference: ``adamw_init`` returns the
 state alone (the moments' placements come from
@@ -36,9 +39,14 @@ import math
 from typing import Any
 
 import torch
-import torch.distributed as dist
 
-from repro_torch.launch.mesh import Placement, all_gather_axis, mesh_axes
+from repro_torch.launch.mesh import (
+    Part,
+    Placement,
+    all_gather_axis,
+    all_reduce,
+    mesh_axes,
+)
 from repro_torch.train._tree import leaves, tree_map, unflatten
 
 
@@ -83,38 +91,32 @@ def _zero_spec(spec: tuple, shape: tuple[int, ...], data_size: int
     return tuple(parts)
 
 
-def moment_placements(cfg: AdamWConfig, placements: Any, specs: Any,
+def moment_placements(cfg: AdamWConfig, placements: Any,
                       shapes: Any) -> Any:
     """Each moment leaf's placement on the mesh of ``placements`` (the
     parameters'): its parameter's, or, where ``cfg.zero_shard`` and
-    :func:`_zero_spec` of the leaf's reference spec (``specs``, the
-    tree of ``param_specs``) and full shape (``shapes``, of
-    ``param_shapes``) cut a whole leaf over ``"data"``, that cut."""
+    :func:`_zero_spec` of the parameter's spec and full shape
+    (``shapes``, of ``param_shapes``) add a cut over ``"data"``, that
+    spec."""
     pls = leaves(placements)
     mesh = pls[0].mesh
     data = mesh.shape.get("data", 1)
     if not cfg.zero_shard or data == 1:
         return placements
     out = []
-    for pl, spec, shape in zip(pls, leaves(specs, tuples=True),
-                               leaves(shapes, tuples=True)):
-        zero = _zero_spec(spec, shape, data)
-        padded = tuple(spec) + (None,) * (len(shape) - len(spec))
-        if pl.spec or zero == padded:
-            out.append(pl)
-        else:
-            out.append(Placement(mesh, tuple(
-                "data" if z == "data" else None for z in zero)))
+    for pl, shape in zip(pls, leaves(shapes, tuples=True)):
+        zero = _zero_spec(pl.spec, shape, data)
+        padded = tuple(pl.spec) + (None,) * (len(shape) - len(pl.spec))
+        out.append(pl if zero == padded else Placement(mesh, zero))
     return unflatten(placements, out)
 
 
-def adamw_init(params: Any, cfg: AdamWConfig, *, specs: Any = None,
+def adamw_init(params: Any, cfg: AdamWConfig, *,
                placements: Any = None) -> dict:
     """Zero moments in ``cfg.moment_dtype`` and a step count of 0
     (int32), on the parameters' device: each moment of its parameter's
     shape, or, on a mesh (``placements``, the parameters' placement
-    tree, and ``specs``, ``param_specs`` of the model) with
-    ``cfg.zero_shard``, of this rank's ZeRO slice
+    tree) with ``cfg.zero_shard``, of this rank's ZeRO slice
     (:func:`moment_placements`)."""
     mdt = torch.bfloat16 if cfg.moment_dtype == "bfloat16" \
         else torch.float32
@@ -128,7 +130,7 @@ def adamw_init(params: Any, cfg: AdamWConfig, *, specs: Any = None,
                 "count": count}
     shapes = tree_map(lambda x, pl: pl.global_shape(tuple(x.shape)),
                       params, placements)
-    mpl = moment_placements(cfg, placements, specs, shapes)
+    mpl = moment_placements(cfg, placements, shapes)
 
     def zeros_on(x, pl, mp):
         shape = mp.local_shape(pl.global_shape(tuple(x.shape)))
@@ -143,13 +145,17 @@ def global_norm(tree: Any, placements: Any = None) -> torch.Tensor:
     """sqrt of the float32 sum of squares, summed over the leaves in
     flatten order; on a mesh (``placements``), the squares of the leaves
     cut over mesh axes are summed over those axes' ranks first (each
-    set of axes as one sum)."""
+    set of axes as one sum; a block held by ``k`` ranks of an axis, a
+    :class:`~repro_torch.launch.mesh.Part`, weighted ``1 / k``)."""
     if placements is None:
         sq = sum(torch.sum(torch.square(x.float())) for x in leaves(tree))
         return torch.sqrt(sq)
     whole, cut = [], {}
     for x, pl in zip(leaves(tree), leaves(placements)):
         s = torch.sum(torch.square(x.float()))
+        for e in pl.spec:
+            if isinstance(e, Part):
+                s = s * (e.parts / pl.mesh.shape[e.axis])
         axes = tuple(a for e in pl.spec for a in mesh_axes(e)
                      if pl.mesh.shape[a] > 1)
         (cut.setdefault(axes, []) if axes else whole).append(s)
@@ -158,7 +164,7 @@ def global_norm(tree: Any, placements: Any = None) -> torch.Tensor:
     for axes, parts in cut.items():
         part = sum(parts)
         for axis in axes:
-            dist.all_reduce(part, group=mesh.group(axis))
+            all_reduce(part, mesh.group(axis))
         sq = sq + part
     return torch.sqrt(sq)
 

@@ -19,7 +19,12 @@ the global count of valid labels, the gradients of the leaves not cut
 over ``"data"`` are summed over the batch axes (the routed experts
 under expert parallelism are already complete on their rank and are
 not), and AdamW updates each rank's blocks (``zero_shard``: ZeRO-2).
-The parameters and moments on a mesh are this rank's blocks
+The leaves cut over ``"model"`` (tensor parallelism) are summed over
+the batch axes only: the loss is the same on every ``"model"`` rank
+and is not summed there; a KV block that a group of ``"model"`` ranks
+holds (a :class:`~repro_torch.launch.mesh.Part`) sums its gradient over
+that group (:meth:`~repro_torch.launch.mesh.CardMesh.subgroup`).  The
+parameters and moments on a mesh are this rank's blocks
 (:func:`train_placements`).
 """
 
@@ -32,14 +37,19 @@ from typing import Any, Callable
 import torch
 
 from repro_torch.configs.base import ModelConfig
-from repro_torch.data.pipeline import make_global_batch
-from repro_torch.launch.mesh import Placement, batch_axes, mesh_axes
+from repro_torch.data.pipeline import batch_axis, make_global_batch
+from repro_torch.launch.mesh import (
+    Part,
+    Placement,
+    all_reduce,
+    batch_axes,
+    mesh_axes,
+)
 from repro_torch.models.transformer import (
     Runtime,
     forward_train,
     param_placements,
     param_shapes,
-    param_specs,
 )
 from repro_torch.train._tree import leaves, unflatten
 from repro_torch.train.optimizer import (
@@ -67,8 +77,7 @@ def train_placements(cfg: ModelConfig, tcfg: TrainConfig,
     (``moment_placements``) and the whole step count; the tree
     ``save_checkpoint`` and ``restore_checkpoint`` take."""
     pp = param_placements(cfg, rt)
-    mp = moment_placements(tcfg.optimizer, pp, param_specs(cfg),
-                           param_shapes(cfg))
+    mp = moment_placements(tcfg.optimizer, pp, param_shapes(cfg))
     count = Placement(rt.mesh, ())
     return {"params": pp, "opt": {"m": mp, "v": mp, "count": count}}
 
@@ -91,7 +100,9 @@ def value_and_grad(params: Any, cfg: ModelConfig, batch: dict,
 
 def reduce_grads(grads: list, placements: Any) -> list:
     """Each gradient (flatten order) of a leaf not cut over a batch axis
-    summed over the batch axes' ranks of the placements' mesh (in
+    summed over the batch axes' ranks of the placements' mesh, and a
+    block that a group of ranks holds (a
+    :class:`~repro_torch.launch.mesh.Part`) over that group (in
     place)."""
     mesh = leaves(placements)[0].mesh
     for g, pl in zip(grads, leaves(placements)):
@@ -99,7 +110,12 @@ def reduce_grads(grads: list, placements: Any) -> list:
         for axis in batch_axes(mesh):
             group = mesh.group(axis)
             if group is not None and axis not in cut:
-                torch.distributed.all_reduce(g, group=group)
+                all_reduce(g, group)
+        for e in pl.spec:
+            if isinstance(e, Part) and e.parts < mesh.shape[e.axis]:
+                group = mesh.subgroup(e.axis, e.parts)
+                if group is not None:
+                    all_reduce(g, group)
     return grads
 
 
@@ -111,7 +127,7 @@ def _rank_rows(batch: dict, mesh) -> dict:
     for axis in batch_axes(mesh):
         n *= mesh.shape[axis]
     for key, x in batch.items():
-        if x.shape[0] % n:
+        if x.shape[batch_axis(key, x)] % n:
             raise ValueError(f"train_step: {key} of shape "
                              f"{tuple(x.shape)} does not split over {n} "
                              "batch ranks")

@@ -410,8 +410,9 @@ def test_variants_the_port_does_not_read_raise_by_name(tmp_path,
                                                        monkeypatch):
     monkeypatch.setattr(dryrun, "ARTIFACTS", tmp_path)
     assert dryrun.variant_overrides("noremat") == {"remat": False}
-    for name in ("kvseq", "cap10", "int8disp", "cap10int8", "bigchunk",
-                 "donate", "kvseqdonate"):
+    assert dryrun.variant_overrides("cap10int8") == {
+        "capacity_factor": 1.0, "moe_dispatch_dtype": "int8"}
+    for name in ("kvseq", "bigchunk", "donate", "kvseqdonate"):
         with pytest.raises(ValueError, match=name):
             dryrun.run_cell("tinyllama-1.1b", "decode_32k", variant=name)
     with pytest.raises(ValueError, match="unknown"):

@@ -48,6 +48,7 @@ WIRES = ("native", "int8")
 E, K, D, F, B, S = 8, 2, 16, 32, 4, 8
 ARCH = "deepseek-v2-lite-16b"
 TOKENS_B, TOKENS_S, CACHE, DECODE = 4, 12, 16, 2
+INT8_CF = 8.0                               # the model's int8 wire drops nothing
 ENGINE = {"max_batch": 4, "cache_len": 24, "max_new_tokens": 5,
           "eos_token": -1}                  # no token ends a request early
 
@@ -145,6 +146,23 @@ REF_SCRIPT = textwrap.dedent("""
                     "grads": jax.tree.map(np.asarray, grads),
                     "logits": steps}
 
+    cfg8 = dataclasses.replace(cfg, moe_dispatch_dtype="int8",
+                               capacity_factor=d["int8_cf"])
+    with mesh:
+        loss8 = jax.jit(lambda p, b: tf.forward_train(p, cfg8, b, rt))(
+            params, batch)
+        calls, records[:] = [], []
+        jax.lax.all_to_all = recording
+        try:
+            logits8, _ = jax.jit(lambda p, b: tf.prefill(
+                p, cfg8, b, rt, d["cache"]))(params,
+                                             {"tokens": batch["tokens"]})
+            jax.block_until_ready(logits8)
+        finally:
+            jax.lax.all_to_all = a2a
+    out["int8"] = {"loss": float(loss8), "logits": np.asarray(logits8),
+                   "wire": list(records)}
+
     from repro.serve.engine import EngineConfig, ServingEngine
     from test_torch_ep import serve
 
@@ -181,7 +199,7 @@ def _model_inputs() -> dict:
     labels[0, :3] = -1
     prompts = [rng.integers(1, rcfg.vocab_size, n).astype(np.int32)
                for n in (5, 9, 3, 7, 4)]
-    return {"arch": ARCH, "cache": CACHE,
+    return {"arch": ARCH, "cache": CACHE, "int8_cf": INT8_CF,
             "params": jax.tree.map(np.asarray, params),
             "batch": {"tokens": toks, "labels": labels},
             "feed": [rng.integers(1, rcfg.vocab_size, TOKENS_B)
@@ -248,7 +266,7 @@ def _model_rank(rank, inp):
     from repro_torch.configs import get_config
     from repro_torch.convert import shard_lm_params
     from repro_torch.data.pipeline import make_global_batch
-    from repro_torch.launch.mesh import gather_tree, make_mesh
+    from repro_torch.launch.mesh import Placement, gather_tree, make_mesh
     from repro_torch.models.transformer import (
         Runtime,
         decode_step,
@@ -271,14 +289,17 @@ def _model_rank(rank, inp):
     full = gather_tree(unflatten(params, grads), placements)
     logits, state = prefill(params, cfg, {"tokens": batch["tokens"]},
                             inp["cache"], rt=rt)
-    steps = [logits.numpy()]
+    # this rank's rows, over the vocab columns of every "model" rank
+    vocab = Placement(mesh, (None, "model"))
+    steps = [vocab.gather(logits).numpy()]
     for tok in inp["feed"]:
         mine = make_global_batch({"t": tok}, mesh)["t"]
         logits, state = decode_step(params, cfg, state, mine, rt=rt)
-        steps.append(logits.numpy())
+        steps.append(vocab.gather(logits).numpy())
     ecfg = EngineConfig(**inp["engine"])
     nodrop = dataclasses.replace(cfg, capacity_factor=float(cfg.n_experts))
     return {"coords": (mesh.coord("data"), mesh.coord("model")),
+            "int8": _int8_model(params, cfg, batch, inp, rt, vocab),
             "loss": float(loss),
             "grads": [g.numpy() for g in leaves(full)],
             "logits": steps,
@@ -286,6 +307,34 @@ def _model_rank(rank, inp):
                             [inp["prompts"]]),
             "refill": serve(ServingEngine(nodrop, params, ecfg, rt),
                             inp["waves"])}
+
+
+def _int8_model(params, cfg, batch, inp, rt, vocab):
+    """The int8 wire on the model at ``INT8_CF``: the loss, this rank's
+    prefill logits over every vocab column, and the payloads prefill's
+    all-to-alls were given (four a MoE layer: the dispatch's codes and
+    scales, then the combine's)."""
+    from repro_torch.models.transformer import forward_train, prefill
+
+    cfg8 = dataclasses.replace(cfg, moe_dispatch_dtype="int8",
+                               capacity_factor=inp["int8_cf"])
+    with torch.no_grad():
+        loss = forward_train(params, cfg8, batch, rt)
+        records = []
+        inner = moe._all_to_all
+
+        def recording(t, group):
+            records.append(t.detach().clone().numpy())
+            return inner(t, group)
+
+        moe._all_to_all = recording
+        try:
+            logits, _ = prefill(params, cfg8, {"tokens": batch["tokens"]},
+                                inp["cache"], rt=rt)
+        finally:
+            moe._all_to_all = inner
+    return {"loss": float(loss), "logits": vocab.gather(logits).numpy(),
+            "wire": records}
 
 
 # ------------------------------------------------------------- fixtures
@@ -479,3 +528,58 @@ def test_engine_on_a_mesh_needs_slots_that_divide():
     engine = ServingEngine(cfg, params, EngineConfig(max_batch=4),
                            Runtime(mesh))
     assert engine._rows == 2
+
+
+
+def test_deepseek_int8_wire_on_ep_and_tp_matches_reference(runs):
+    """The int8 wire under EP + TP on (2,2), where the shared experts
+    are cut over "model": the loss and prefill logits match the
+    reference's; every int8 code prefill hands an all-to-all is the
+    reference's bit for bit and every scale within 1e-5 relative (the
+    rows they quantize differ by rounding); and each combine payload is
+    the same on both "model" ranks of a data line, since the wire
+    quantizes the sum over "model", not each rank's partial."""
+    ref, inp, _, port = runs
+    want = ref["int8"]
+    half = TOKENS_B // 2
+    ref_wire = {}
+    for call, i, j, v in want["wire"]:      # the layers in order
+        ref_wire.setdefault((call, i, j), []).append(v)
+    by_coords = {}
+    for res in port:
+        got = res["int8"]
+        i, j = res["coords"]
+        by_coords[i, j] = got["wire"]
+        assert got["loss"] == pytest.approx(want["loss"], rel=1e-5)
+        exp = want["logits"][i * half:(i + 1) * half]
+        tol = 1e-4 * float(np.abs(exp).max())
+        assert float(np.abs(got["logits"] - exp).max()) <= tol
+        assert len(got["wire"]) == 4 * len(ref_wire[0, i, j])
+        for n, payload in enumerate(got["wire"]):
+            exp = ref_wire[n % 4, i, j][n // 4]
+            assert payload.dtype == exp.dtype and \
+                payload.shape == exp.shape, n
+            if payload.dtype == np.int8:
+                assert np.array_equal(payload, exp), (n, i, j)
+            else:
+                np.testing.assert_allclose(payload, exp, rtol=1e-5,
+                                           atol=0, err_msg=str((n, i, j)))
+    for (i, j), wire in by_coords.items():
+        for n in range(2, len(wire), 4):     # the combine's codes, scales
+            for payload, other in zip(wire[n:n + 2],
+                                      by_coords[i, 1 - j][n:n + 2]):
+                assert np.array_equal(payload.view(np.uint8),
+                                      other.view(np.uint8)), (n, i, j)
+
+
+def test_unreduced_partial_needs_the_native_wire():
+    """Only the native wire hands back a partial sum over the tp axis:
+    the int8 wire must quantize the sum, as the reference's does."""
+    from repro_torch.launch.mesh import CardMesh
+
+    mesh = CardMesh(torch.device("cpu"), ("data", "model"), (1, 1))
+    dims = moe.MoeDims(E, K, D, F, dispatch_dtype="int8")
+    args = [torch.zeros(shape) for shape in
+            ((B, S, D), (D, E), (E, D, F), (E, D, F), (E, F, D))]
+    with pytest.raises(ValueError, match="native wire"):
+        moe.moe_ffn_ep(*args, dims, mesh, reduce=False)

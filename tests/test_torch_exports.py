@@ -58,17 +58,12 @@ OMITTED = {
     # the reference's TPU adapter: its counterparts carry the card's name
     # (GpuLayerCost, build_gpu_problem; RENAMED below)
     "core.tpu_adapter": {"TpuLayerCost", "build_tpu_problem"},
-    # the production meshes of 256 and 512 devices (Queue 1, item 5b)
-    "launch.mesh": {"make_production_mesh"},
-    # the XLA HLO collective parser; its counterpart counts the port's
-    # torch.distributed calls (Queue 1, item 5b)
+    # the XLA HLO collective parser; its counterpart sums the port's own
+    # logged collectives (repro_torch.launch._count.collective_totals)
     "launch.dryrun": {"parse_collective_bytes"},
     # the jnp attention oracles (the kernels' plain versions stand in)
     "models.layers": {"AttnChunks", "decode_attention_jnp",
                       "flash_attention_jnp"},
-    # sharding constraints on activations, with tensor parallelism of
-    # the dense leaves over "model" (Queue 1, item 5b)
-    "models.transformer": {"constrain"},
 }
 
 

@@ -180,7 +180,7 @@ def _train_rank(rank, inp):
     from repro_torch.configs import get_config
     from repro_torch.convert import shard_lm_params
     from repro_torch.launch.mesh import gather_tree, make_mesh
-    from repro_torch.models.transformer import Runtime, param_specs
+    from repro_torch.models.transformer import Runtime
     from repro_torch.train._tree import leaves
     from repro_torch.train.checkpoint import save_checkpoint
     from repro_torch.train.optimizer import AdamWConfig, adamw_init
@@ -204,7 +204,6 @@ def _train_rank(rank, inp):
             pl = train_placements(cfg, tcfg, rt)
             params = shard_lm_params(job["params"], cfg, rt)
             state = adamw_init(params, tcfg.optimizer,
-                               specs=param_specs(cfg),
                                placements=pl["params"])
             step = make_train_step(cfg, tcfg, rt)
             losses = []
