@@ -1126,6 +1126,7 @@ def attention_phase() -> list[dict]:
     f32_plan_check()
     prefill_rows(rows, gen)
     decode_rows(rows, gen)
+    lse_rows(rows, gen)
     window_rows(rows, gen)
     ring_rows(rows, gen)
     family_rows(rows, gen)
@@ -1261,6 +1262,146 @@ def decode_rows(rows: dict, gen) -> None:
         print(f"  bytes {nbytes}  operations {ops}  library max abs err "
               f"vs plain {lib_err}", flush=True)
         del q, k, v, got, want
+
+
+# the decode kernels with their log-sum-exp output, at one rank's slice
+# of a cache cut by sequence (shard_kv_seq: tinyllama-1.1b's 2048 rows
+# over "model" = 4): (b, s, kh, h, d, dtype) for flash_decode, (b, s, h,
+# dtype) for the MLA decode (deepseek-v2-lite's 16 heads); lengths from
+# [0, S] with a full and an empty slice
+LSE_DECODE_SHAPES = ((16, 512, 4, 32, 64, "bfloat16"),
+                     (16, 512, 4, 32, 64, "float32"))
+LSE_MLA_SHAPES = ((16, 512, 16, "bfloat16"), (16, 512, 16, "float32"))
+#: lse against its plain version, x max |lse| of the row (fixed before
+#: the first run; PERF.md section 2)
+LSE_TOL = 1e-5
+
+
+def _lse_err(got, want, lens) -> float:
+    """max |got - want| / max |want| over the rows of a valid position;
+    inf unless the empty rows read NEG_INF exactly."""
+    import torch
+
+    from repro_torch.kernels.flash_decode import NEG_INF
+
+    live = lens > 0
+    if not bool((got[~live] == NEG_INF).all()):
+        return float("inf")
+    if not bool(live.any()):
+        return 0.0
+    return (float((got[live] - want[live]).abs().max())
+            / float(want[live].abs().max()))
+
+
+def lse_rows(rows: dict, gen) -> None:
+    """``flash_decode`` and ``flash_decode_mla`` with their log-sum-exp
+    at LSE_DECODE_SHAPES / LSE_MLA_SHAPES against their plain versions
+    (out at ATTN_TOL, lse within LSE_TOL x max |lse|), their device ms
+    beside the same call without lse, with bound and SDPA ms; the JSON
+    line carries the bf16 rows as ``flash_decode_lse`` and
+    ``flash_decode_mla_lse``."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_decode as fd
+
+    lrng = np.random.default_rng(2)
+
+    def lengths(b, s):
+        lens = lrng.integers(0, s + 1, size=b).astype(np.int32)
+        lens[0], lens[-1] = s, 0            # a full and an empty slice
+        return lens
+
+    for b, s, kh, h, d, dtype in LSE_DECODE_SHAPES:
+        q = _randn(gen, b, h, d, dtype=dtype)
+        k = _randn(gen, b, s, kh, d, dtype=dtype)
+        v = _randn(gen, b, s, kh, d, dtype=dtype)
+        lens_np = lengths(b, s)
+        lens = torch.from_numpy(lens_np).to(DEVICE)
+        got, lse = fd.flash_decode(q, k, v, lens, with_lse=True)
+        want, want_lse = fd.flash_decode_plain(q, k, v, lens, with_lse=True)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        lse_err = _lse_err(lse, want_lse, lens)
+        label = f"B={b} S={s} {h}/{kh} heads D={d} {dtype} lse"
+        check(err <= ATTN_TOL[dtype] and lse_err <= LSE_TOL,
+              f"flash_decode with lse != plain at {label}: out {err}, lse "
+              f"{lse_err}")
+        mask = (torch.arange(s, device=DEVICE)[None, :]
+                < lens[:, None])[:, None, None, :]
+        qs, ks, vs = q[:, :, None], k.permute(0, 2, 1, 3), \
+            v.permute(0, 2, 1, 3)
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True)[:, :, 0]
+
+        bound, by, nbytes, ops = decode_bound(
+            h, kh, d, [int(x) for x in lens_np], dtype)
+        # + the float32 lse written
+        bound, by, _, _ = _bound_typed(nbytes + 4 * b * h, ops, dtype)
+        kernel = lambda: fd.flash_decode(q, k, v, lens,  # noqa: E731
+                                         with_lse=True)
+        plain = lambda: fd.flash_decode(q, k, v, lens)  # noqa: E731
+        _kernel_row(rows, "flash_decode_lse" + (
+            "" if dtype == "bfloat16" else "_f32"), label, time_ms(kernel),
+                    time_ms(lambda: fd.flash_decode_plain(
+                        q, k, v, lens, with_lse=True)),
+                    bound, by, err, time_ms(library), device_ms(kernel),
+                    kernel="flash_decode")
+        print(f"  lse max |dlse| / max |lse| {lse_err!r} (limit {LSE_TOL});"
+              f" the same call without lse: device {_ms(device_ms(plain))}",
+              flush=True)
+        del q, k, v, got, want
+    r, dr = fd.MLA_WIDTHS
+    for b, s, h, dtype in LSE_MLA_SHAPES:
+        args = (_randn(gen, b, h, r, dtype=dtype),
+                _randn(gen, b, h, dr, dtype=dtype),
+                _randn(gen, b, s, r, dtype=dtype),
+                _randn(gen, b, s, dr, dtype=dtype))
+        lens_np = lengths(b, s)
+        lens = torch.from_numpy(lens_np).to(DEVICE)
+        got, lse = fd.flash_decode_mla(*args, lens, with_lse=True)
+        want, want_lse = fd.flash_decode_mla_plain(*args, lens,
+                                                   with_lse=True)
+        torch.cuda.synchronize()
+        err = _max_abs_err(got, want)
+        lse_err = _lse_err(lse, want_lse, lens)
+        label = f"B={b} S={s} {h}/1 heads K={r}+{dr} V={r} {dtype} lse"
+        check(err <= ATTN_TOL[dtype] and lse_err <= LSE_TOL,
+              f"flash_decode_mla with lse != plain at {label}: out {err}, "
+              f"lse {lse_err}")
+        q_lat, q_rope, ckv, krope = args
+        qs = torch.cat([q_lat, q_rope], dim=-1)[:, :, None]
+        ks = torch.cat([ckv, krope], dim=-1)[:, None]
+        vs = F.pad(ckv, (0, dr))[:, None]
+        mask = (torch.arange(s, device=DEVICE)[None, :]
+                < lens[:, None])[:, None, None, :]
+
+        def library():
+            return F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask, enable_gqa=True)[:, :, 0, :r]
+
+        valid = int(lens_np.sum())
+        elt = 2 if dtype == "bfloat16" else 4
+        nbytes = (b * h * (r + dr) + b * h * r + valid * (r + dr)) * elt \
+            + 4 * b + 4 * b * h
+        bound, by, _, _ = _bound_typed(nbytes, 2 * (2 * r + dr) * h * valid,
+                                       dtype)
+        kernel = lambda: fd.flash_decode_mla(  # noqa: E731
+            *args, lens, with_lse=True)
+        plain = lambda: fd.flash_decode_mla(*args, lens)  # noqa: E731
+        _kernel_row(rows, "flash_decode_mla_lse" + (
+            "" if dtype == "bfloat16" else "_f32"), label, time_ms(kernel),
+                    time_ms(lambda: fd.flash_decode_mla_plain(
+                        *args, lens, with_lse=True)),
+                    bound, by, err, time_ms(library), device_ms(kernel),
+                    kernel="flash_decode_mla")
+        print(f"  lse max |dlse| / max |lse| {lse_err!r} (limit {LSE_TOL});"
+              f" the same call without lse: device {_ms(device_ms(plain))}",
+              flush=True)
+        del args, got, want, qs, ks, vs
 
 
 # (b, h, kh, sq, sk, d, window, dtype): hymba-1.5b's prefill (25 query
@@ -1955,6 +2096,12 @@ def _counts() -> dict:
             for name, n in mod.LAUNCHES.items()}
 
 
+#: the lse rows' kernels, launched on the path by (e) (the kvseq decode,
+#: float32)
+SEQ_ROWS = {"flash_decode_lse": "flash_decode",
+            "flash_decode_lse_f32": "flash_decode",
+            "flash_decode_mla_lse": "flash_decode_mla",
+            "flash_decode_mla_lse_f32": "flash_decode_mla"}
 #: the attention kernels a launcher's model runs (MLA decodes on its own
 #: kernel; an ssm model runs none)
 ATTENTION_KERNELS = ("flash_attention", "flash_decode")
@@ -6262,10 +6409,11 @@ def _held(*trees) -> int:
     return sum(seen.values())
 
 
-def _tp_exact(rank: int, mesh) -> dict:
-    """(d) on (2,2): one train, prefill and decode step of each
-    MESH_TP_CONFIGS model at MESH_TP_EXACT, each under a collective log:
-    {(arch, kind): (log, bytes held)}."""
+def _tp_exact(rank: int, mesh, models: dict = MESH_TP_CONFIGS,
+              kinds: tuple = ("train", "prefill", "decode")) -> dict:
+    """(d), (e), (f) on (2,2): one step of each kind of ``kinds`` of
+    each model of ``models`` (arch → config overrides) at MESH_TP_EXACT,
+    each under a collective log: {(arch, kind): (log, bytes held)}."""
     import torch
 
     from repro_torch.configs import get_config
@@ -6279,26 +6427,28 @@ def _tp_exact(rank: int, mesh) -> dict:
     rt = tf.Runtime(mesh)
     rows, seq = MESH_TP_EXACT
     out = {}
-    for arch, overrides in MESH_TP_CONFIGS.items():
+    for arch, overrides in models.items():
         cfg = dataclasses.replace(get_config(arch), **overrides)
         pls = tf.param_placements(cfg, rt)
         params = shard_tree(tf.init_params(
             cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE), pls)
-        ocfg = dryrun.train_optimizer(cfg, mesh)
-        opt = adamw_init(params, ocfg, placements=pls)
         host = _lm_batch(cfg.vocab_size, rows, seq, 5)
-        step = make_train_step(cfg, TrainConfig(optimizer=ocfg), rt)
-        held = _held(params, opt)       # the step cuts its rows from host
-        with log_collectives() as log:
-            step(params, opt, host)
-        out[arch, "train"] = (list(log), held)
-        del opt
+        if "train" in kinds:
+            ocfg = dryrun.train_optimizer(cfg, mesh)
+            opt = adamw_init(params, ocfg, placements=pls)
+            step = make_train_step(cfg, TrainConfig(optimizer=ocfg), rt)
+            held = _held(params, opt)   # the step cuts its rows from host
+            with log_collectives() as log:
+                step(params, opt, host)
+            out[arch, "train"] = (list(log), held)
+            del opt
         batch = make_global_batch(host, mesh)
         batch.pop("labels")
-        held = _held(params, batch)
-        with torch.no_grad(), log_collectives() as log:
-            tf.prefill(params, cfg, batch, cache_len=seq, rt=rt)
-        out[arch, "prefill"] = (list(log), held)
+        if "prefill" in kinds:
+            held = _held(params, batch)
+            with torch.no_grad(), log_collectives() as log:
+                tf.prefill(params, cfg, batch, cache_len=seq, rt=rt)
+            out[arch, "prefill"] = (list(log), held)
         with torch.no_grad():
             _, state = tf.prefill(params, cfg,
                                   {"tokens": batch["tokens"][:, :4]},
@@ -6314,7 +6464,8 @@ def _tp_exact(rank: int, mesh) -> dict:
     return out
 
 
-def tp_counted() -> dict:
+def tp_counted(models: dict = MESH_TP_CONFIGS,
+               kinds: tuple = ("train", "prefill", "decode")) -> dict:
     """The dry-run counter's collectives and argument bytes of the
     ``_tp_exact`` cells on an abstract (2,2) mesh (``meta``, this
     process)."""
@@ -6323,8 +6474,8 @@ def tp_counted() -> dict:
 
     rows, seq = MESH_TP_EXACT
     out = {}
-    for arch, overrides in MESH_TP_CONFIGS.items():
-        for kind in ("train", "prefill", "decode"):
+    for arch, overrides in models.items():
+        for kind in kinds:
             res = dryrun.count_cell(arch, ShapeCell(kind, seq, rows, kind),
                                     overrides, "pod2x2")
             out[arch, kind] = (res["collective_log"],
@@ -6567,11 +6718,16 @@ def tp_check(main: list, first: dict) -> None:
                                "flash_attention_bwd")),
               f"a rank of {shape} launched no attention kernel at its "
               "local head counts")
-    want = tp_counted()
+    exact_check("(d)", tp_counted(), [r["tp"]["exact"] for r in main])
+
+
+def exact_check(tag: str, want: dict, ranks: list) -> None:
+    """Each rank's logged collectives and held bytes of each counted
+    cell equal to the dry-run counter's, exactly."""
     for key, (log, held) in sorted(want.items()):
-        got = [r["tp"]["exact"][key] for r in main]
+        got = [r[key] for r in ranks]
         kinds = collections.Counter(k for k, _, _ in log)
-        print(f"mesh gloo (d) exact: {key[0]} {key[1]} on (2,2): "
+        print(f"mesh gloo {tag} exact: {key[0]} {key[1]} on (2,2): "
               f"{len(log)} collectives {dict(kinds)}, "
               f"{sum(b for _, _, b in log)} B; every rank's log equal "
               f"{all(g[0] == log for g in got)}; held bytes {held} equal "
@@ -6580,9 +6736,283 @@ def tp_check(main: list, first: dict) -> None:
               f"the dry-run counter's {key} differs from the ranks'")
 
 
-def mesh_phase() -> None:
-    """The world of one on NCCL, then four gloo ranks sharing the card;
-    the main path's kernels must launch in both."""
+# (e) the KV cache cut by sequence over "model" (shard_kv_seq) in a world
+# of four gloo ranks: tinyllama-1.1b (MESH_TP_LAYERS) and
+# deepseek-v2-lite (MLA's latent cache, MESH_EP_LAYERS, its experts on
+# the dense path so that both runs route alike) at full width, float32,
+# on each mesh of MESH_TP_MESHES against one process: a prefill of
+# max(MESH_SEQ_LENGTHS) tokens a row into a cache of MESH_SEQ_CACHE
+# rows, each row's length then set to one of MESH_SEQ_LENGTHS (the
+# state of a prefill of that many tokens: the layers are causal), and
+# MESH_SEQ_STEPS decode steps (one write crosses a slice's boundary;
+# some ranks hold no valid row of a sequence): logits within
+# MESH_LOGIT_TOL; tinyllama's engine tokens identical; on (2,2) one
+# decode step of each model counted exactly
+MESH_SEQ_CACHE = 2048
+MESH_SEQ_LENGTHS = (100, 505, 700, 1500)
+MESH_SEQ_STEPS = 8
+MESH_SEQ_CONFIGS = {ARCH: {"dtype": "float32", "n_layers": MESH_TP_LAYERS,
+                           "shard_kv_seq": True},
+                    DEEPSEEK: {"dtype": "float32",
+                               "n_layers": MESH_EP_LAYERS,
+                               "moe_impl": "dense", "remat": False,
+                               "shard_kv_seq": True}}
+# (f) xLSTM's mixers cut by heads: xlstm-350m at full width cut to
+# MESH_SSM_LAYERS (its one sLSTM block the last), float32, on each mesh
+# of MESH_TP_MESHES against one process: a prefill of (rows, tokens)
+# and decode steps (logits within MESH_LOGIT_TOL), a train batch of
+# (rows, tokens) (loss within MESH_LOSS_TOL, the reduced gradients,
+# gathered, within MESH_GRAD_TOL); on (2,2) a train, a prefill and a
+# decode step counted exactly
+MESH_SSM_LAYERS = 8
+MESH_SSM_CONFIGS = {XLSTM: {"dtype": "float32",
+                            "n_layers": MESH_SSM_LAYERS}}
+MESH_SSM_PARITY = (4, 512, 8)
+MESH_SSM_TRAIN = (4, 256)
+# the gradients' limit, fixed before the first run: MESH_GRAD_TOL, or
+# MESH_SSM_FLOOR_FACTOR x the floor where that is larger; the floor is
+# one process's gradients moved by the weights times (1 + 1e-7 N(0, 1))
+# (a rounding's worth): with random weights the mLSTM's gradients are
+# ill-conditioned (its normalizer max(|q.n|, exp(-m))), and a cut mixer
+# rounds its sums in another order.  CPU rehearsal, reduced xlstm at 8
+# layers: floor 4.66e-4, (1,4) 1.56e-3, (2,2) 8.4e-4 (PERF.md section 2)
+MESH_SSM_WEIGHT_NOISE = 1e-7
+MESH_SSM_FLOOR_FACTOR = 8
+
+
+def _seq_path(cfg, params, toks, lengths, feed, rt) -> list:
+    """(e)'s run: the prefill, the lengths set, the decode steps; every
+    step's logits (float32)."""
+    import torch
+
+    from repro_torch.models.transformer import decode_step, prefill
+
+    with torch.no_grad():
+        logits, st = prefill(params, cfg, {"tokens": toks}, MESH_SEQ_CACHE,
+                             rt=rt)
+        st["lengths"] = lengths.clone()
+        out = [logits.float()]
+        for tok in feed:
+            logits, st = decode_step(params, cfg, st, tok, rt=rt)
+            out.append(logits.float())
+        torch.cuda.synchronize()
+    return out
+
+
+def _full_logits(cfg, rt, logits: list) -> list:
+    """Every row's logits over the whole vocab from this rank's."""
+    from repro_torch.launch.mesh import batch_axes
+    from repro_torch.models import transformer as tf
+
+    vocab = "model" if tf.tp_plan(cfg, rt).vocab else None
+    have = (batch_axes(rt.mesh), vocab)
+    return [tf.constrain(x, rt, None, None, have=have) for x in logits]
+
+
+def _seq_rank(rank: int) -> dict:
+    """(e) on one rank: each MESH_SEQ_CONFIGS model on each mesh of
+    MESH_TP_MESHES against rank 0's one process, then the exact
+    counts."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.launch.mesh import make_mesh, shard_tree
+    from repro_torch.models import transformer as tf
+
+    _card_rank()
+    out = {}
+    n = len(MESH_SEQ_LENGTHS)
+    for arch, overrides in MESH_SEQ_CONFIGS.items():
+        cfg = dataclasses.replace(get_config(arch), **overrides)
+        full = tf.init_params(
+            cfg, torch.Generator(device=DEVICE).manual_seed(0), DEVICE)
+        toks = _tokens(cfg, n, max(MESH_SEQ_LENGTHS))
+        feed = _tokens(cfg, MESH_SEQ_STEPS, n, seed=3)
+        lengths = torch.tensor(MESH_SEQ_LENGTHS, dtype=torch.int32,
+                               device=DEVICE)
+        if rank == 0:
+            want = _seq_path(cfg, full, toks, lengths, feed, None)
+            if arch == ARCH:
+                engine_1 = _engine_rank(cfg, full, tf.Runtime())["tokens"]
+        for shape in MESH_TP_MESHES:
+            tic = time.perf_counter()
+            mesh = make_mesh(shape, device=DEVICE)
+            rt = tf.Runtime(mesh)
+            params = shard_tree(full, tf.param_placements(cfg, rt))
+
+            def rows(t):
+                return make_global_batch({"t": t}, mesh)["t"]
+
+            _reset_counts()
+            got = _seq_path(cfg, params, rows(toks), rows(lengths),
+                            [rows(t) for t in feed], rt)
+            res = {"counts": _counts()}
+            got = _full_logits(cfg, rt, got)
+            if rank == 0:
+                res["logits"] = _rel(want, got)
+            if arch == ARCH:
+                res["engine"] = _engine_rank(cfg, params, rt)
+                if rank == 0:
+                    res["engine_one"] = engine_1
+            del got, params
+            _free()
+            res["s"] = time.perf_counter() - tic
+            out[shape, arch] = res
+            if shape == (2, 2):
+                out.setdefault("exact", {}).update(_tp_exact(
+                    rank, mesh, {arch: overrides}, ("decode",)))
+        del full
+        _free()
+    return out
+
+
+def _ssm_rank(rank: int) -> dict:
+    """(f) on one rank: xlstm-350m on each mesh of MESH_TP_MESHES
+    against rank 0's one process, then the exact counts."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.launch.mesh import gather_tree, make_mesh, shard_tree
+    from repro_torch.models import transformer as tf
+    from repro_torch.train._tree import leaves, tree_map, unflatten
+    from repro_torch.train.trainer import reduce_grads, value_and_grad
+
+    _card_rank()
+    cfg = dataclasses.replace(get_config(XLSTM), **MESH_SSM_CONFIGS[XLSTM])
+    full = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                          DEVICE)
+    n, length, steps = MESH_SSM_PARITY
+    toks = _tokens(cfg, n, length)
+    feed = _tokens(cfg, steps, n, seed=3)
+    host = _lm_batch(cfg.vocab_size, *MESH_SSM_TRAIN, 4)
+    floor = None
+    if rank == 0:
+        want, _ = _path(cfg, full, {"tokens": toks}, length + steps, steps,
+                        [], feed=feed)
+        one = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
+        loss_1, grads_1 = value_and_grad(full, cfg, one)
+        gen = torch.Generator(device=DEVICE).manual_seed(5)
+        noisy = tree_map(lambda t: t * (1 + MESH_SSM_WEIGHT_NOISE * torch.randn(
+            t.shape, generator=gen, device=DEVICE)), full)
+        floor = _grad_err(value_and_grad(noisy, cfg, one)[1], grads_1)
+        del noisy
+    out = {"floor": floor}
+    for shape in MESH_TP_MESHES:
+        tic = time.perf_counter()
+        mesh = make_mesh(shape, device=DEVICE)
+        rt = tf.Runtime(mesh)
+        pl = tf.param_placements(cfg, rt)
+        params = shard_tree(full, pl)
+
+        def rows(t):
+            return make_global_batch({"t": t}, mesh)["t"]
+
+        got, _ = _path(cfg, params, {"tokens": rows(toks)}, length + steps,
+                       steps, [], feed=[rows(t) for t in feed], rt=rt)
+        got = _full_logits(cfg, rt, got)
+        loss, grads = value_and_grad(params, cfg,
+                                     make_global_batch(host, mesh), rt)
+        grads = reduce_grads(grads, pl)
+        g_full = leaves(gather_tree(unflatten(params, grads), pl))
+        res = {"heads": tf.tp_plan(cfg, rt).mix_heads(cfg)}
+        if rank == 0:
+            res["logits"] = _rel(want, got)
+            res["loss"] = abs(float(loss) - float(loss_1)) \
+                / abs(float(loss_1))
+            res["grads"] = _grad_err(g_full, grads_1)
+        del got, grads, g_full, params
+        _free()
+        res["s"] = time.perf_counter() - tic
+        out[shape] = res
+        if shape == (2, 2):
+            del full
+            _free()
+            out["exact"] = _tp_exact(rank, mesh, MESH_SSM_CONFIGS)
+    return out
+
+
+def _seq_ssm_rank(rank: int) -> dict:
+    """The second four-rank world: (e), then (f)."""
+    out = {"seq": _seq_rank(rank)}
+    _free()
+    out["ssm"] = _ssm_rank(rank)
+    return out
+
+
+def seq_ssm_gloo(root: pathlib.Path) -> dict:
+    """(e) and (f) in a world of four gloo ranks sharing the card;
+    returns rank 0's launches of the kernels (e) runs, by kernel."""
+    tic = time.perf_counter()
+    main = spawn_world(_seq_ssm_rank, 4, root / "seq_ssm")
+    first = main[0]
+    launches = collections.Counter()
+    for arch, kernel in ((ARCH, "flash_decode"),
+                         (DEEPSEEK, "flash_decode_mla")):
+        for shape in MESH_TP_MESHES:
+            res = first["seq"][shape, arch]
+            counts = [r["seq"][shape, arch]["counts"] for r in main]
+            launches[kernel] += res["counts"][kernel]
+            print(f"mesh gloo (e): {arch} float32 on {shape}, the cache of "
+                  f"{MESH_SEQ_CACHE} rows cut by sequence "
+                  f"({MESH_SEQ_CACHE // shape[1]} a rank), lengths "
+                  f"{MESH_SEQ_LENGTHS} + {MESH_SEQ_STEPS} decode steps: max "
+                  f"|dlogits| / max |logits| {res['logits']!r} (limit "
+                  f"{MESH_LOGIT_TOL}); launches by rank {json.dumps(counts)};"
+                  f" {res['s']:.3f} s (gloo: no performance figure)",
+                  flush=True)
+            check(res["logits"] <= MESH_LOGIT_TOL,
+                  f"kvseq decode of {arch} on {shape} differs from one "
+                  "process")
+            check(all(c[kernel] > 0 and c["flash_attention"] > 0
+                      for c in counts),
+                  f"a rank of {shape} launched no {kernel} with its lse or "
+                  "no prefill kernel")
+            if arch == ARCH:
+                engines = [r["seq"][shape, arch]["engine"] for r in main]
+                tokens = engines[0]["tokens"]
+                print(f"mesh gloo (e): ServingEngine(rt) kvseq on {shape}: "
+                      f"{json.dumps(tokens)}, the same on every rank "
+                      f"{all(e['tokens'] == tokens for e in engines)} and as "
+                      f"one process {tokens == res['engine_one']}",
+                      flush=True)
+                check(all(e["tokens"] == tokens and not e["truncated"]
+                          for e in engines) and tokens == res["engine_one"],
+                      f"the kvseq engine on {shape} served other tokens")
+    exact_check("(e)", tp_counted(MESH_SEQ_CONFIGS, ("decode",)),
+                [r["seq"]["exact"] for r in main])
+    n, length, steps = MESH_SSM_PARITY
+    floor = first["ssm"]["floor"]
+    grad_tol = max(MESH_GRAD_TOL, MESH_SSM_FLOOR_FACTOR * floor)
+    print(f"mesh gloo (f): one process's gradients under weights x (1 + "
+          f"{MESH_SSM_WEIGHT_NOISE} N(0, 1)): max |dg| / max |g| {floor!r} "
+          f"(the floor); gradient limit {grad_tol!r}", flush=True)
+    for shape in MESH_TP_MESHES:
+        res = first["ssm"][shape]
+        print(f"mesh gloo (f): {XLSTM} {MESH_SSM_LAYERS} layers float32 on "
+              f"{shape}, {res['heads']} head(s) a rank: prefill {n} x "
+              f"{length} + {steps} decode steps, max |dlogits| / max "
+              f"|logits| {res['logits']!r} (limit {MESH_LOGIT_TOL}); loss "
+              f"rel err {res['loss']!r} (limit {MESH_LOSS_TOL}); gradients "
+              f"max |dg| / max |g| {res['grads']!r} (limit {grad_tol!r}); "
+              f"{res['s']:.3f} s (gloo: no performance figure)", flush=True)
+        check(res["logits"] <= MESH_LOGIT_TOL
+              and res["loss"] <= MESH_LOSS_TOL
+              and res["grads"] <= grad_tol,
+              f"xLSTM's mixers cut on {shape} differ from one process")
+    exact_check("(f)", tp_counted(MESH_SSM_CONFIGS),
+                [r["ssm"]["exact"] for r in main])
+    print(f"phase mesh gloo (e, f): {time.perf_counter() - tic:.3f} s",
+          flush=True)
+    return dict(launches)
+
+
+def mesh_phase() -> dict:
+    """The world of one on NCCL, then four gloo ranks sharing the card,
+    then (e) and (f) in a second world of four; the main path's kernels
+    must launch in each.  Returns (e)'s launches of the decode kernels
+    with their lse, by kernel (rank 0)."""
     with tempfile.TemporaryDirectory() as tmp:
         root = pathlib.Path(tmp)
         tic = time.perf_counter()
@@ -6597,6 +7027,8 @@ def mesh_phase() -> None:
               flush=True)
         _free()
         mesh_gloo(root)
+        _free()
+        return seq_ssm_gloo(root)
 
 
 def mesh_only() -> int:
@@ -6604,6 +7036,8 @@ def mesh_only() -> int:
     libraries and run the mesh phase; no result line."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import flash_decode as fd
+
+    import torch
 
     libs = (fa.LIBRARY, fa.WGMMA_LIBRARY, fa.BWD_LIBRARY,
             fa.BWD_WGMMA_LIBRARY, fd.LIBRARY, fd.MLA_LIBRARY)
@@ -6615,7 +7049,10 @@ def mesh_only() -> int:
         lib.load()
     print(f"build: all in {time.perf_counter() - tic:.2f} s", flush=True)
     tic = time.perf_counter()
-    mesh_phase()
+    lse_rows({}, torch.Generator(device=DEVICE).manual_seed(0))
+    print(f"phase lse rows: {time.perf_counter() - tic:.3f} s", flush=True)
+    tic = time.perf_counter()
+    print(f"mesh: (e) launches {json.dumps(mesh_phase())}", flush=True)
     print(f"phase mesh: {time.perf_counter() - tic:.3f} s", flush=True)
     return 0
 
@@ -6635,20 +7072,32 @@ ADAPTER_SLACK = (1.2, 2.0, 4.0)
 POWER_SECONDS = 3.0            # each power condition, sampled every 100 ms
 POWER_GEMM = 8192              # bf16 GEMM of POWER_GEMM^3
 POWER_COPY_BYTES = 4 << 30     # device-to-device copy
+#: the cells dry-run on the one card (all 40 are counted on the CPU by
+#: tests/test_torch_dryrun.py and `python -m repro_torch.launch.dryrun
+#: --all`): the adapter's cell and tinyllama's decode and train cells
+DRYRUN_CARD_CELLS = (("qwen2-7b", "decode_32k"),
+                     ("tinyllama-1.1b", "decode_32k"),
+                     ("tinyllama-1.1b", "train_4k"))
 #: the cells dry-run on the production meshes (every cell of them is
-#: counted on the CPU: PERF.md); kimi-k2's train cell takes ZeRO.  Their
-#: passes run in this process: a spawned one costs more than they do
+#: counted on the CPU: PERF.md); kimi-k2's train cell takes ZeRO;
+#: xlstm-350m's train cell cuts its mixers by heads (each held by 4
+#: ranks).  Their passes run on DRYRUN_JOBS processes (xLSTM's per-token
+#: sLSTM loop takes the longest)
 DRYRUN_POD_CELLS = (("tinyllama-1.1b", "decode_32k"),
                     ("tinyllama-1.1b", "train_4k"),
                     ("deepseek-v2-lite-16b", "train_4k"),
-                    ("kimi-k2-1t-a32b", "train_4k"))
+                    ("kimi-k2-1t-a32b", "train_4k"),
+                    ("xlstm-350m", "train_4k"))
+#: the cells dry-run on the production meshes with the KV cache cut by
+#: sequence over "model" (the variant kvseq)
+DRYRUN_SEQ_CELLS = (("qwen2-7b", "decode_32k"),)
 
 
 def dryrun_cells() -> dict:
-    """Every cell dry-run on ``meta``, fresh; the card's HBM size."""
+    """DRYRUN_CARD_CELLS dry-run on ``meta``, fresh; the card's HBM
+    size; then the production-mesh cells."""
     import torch
 
-    from repro_torch.configs import all_cells
     from repro_torch.hw.gpu import H100_SXM
     from repro_torch.launch import dryrun, roofline
 
@@ -6658,19 +7107,14 @@ def dryrun_cells() -> dict:
     check(total == H100_SXM.hbm_bytes,
           f"H100_SXM.hbm_bytes {H100_SXM.hbm_bytes} != the card's "
           f"total_memory {total}")
-    cells = all_cells()
+    cells = list(DRYRUN_CARD_CELLS)
     tic = time.perf_counter()
-    records = dryrun.run_cells([(a, s) for a, s, _, _ in cells],
-                               force=True, jobs=DRYRUN_JOBS)
+    records = dryrun.run_cells(cells, force=True)
     wall = time.perf_counter() - tic
-    for (arch, shape, ok, why), rec in zip(cells, records):
-        want = "OK" if ok else "SKIP"
-        check(rec["status"] == want,
-              f"dry-run {arch} {shape}: {rec['status']} (want {want}) "
+    for (arch, shape), rec in zip(cells, records):
+        check(rec["status"] == "OK",
+              f"dry-run {arch} {shape}: {rec['status']} (want OK) "
               f"{rec.get('error', '')} {rec.get('traceback', '')}")
-        if not ok:
-            print(f"dryrun cell: {arch} {shape}: SKIP ({why})", flush=True)
-            continue
         row = roofline.analyze_record(rec)
         print(f"dryrun cell: {arch} {shape}: OK peak "
               f"{row['peak_gib']:.2f} GiB fits "
@@ -6678,9 +7122,10 @@ def dryrun_cells() -> dict:
               f"{row['t_compute_s']:.6f} s memory {row['t_memory_s']:.6f} s "
               f"dominant {row['dominant']} (memory pass {rec['run_s']} s)",
               flush=True)
-    print(f"dryrun: {len(cells)} cells in {wall:.3f} s on {DRYRUN_JOBS} "
-          "processes", flush=True)
+    print(f"dryrun: {len(cells)} cells in {wall:.3f} s in this process",
+          flush=True)
     pod_cells(roofline)
+    seq_cells(roofline)
     return {(r["arch"], r["shape"]): r for r in records}
 
 
@@ -6692,7 +7137,7 @@ def pod_cells(roofline) -> None:
     tic = time.perf_counter()
     meshes = ("pod16x16", "pod2x16x16")
     records = dryrun.run_cells(list(DRYRUN_POD_CELLS), force=True,
-                               meshes=meshes)
+                               meshes=meshes, jobs=DRYRUN_JOBS)
     for rec in records:
         name = f"{rec['arch']} {rec['shape']} {rec['mesh']}"
         check(rec["status"] == "OK",
@@ -6716,6 +7161,62 @@ def pod_cells(roofline) -> None:
         check(("ZeRO" in rec["cost"]["method"]) == zero,
               f"dry-run {name}: ZeRO where the reference has it not")
     print(f"dryrun: {len(records)} production-mesh records in "
+          f"{time.perf_counter() - tic:.3f} s on {DRYRUN_JOBS} processes",
+          flush=True)
+
+
+def seq_cells(roofline) -> None:
+    """DRYRUN_SEQ_CELLS on both production meshes with the variant
+    kvseq, beside the baseline: a device's cache bytes must be the whole
+    cache's over (batch shards x "model" ranks) and the record's
+    argument bytes the parameters', state's and tokens' blocks, exactly."""
+    from repro_torch.configs import SHAPES, get_config
+    from repro_torch.launch import dryrun
+    from repro_torch.launch import specs as sp
+    from repro_torch.models.module import param_bytes
+
+    tic = time.perf_counter()
+    meshes = ("pod16x16", "pod2x16x16")
+    base = dryrun.run_cells(list(DRYRUN_SEQ_CELLS), force=True,
+                            meshes=meshes)
+    seq = dryrun.run_cells(list(DRYRUN_SEQ_CELLS), force=True,
+                           meshes=meshes, variant="kvseq")
+    for rec, was in zip(seq, base):
+        name = f"{rec['arch']} {rec['shape']} {rec['mesh']} kvseq"
+        check(rec["status"] == "OK" and was["status"] == "OK",
+              f"dry-run {name}: {rec['status']} {rec.get('error', '')} "
+              f"{rec.get('traceback', '')}")
+        grid = dryrun.mesh_named(rec["mesh"])
+        cell = SHAPES[rec["shape"]]
+        cfg = dataclasses.replace(get_config(rec["arch"]),
+                                  **dryrun.variant_overrides("kvseq"))
+        whole = sp._decode_state(cfg, cell, grid)
+        state, _ = sp.decode_state_specs(cfg, cell, grid)
+        params, _ = sp.abstract_model(cfg, grid)
+        tokens, _ = sp.decode_token_specs(cell, grid)
+        keys = ("ckv", "krope") if cfg.is_mla else ("k", "v")
+        cache = sum(param_bytes(state[k]) for k in keys)
+        cache_whole = sum(param_bytes(whole[k]) for k in keys)
+        shards = grid.size // grid.shape["model"]    # the batch axes
+        if cell.global_batch % shards:
+            shards = 1
+        held = (param_bytes(params) + param_bytes(state)
+                + tokens.numel() * tokens.element_size())
+        row, row_was = (roofline.analyze_record(rec),
+                        roofline.analyze_record(was))
+        print(f"dryrun kvseq cell: {name}: per device peak "
+              f"{row['peak_gib']:.2f} GiB (without kvseq "
+              f"{row_was['peak_gib']:.2f}); cache {cache} B a device of "
+              f"{cache_whole} B over {shards} batch shards x "
+              f"{grid.shape['model']}; argument bytes "
+              f"{rec['memory']['argument_bytes']} (parameters, state and "
+              f"tokens {held}); collectives "
+              f"{json.dumps(rec['collectives_raw']['counts'])}", flush=True)
+        check(cache * shards * grid.shape["model"] == cache_whole
+              and rec["memory"]["argument_bytes"] == held,
+              f"dry-run {name}: a device's cache or arguments are not the "
+              "whole's cut by sequence and batch")
+    print(f"dryrun: {len(seq)} kvseq records in "
           f"{time.perf_counter() - tic:.3f} s", flush=True)
 
 
@@ -6984,7 +7485,9 @@ def main(argv: list[str]) -> int:
         print(f"chip_smoke: unknown arguments {argv}", file=sys.stderr)
         return 2
 
+    start = time.perf_counter()
     build_all()
+    print(f"phase build: {time.perf_counter() - start:.3f} s", flush=True)
     profiler_check("start")
 
     tic = time.perf_counter()
@@ -6998,10 +7501,18 @@ def main(argv: list[str]) -> int:
     counts, walls = path_phase()
     profile_phase(KERNEL_SHAPES[0][0])
     print(f"phase path: {time.perf_counter() - tic:.3f} s", flush=True)
+    tic = time.perf_counter()
     serve_counts = serve_phase()
+    print(f"phase serve: {time.perf_counter() - tic:.3f} s", flush=True)
+    tic = time.perf_counter()
     family_counts = {"hybrid": hybrid_phase()}
+    print(f"phase hybrid: {time.perf_counter() - tic:.3f} s", flush=True)
+    tic = time.perf_counter()
     ssm_phase()
+    print(f"phase ssm: {time.perf_counter() - tic:.3f} s", flush=True)
+    tic = time.perf_counter()
     family_counts.update(families_phase())
+    print(f"phase families: {time.perf_counter() - tic:.3f} s", flush=True)
     tic = time.perf_counter()
     train_rows, train_counts = train_phase()
     rows += train_rows
@@ -7024,11 +7535,13 @@ def main(argv: list[str]) -> int:
         analysis_phase(pathlib.Path(keep))
     dryrun_phase(smi)
     tic = time.perf_counter()
-    mesh_phase()
+    seq_counts = mesh_phase()
     print(f"phase mesh: {time.perf_counter() - tic:.3f} s", flush=True)
     for row in rows:
         name = row["name"]
-        if name in FAMILY_ROWS:
+        if name in SEQ_ROWS:
+            row["launches"] = seq_counts[SEQ_ROWS[name]]
+        elif name in FAMILY_ROWS:
             run, counter = FAMILY_ROWS[name]
             row["launches"] = family_counts[run][counter]
         elif name == "flash_attention_bwd":
@@ -7039,6 +7552,8 @@ def main(argv: list[str]) -> int:
                                else counts)[name]
     profiler_check("end")
     print(f"compile walls (s): {json.dumps(walls)}", flush=True)
+    print(f"run: {time.perf_counter() - start:.3f} s from the build on",
+          flush=True)
     # the card again, near the end: a caller that keeps only the tail of
     # the output still sees which card and power limit the numbers had
     print(smi, flush=True)

@@ -38,7 +38,11 @@
 //
 // Pass 2, grid (H, B): combines the n_split partials of each (b, head)
 // in split order (no atomics: deterministic) with the clamp, and writes
-// acc / max(l, 1e-30).
+// acc / max(l, 1e-30).  Where the caller passes an lse buffer, it also
+// writes each row's log-sum-exp of the scaled scores, m + log(l) from
+// the (m, l) it already holds (NEG_INF for a row with no valid key), so
+// that ranks that each hold a slice of the cache can merge their
+// partial softmaxes; with none it writes nothing more.
 //
 // The entry point returns cudaGetLastError() after both launches.
 
@@ -305,7 +309,7 @@ decode_split_kernel(const T* __restrict__ q, const T* __restrict__ k,
 template <typename T, int D>
 __global__ void __launch_bounds__(128)
 decode_combine_kernel(const float* __restrict__ part, T* __restrict__ o,
-                      int B, int H, int n_split) {
+                      float* __restrict__ lse, int B, int H, int n_split) {
     const int h = blockIdx.x, b = blockIdx.y, d = threadIdx.x;
     const size_t slot = ((size_t)b * H + h) * n_split;
     const float* acc = part + slot * D;
@@ -320,12 +324,15 @@ decode_combine_kernel(const float* __restrict__ part, T* __restrict__ o,
         a = fmaf(acc[(size_t)i * D + d], w, a);
     }
     o[((size_t)b * H + h) * D + d] = from_f<T>(a / fmaxf(lg, 1e-30f));
+    if (lse != nullptr && d == 0)
+        lse[(size_t)b * H + h] = lg > 0.f ? m_sub + logf(lg) : NEG_INF;
 }
 
 template <typename T, int D>
 int launch(const void* q, const void* k, const void* v,
-           const int32_t* length, float* part, void* o, int B, int H,
-           int KH, int S, int n_split, float scale, cudaStream_t stream) {
+           const int32_t* length, float* part, void* o, float* lse, int B,
+           int H, int KH, int S, int n_split, float scale,
+           cudaStream_t stream) {
     using C = DCfg<T, D>;
     const int G = H / KH;
     const int n_hg = (G + MAX_WARPS - 1) / MAX_WARPS;    // head groups
@@ -343,18 +350,18 @@ int launch(const void* q, const void* k, const void* v,
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     decode_combine_kernel<T, D><<<dim3(H, B), D, 0, stream>>>(
-        part, static_cast<T*>(o), B, H, n_split);
+        part, static_cast<T*>(o), lse, B, H, n_split);
     return (int)cudaGetLastError();
 }
 
 template <typename T>
 int dispatch(const void* q, const void* k, const void* v,
-             const int32_t* length, float* part, void* o, int B, int H,
-             int KH, int S, int D, int n_split, float scale,
+             const int32_t* length, float* part, void* o, float* lse,
+             int B, int H, int KH, int S, int D, int n_split, float scale,
              cudaStream_t s) {
 #define PFDNN_CASE(DD)                                                  \
     case DD:                                                            \
-        return launch<T, DD>(q, k, v, length, part, o, B, H, KH, S,     \
+        return launch<T, DD>(q, k, v, length, part, o, lse, B, H, KH, S, \
                              n_split, scale, s);
     switch (D) {
         PFDNN_CASE(16) PFDNN_CASE(32) PFDNN_CASE(48) PFDNN_CASE(64)
@@ -370,22 +377,24 @@ extern "C" {
 
 // dtype: 0 = float32, 1 = bfloat16 (q, k, v and out share it);
 // scale is float32(1 / sqrt(D)), as the reference rounds it; part is
-// float32 scratch of B * H * n_split * (D + 2) values
+// float32 scratch of B * H * n_split * (D + 2) values; lse is NULL or a
+// float32 [B, H] output: each row's log-sum-exp of its scaled scores
 int pfdnn_flash_decode(const void* q, const void* k, const void* v,
                        const void* length, void* part, void* o, int B,
                        int H, int KH, int S, int D, int n_split, int dtype,
-                       float scale, void* stream) {
+                       float scale, void* stream, void* lse) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int32_t* len = static_cast<const int32_t*>(length);
     float* p = static_cast<float*>(part);
+    float* l = static_cast<float*>(lse);
     if (KH <= 0 || H % KH != 0 || n_split <= 0)
         return (int)cudaErrorInvalidValue;
     if (dtype == 0)
-        return dispatch<float>(q, k, v, len, p, o, B, H, KH, S, D, n_split,
-                               scale, s);
+        return dispatch<float>(q, k, v, len, p, o, l, B, H, KH, S, D,
+                               n_split, scale, s);
     if (dtype == 1)
-        return dispatch<__nv_bfloat16>(q, k, v, len, p, o, B, H, KH, S, D,
-                                       n_split, scale, s);
+        return dispatch<__nv_bfloat16>(q, k, v, len, p, o, l, B, H, KH, S,
+                                       D, n_split, scale, s);
     return (int)cudaErrorInvalidValue;
 }
 

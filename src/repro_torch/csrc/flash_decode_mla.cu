@@ -63,7 +63,9 @@
 // below length[b] of each (b, head) in split order (no atomics:
 // deterministic) with the clamp, the weights of up to 128 chunks at a
 // time in shared memory, and writes acc / max(l, 1e-30); no chunk (a
-// length of 0) gives zeros.
+// length of 0) gives zeros.  Where the caller passes an lse buffer, it
+// also writes each row's log-sum-exp of the scaled scores, m + log(l)
+// (NEG_INF with no valid key), for a merge across cache slices.
 //
 // What bounds it on an H100: the cache is read once, 1152 bytes a
 // position in bf16, for 2 * 1088 flops a position and head, so at 16
@@ -605,7 +607,8 @@ __device__ __forceinline__ void store4(bf16* o, float4 x) {
 template <typename T>
 __global__ void __launch_bounds__(C_THREADS)
 mla_combine(const float* __restrict__ part, const int32_t* __restrict__ length,
-            T* __restrict__ o, int B, int H, int S, int n_split, int chunk) {
+            T* __restrict__ o, float* __restrict__ lse, int B, int H, int S,
+            int n_split, int chunk) {
     __shared__ float w_s[C_THREADS], l_s[C_THREADS], red[C_THREADS / 32];
     const int h = blockIdx.x, b = blockIdx.y, tid = threadIdx.x;
     const int len = max(0, min(length[b], S));
@@ -647,13 +650,15 @@ mla_combine(const float* __restrict__ part, const int32_t* __restrict__ length,
     const float denom = fmaxf(lg, 1e-30f);
     store4(o + ((size_t)b * H + h) * R + 4 * tid,
            make_float4(a.x / denom, a.y / denom, a.z / denom, a.w / denom));
+    if (lse != nullptr && tid == 0)
+        lse[(size_t)b * H + h] = lg > 0.f ? m_sub + logf(lg) : NEG_INF;
 }
 
 template <typename T, typename Kern>
 int launch(Kern kern, int smem_bytes, const void* q_lat, const void* q_rope,
            const void* ckv, const void* krope, const int32_t* length,
-           float* part, void* o, int B, int H, int S, int n_split, int chunk,
-           float scale, cudaStream_t stream) {
+           float* part, void* o, float* lse, int B, int H, int S, int n_split,
+           int chunk, float scale, cudaStream_t stream) {
     cudaError_t err = cudaFuncSetAttribute(
         kern, cudaFuncAttributeMaxDynamicSharedMemorySize, smem_bytes);
     if (err != cudaSuccess) return (int)err;
@@ -665,7 +670,7 @@ int launch(Kern kern, int smem_bytes, const void* q_lat, const void* q_rope,
     err = cudaGetLastError();
     if (err != cudaSuccess) return (int)err;
     mla_combine<T><<<dim3(H, B), C_THREADS, 0, stream>>>(
-        part, length, static_cast<T*>(o), B, H, S, n_split, chunk);
+        part, length, static_cast<T*>(o), lse, B, H, S, n_split, chunk);
     return (int)cudaGetLastError();
 }
 
@@ -678,26 +683,29 @@ extern "C" {
 // 64], ckv [B, S, 512], krope [B, S, 64], out [B, H, 512]; chunk a
 // multiple of 32 with n_split * chunk >= S; scale is float32(1 /
 // sqrt(576)); part is float32 scratch of B * H * n_split * (512 + 2)
-// values
+// values; lse is NULL or a float32 [B, H] output: each row's
+// log-sum-exp of its scaled scores
 int pfdnn_flash_decode_mla(const void* q_lat, const void* q_rope,
                            const void* ckv, const void* krope,
                            const void* length, void* part, void* o, int B,
                            int H, int S, int r, int dr, int n_split,
-                           int chunk, int dtype, float scale, void* stream) {
+                           int chunk, int dtype, float scale, void* stream,
+                           void* lse) {
     cudaStream_t s = static_cast<cudaStream_t>(stream);
     const int32_t* len = static_cast<const int32_t*>(length);
     float* p = static_cast<float*>(part);
+    float* l = static_cast<float*>(lse);
     if (r != R || dr != DR || H <= 0 || n_split <= 0 || chunk <= 0
             || chunk % TK != 0 || (long long)n_split * chunk < S)
         return (int)cudaErrorInvalidValue;
     if (dtype == 0)
         return launch<float>(mla_split_f32, f32::SMEM, q_lat, q_rope, ckv,
-                             krope, len, p, o, B, H, S, n_split, chunk, scale,
-                             s);
+                             krope, len, p, o, l, B, H, S, n_split, chunk,
+                             scale, s);
     if (dtype == 1)
         return launch<bf16>(mla_split_bf16, tc::SMEM, q_lat, q_rope, ckv,
-                            krope, len, p, o, B, H, S, n_split, chunk, scale,
-                            s);
+                            krope, len, p, o, l, B, H, S, n_split, chunk,
+                            scale, s);
     return (int)cudaErrorInvalidValue;
 }
 

@@ -25,6 +25,14 @@ function of ``S``, the batch, the heads and the SM count only.  Its
 plain versions are :func:`flash_decode_mla_plain` and, at the kernel's
 plan, :func:`flash_decode_mla_split_plain`.
 
+Both kernels can also return each row's log-sum-exp (``with_lse``): a
+float32 ``[B, H]`` of ``log Σ exp(s)`` over the valid positions, the
+scores ``s`` in the softmax's own scaling (``dot(q, k)`` times the
+kernel's ``1/sqrt(D)``), ``NEG_INF`` for a row with no valid position.
+Ranks that each hold a slice of a cache merge their partial outputs by
+it (:func:`merge_partials`).  Without it the kernels write nothing
+more.
+
 On a tensor that lies on the CPU each wrapper computes its plain
 version; on a CUDA tensor it launches its kernel or raises.  Every
 launch adds one to :data:`LAUNCHES`.  On a ``meta`` tensor (the
@@ -91,14 +99,14 @@ def reset_launch_counts() -> None:
 def _declare(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pfdnn_flash_decode.argtypes = ([p] * 6 + [i] * 7
-                                       + [ctypes.c_float, p])
+                                       + [ctypes.c_float, p, p])
     lib.pfdnn_flash_decode.restype = ctypes.c_int
 
 
 def _declare_mla(lib: ctypes.CDLL) -> None:
     p, i = ctypes.c_void_p, ctypes.c_int
     lib.pfdnn_flash_decode_mla.argtypes = ([p] * 7 + [i] * 8
-                                           + [ctypes.c_float, p])
+                                           + [ctypes.c_float, p, p])
     lib.pfdnn_flash_decode_mla.restype = ctypes.c_int
 
 
@@ -139,10 +147,12 @@ def _sm_count(index: int) -> int:
 
 
 def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 length: torch.Tensor) -> torch.Tensor:
+                 length: torch.Tensor, *, with_lse: bool = False):
     """``q [B, H, D]`` × cache ``k/v [B, S, KH, D]``, ``length [B]``
     int32 → ``[B, H, D]`` in q's dtype.  A length past ``S`` counts as
-    ``S``; a length of 0 gives zeros."""
+    ``S``; a length of 0 gives zeros.  ``with_lse``: ``(out, lse)``,
+    ``lse`` each row's float32 log-sum-exp of its scaled scores
+    (``NEG_INF`` with no valid position)."""
     name = "flash_decode"
     check_attention_args(name, q, k, v, "[B, H, D]", "[B, S, KH, D]",
                          HEAD_DIMS)
@@ -158,12 +168,13 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"{name}: length must be an int32 tensor [B] "
                          f"on {q.device}")
     if q.device.type == "cpu":
-        return flash_decode_plain(q, k, v, length)
+        return flash_decode_plain(q, k, v, length, with_lse=with_lse)
     if q.device.type == "meta":
         out = torch.empty_like(q)
+        lse = _lse_buffer(q, with_lse)
         _meta.report(name, 4 * D * B * H * S,
-                     _meta.nbytes(q, k, v, length, out))
-        return out
+                     _meta.nbytes(q, k, v, length, out, lse))
+        return (out, lse) if with_lse else out
     if q.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q.device}")
     if H // KH > MAX_GROUP:
@@ -172,8 +183,9 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     refuse_grad(name, dict(q=q, k=k, v=v))
     check_cuda_operands(name, dict(q=q, k=k, v=v, length=length))
     out = torch.empty_like(q)
+    lse = _lse_buffer(q, with_lse)
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     lib = LIBRARY.load()
     index = q.device.index
     n_split = decode_splits(S, _sm_count(
@@ -186,17 +198,52 @@ def flash_decode(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         err = lib.pfdnn_flash_decode(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), length.data_ptr(),
             part.data_ptr(), out.data_ptr(), B, H, KH, S, D, n_split,
-            DTYPES[q.dtype], softmax_scale(D), stream_of(q.device))
+            DTYPES[q.dtype], softmax_scale(D), stream_of(q.device),
+            _ptr(lse))
     raise_on(name, err)
     LAUNCHES[name] += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def _lse_buffer(q: torch.Tensor, with_lse: bool) -> torch.Tensor | None:
+    """The float32 ``[B, H]`` log-sum-exp output, or ``None``."""
+    if not with_lse:
+        return None
+    return torch.empty(q.shape[:2], dtype=torch.float32, device=q.device)
+
+
+def _ptr(t: torch.Tensor | None):
+    return None if t is None else t.data_ptr()
+
+
+def _lse_of(m: torch.Tensor, l: torch.Tensor) -> torch.Tensor:
+    """``m + log(l)`` where ``l > 0``, else ``NEG_INF`` (float32)."""
+    return torch.where(l > 0, m + torch.log(l.clamp_min(1e-30)),
+                       torch.full_like(m, NEG_INF))
+
+
+def merge_partials(out: torch.Tensor, lse: torch.Tensor, reduce_max,
+                   reduce_sum) -> torch.Tensor:
+    """Merge the decode outputs ``out [B, H, Dv]`` of ranks that each
+    attended over their slice of one cache, by their rows' log-sum-exp
+    ``lse [B, H]``: ``M = max_r lse_r``, then ``Σ_r w_r·out_r / Σ_r w_r``
+    with ``w_r = exp(lse_r − M)`` in float32, in ``out``'s dtype.
+    ``reduce_max(t)`` and ``reduce_sum(t)`` reduce a float32 tensor over
+    the ranks (in place or not; their results are used).  A rank whose
+    slice holds no valid row (``lse = NEG_INF``) weighs 0 beside one
+    that does; a row no rank holds gives zeros (each ``out_r`` is 0)."""
+    top = reduce_max(lse.clone())
+    w = torch.exp(lse - top)[..., None]
+    both = reduce_sum(torch.cat([out.float() * w, w], dim=-1))
+    return (both[..., :-1] / both[..., -1:]).to(out.dtype)
 
 
 def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                       length: torch.Tensor) -> torch.Tensor:
+                       length: torch.Tensor, *, with_lse: bool = False):
     """Plain PyTorch version of :func:`flash_decode`: the full masked
     softmax in float32 with the kernel's ``NEG_INF`` mask and clamp and
-    its cast points.  V may be narrower than K (MLA's values)."""
+    its cast points.  V may be narrower than K (MLA's values).
+    ``with_lse`` as :func:`flash_decode`'s."""
     B, H, D = q.shape
     S, KH = k.shape[1], k.shape[2]
     g = H // KH
@@ -210,21 +257,25 @@ def flash_decode_plain(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True)
     out = torch.matmul(p.to(v.dtype).float(), vf.float())  # [B, KH, g, Dv]
-    return (out / l.clamp_min(1e-30)).reshape(B, H, -1).to(q.dtype)
+    out = (out / l.clamp_min(1e-30)).reshape(B, H, -1).to(q.dtype)
+    if with_lse:
+        return out, _lse_of(m, l).reshape(B, H)
+    return out
 
 
 def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
                              v: torch.Tensor, length: torch.Tensor,
-                             n_split: int,
-                             chunk: int | None = None) -> torch.Tensor:
+                             n_split: int, chunk: int | None = None, *,
+                             with_lse: bool = False):
     """Plain PyTorch version of the kernel's two passes: the cache range
     cut into ``n_split`` chunks of ``chunk`` positions (by default
     ``ceil(S / n_split)``, :func:`flash_decode`'s; ``n_split * chunk >=
     S``), a float32 partial ``(m, l, acc)`` per chunk (``p`` rounded to
     V's dtype before ``P·V``; a chunk wholly past ``length`` gives ``m =
     NEG_INF, l = 0, acc = 0``), then the partials combined in chunk order
-    with the clamp and ``acc / max(l, 1e-30)``.  V may be narrower than
-    K (MLA's values)."""
+    with the clamp and ``acc / max(l, 1e-30)``; ``with_lse`` also the
+    combine's ``m + log(l)`` (as :func:`flash_decode`'s).  V may be
+    narrower than K (MLA's values)."""
     B, H, D = q.shape
     S, KH = k.shape[1], k.shape[2]
     g = H // KH
@@ -246,20 +297,24 @@ def flash_decode_split_plain(q: torch.Tensor, k: torch.Tensor,
     acc = torch.matmul(p.to(v.dtype).float(), vf.float())
     m_all = m.amax(dim=2, keepdim=True).clamp_min(0.5 * NEG_INF)
     w = torch.exp(m.clamp_min(0.5 * NEG_INF) - m_all)
-    out = (acc * w).sum(dim=2) / (l * w).sum(dim=2).clamp_min(1e-30)
-    return out.reshape(B, H, -1).to(q.dtype)
+    lg = (l * w).sum(dim=2)
+    out = (acc * w).sum(dim=2) / lg.clamp_min(1e-30)
+    out = out.reshape(B, H, -1).to(q.dtype)
+    if with_lse:
+        return out, _lse_of(m_all[:, :, 0], lg).reshape(B, H)
+    return out
 
 
 def flash_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
                      ckv: torch.Tensor, krope: torch.Tensor,
-                     length: torch.Tensor) -> torch.Tensor:
+                     length: torch.Tensor, *, with_lse: bool = False):
     """MLA's absorbed decode: ``q_lat [B, H, R]`` and ``q_rope [B, H,
     DR]`` over one latent head's cache ``ckv [B, S, R]`` and ``krope [B,
     S, DR]``, ``length [B]`` int32 → ``[B, H, R]`` in q's dtype: decode
     attention with keys ``[ckv | krope]``, values ``ckv`` and the scale
     ``1/sqrt(R + DR)``.  A length past ``S`` counts as ``S``; a length of
     0 gives zeros.  The kernel takes ``(R, DR) = MLA_WIDTHS``; the plain
-    version any widths."""
+    version any widths.  ``with_lse`` as :func:`flash_decode`'s."""
     name = "flash_decode_mla"
     tensors = dict(q_lat=q_lat, q_rope=q_rope, ckv=ckv, krope=krope)
     for key, t in tensors.items():
@@ -288,12 +343,15 @@ def flash_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
         raise ValueError(f"{name}: length must be an int32 tensor [B] "
                          f"on {q_lat.device}")
     if q_lat.device.type == "cpu":
-        return flash_decode_mla_plain(q_lat, q_rope, ckv, krope, length)
+        return flash_decode_mla_plain(q_lat, q_rope, ckv, krope, length,
+                                      with_lse=with_lse)
     if q_lat.device.type == "meta":
         out = torch.empty_like(q_lat)
+        lse = _lse_buffer(q_lat, with_lse)
         _meta.report(name, (2 * (R + DR) + 2 * R) * B * H * S,
-                     _meta.nbytes(q_lat, q_rope, ckv, krope, length, out))
-        return out
+                     _meta.nbytes(q_lat, q_rope, ckv, krope, length, out,
+                                  lse))
+        return (out, lse) if with_lse else out
     if q_lat.device.type != "cuda":
         raise ValueError(f"{name}: unsupported device {q_lat.device}")
     if (R, DR) != MLA_WIDTHS:
@@ -302,8 +360,9 @@ def flash_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
     refuse_grad(name, tensors)
     check_cuda_operands(name, dict(tensors, length=length))
     out = torch.empty_like(q_lat)
+    lse = _lse_buffer(q_lat, with_lse)
     if out.numel() == 0:
-        return out
+        return (out, lse) if with_lse else out
     lib = MLA_LIBRARY.load()
     index = q_lat.device.index
     n_split, chunk = mla_splits(S, B, H, _sm_count(
@@ -318,10 +377,10 @@ def flash_decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
             krope.data_ptr(), length.data_ptr(), part.data_ptr(),
             out.data_ptr(), B, H, S, R, DR, n_split, chunk,
             DTYPES[q_lat.dtype], softmax_scale(R + DR),
-            stream_of(q_lat.device))
+            stream_of(q_lat.device), _ptr(lse))
     raise_on(name, err)
     LAUNCHES[name] += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 def mla_operands(q_lat: torch.Tensor, q_rope: torch.Tensor,
@@ -336,21 +395,22 @@ def mla_operands(q_lat: torch.Tensor, q_rope: torch.Tensor,
 
 def flash_decode_mla_plain(q_lat: torch.Tensor, q_rope: torch.Tensor,
                            ckv: torch.Tensor, krope: torch.Tensor,
-                           length: torch.Tensor) -> torch.Tensor:
+                           length: torch.Tensor, *, with_lse: bool = False):
     """Plain PyTorch version of :func:`flash_decode_mla`:
     :func:`flash_decode_plain` over :func:`mla_operands`."""
     return flash_decode_plain(*mla_operands(q_lat, q_rope, ckv, krope),
-                              length)
+                              length, with_lse=with_lse)
 
 
 def flash_decode_mla_split_plain(q_lat: torch.Tensor, q_rope: torch.Tensor,
                                  ckv: torch.Tensor, krope: torch.Tensor,
-                                 length: torch.Tensor,
-                                 n_sms: int) -> torch.Tensor:
+                                 length: torch.Tensor, n_sms: int, *,
+                                 with_lse: bool = False):
     """The MLA kernels' two passes in plain PyTorch:
     :func:`flash_decode_split_plain` over :func:`mla_operands` at
     :func:`mla_splits`' plan for a card of ``n_sms`` SMs."""
     B, H, _ = q_lat.shape
     n_split, chunk = mla_splits(ckv.shape[1], B, H, n_sms)
     return flash_decode_split_plain(*mla_operands(q_lat, q_rope, ckv, krope),
-                                    length, n_split, chunk)
+                                    length, n_split, chunk,
+                                    with_lse=with_lse)

@@ -35,22 +35,30 @@ def attention_bshd(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_bshd(q: torch.Tensor, k_cache: torch.Tensor,
-                v_cache: torch.Tensor, lengths: torch.Tensor
-                ) -> torch.Tensor:
+                v_cache: torch.Tensor, lengths: torch.Tensor, *,
+                with_lse: bool = False):
     """``q [B, 1, H, D]`` × cache ``[B, S, KH, D]`` with ``lengths [B]``
-    valid entries → ``[B, 1, H, D]`` through the decode kernel."""
+    valid entries → ``[B, 1, H, D]`` through the decode kernel
+    (``with_lse``: and each row's log-sum-exp ``[B, H]``)."""
+    if with_lse:
+        out, lse = flash_decode(q[:, 0], k_cache, v_cache, lengths,
+                                with_lse=True)
+        return out[:, None], lse
     return flash_decode(q[:, 0], k_cache, v_cache, lengths)[:, None]
 
 
 def decode_mla(q_lat: torch.Tensor, q_rope: torch.Tensor,
                ckv: torch.Tensor, krope: torch.Tensor,
-               lengths: torch.Tensor) -> torch.Tensor:
+               lengths: torch.Tensor, *, with_lse: bool = False):
     """MLA's absorbed decode: ``q_lat [B, H, R]`` and ``q_rope [B, H,
     DR]`` over one latent head's cache ``ckv [B, S, R]``, ``krope [B, S,
     DR]`` with ``lengths [B]`` valid entries → ``[B, H, R]`` through the
-    MLA decode kernel."""
-    return flash_decode_mla(q_lat.contiguous(), q_rope.contiguous(), ckv,
-                            krope, lengths)
+    MLA decode kernel (``with_lse``: and each row's log-sum-exp)."""
+    q_lat, q_rope = q_lat.contiguous(), q_rope.contiguous()
+    if with_lse:
+        return flash_decode_mla(q_lat, q_rope, ckv, krope, lengths,
+                                with_lse=True)
+    return flash_decode_mla(q_lat, q_rope, ckv, krope, lengths)
 
 
 def quantize_int8(x: torch.Tensor, axis: int = -1

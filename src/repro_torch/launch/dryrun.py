@@ -78,29 +78,29 @@ ARTIFACTS = (pathlib.Path(__file__).resolve().parents[3] / "artifacts"
 SCALE_SEQ = 4096
 
 # Named config variants: each changes one knob the port's step reads
-# (the expert-parallel ones on a production mesh; on one card the dense
-# MoE path reads neither)
+# (the expert-parallel ones and the KV cache cut by sequence on a
+# production mesh; on one card the dense MoE path reads neither, and a
+# cache cut over no "model" axis is whole)
 VARIANTS: dict[str, dict] = {
     "cap10": {"capacity_factor": 1.0},      # MoE capacity 1.25 → 1.0
     "int8disp": {"moe_dispatch_dtype": "int8"},   # int8 EP wire format
     "cap10int8": {"capacity_factor": 1.0,
                   "moe_dispatch_dtype": "int8"},
     "noremat": {"remat": False},            # trade memory for recompute
+    "kvseq": {"shard_kv_seq": True},        # KV cache cut by sequence
+    # the reference's kvseq with the decode state donated; the port's
+    # decode step always updates its state in place, so it runs as kvseq
+    # (its records keep their own variant name)
+    "kvseqdonate": {"shard_kv_seq": True},
 }
 
 #: the reference's other variants, and why the port's step does not
 #: read their knobs
 DROPPED_VARIANTS: dict[str, str] = {
-    "kvseq": "shard_kv_seq cuts the KV cache by sequence over \"model\" "
-             "(a decode that merges partial softmaxes across ranks), "
-             "Queue 1 item 5c",
     "bigchunk": "attn_q_chunk and attn_kv_chunk tile the reference's jnp "
                 "attention; the port's attention kernels take no tile "
                 "size",
     "donate": "the port's decode step always updates its state in place",
-    "kvseqdonate": "shard_kv_seq cuts the KV cache by sequence over "
-                   "\"model\" (Queue 1 item 5c), and the port's decode "
-                   "step always updates its state in place",
 }
 
 #: the dry-run's meshes: the one card and the production meshes

@@ -25,7 +25,9 @@ of axis names, or a :class:`Part`) that say which block of a full
 tensor this rank holds.  A :class:`Part` cuts a tensor axis into fewer
 blocks than its mesh axis has ranks, each block held by a group of
 consecutive ranks (the KV heads that several ranks' query heads read);
-:meth:`CardMesh.subgroup` is that group.
+:meth:`CardMesh.subgroup` is that group.  A :class:`Strided` entry views
+a tensor axis as ``[outer, n]`` and cuts ``n`` (sLSTM's gate columns,
+four gate kinds × d, cut by heads).
 
 Every collective of the port goes through :func:`all_reduce`,
 :func:`all_gather_axis` or :func:`all_to_all`.  Each call is appended
@@ -36,9 +38,11 @@ on ``meta``.  The port makes no other collective: no broadcast, no
 reduce-scatter.  The collectives that need their own backward are
 ``torch.autograd.Function``\\ s: :func:`reduce_sum` (an all-reduce
 whose backward is the identity: a row-parallel product's partial sums
-over ``"model"``, the loss over the batch axes) and :func:`copy_to`
+over ``"model"``, the loss over the batch axes), :func:`copy_to`
 (the identity whose backward all-reduces: a value replicated over a
-group that each member uses for its own part).  The port uses only
+group that each member uses for its own part) and :func:`gather_to`
+(a block gathered over its placement, whose backward sums the full
+gradient over the group and keeps this rank's block).  The port uses only
 collectives that NCCL and gloo both take on CUDA tensors:
 ``all_reduce`` (SUM, MAX), ``all_gather_into_tensor`` and
 ``all_to_all_single``.
@@ -253,13 +257,35 @@ class Part:
     parts: int
 
 
+@dataclasses.dataclass(frozen=True)
+class Strided:
+    """A spec entry: the tensor axis viewed as ``[outer, n]`` (``outer``
+    blocks of ``n`` in a row), ``n`` cut by ``entry`` (an axis name or a
+    :class:`Part`); a rank holds its block of each of the ``outer``
+    blocks, in their order (sLSTM's ``w_gates`` columns ``[z|i|f|o] ×
+    d``, cut by heads within each gate kind)."""
+
+    outer: int
+    entry: Any
+
+
 def mesh_axes(entry) -> tuple[str, ...]:
     """A spec entry's axis names (``None`` → none)."""
     if entry is None:
         return ()
+    if isinstance(entry, Strided):
+        return mesh_axes(entry.entry)
     if isinstance(entry, Part):
         return (entry.axis,)
     return (entry,) if isinstance(entry, str) else tuple(entry)
+
+
+def part_of(entry) -> Part | None:
+    """The :class:`Part` of a spec entry (itself, or a
+    :class:`Strided` entry's), else ``None``."""
+    if isinstance(entry, Strided):
+        entry = entry.entry
+    return entry if isinstance(entry, Part) else None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -274,9 +300,13 @@ class Placement:
     spec: tuple
 
     def _cuts(self, ndim: int):
-        """(tensor axis, parts, this rank's part) for each cut axis."""
+        """(tensor axis, parts, this rank's part, outer blocks) for each
+        cut axis."""
         out = []
         for i, entry in enumerate(tuple(self.spec)[:ndim]):
+            outer = 1
+            if isinstance(entry, Strided):
+                outer, entry = entry.outer, entry.entry
             if isinstance(entry, Part):
                 size = self.mesh.shape[entry.axis]
                 if size % entry.parts:
@@ -291,25 +321,25 @@ class Placement:
                     parts *= size
                     index = index * size + self.mesh.coord(name)
             if parts > 1:
-                out.append((i, parts, index))
+                out.append((i, parts, index, outer))
         return out
 
     def local_shape(self, shape: tuple[int, ...]) -> tuple[int, ...]:
         """The block's shape of a full tensor of ``shape``; raises
         ``ValueError`` where a cut axis does not divide."""
         out = list(shape)
-        for i, parts, _ in self._cuts(len(shape)):
-            if shape[i] % parts:
+        for i, parts, _, outer in self._cuts(len(shape)):
+            if shape[i] % (parts * outer):
                 raise ValueError(f"placement {self.spec}: axis {i} of "
                                  f"{tuple(shape)} does not divide into "
-                                 f"{parts}")
+                                 f"{parts * outer}")
             out[i] = shape[i] // parts
         return tuple(out)
 
     def global_shape(self, shape: tuple[int, ...]) -> tuple[int, ...]:
         """The full tensor's shape of a block of ``shape``."""
         out = list(shape)
-        for i, parts, _ in self._cuts(len(shape)):
+        for i, parts, _, _ in self._cuts(len(shape)):
             out[i] = shape[i] * parts
         return tuple(out)
 
@@ -318,32 +348,48 @@ class Placement:
         device)."""
         self.local_shape(tuple(full.shape))
         block = full
-        for i, parts, index in self._cuts(full.dim()):
-            n = full.shape[i] // parts
-            block = block.narrow(i, index * n, n)
+        for i, parts, index, outer in self._cuts(full.dim()):
+            n = full.shape[i] // (parts * outer)
+            block = block.unflatten(i, (outer, parts * n)).narrow(
+                i + 1, index * n, n).flatten(i, i + 1)
         return block.to(self.mesh.device, copy=True).contiguous()
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
         """The full tensor from every rank's block (a collective: every
         rank of the mesh calls it with its block)."""
         full = local
-        cut = {i for i, _, _ in self._cuts(local.dim())}
-        for i in sorted(cut, reverse=True):
-            entry = self.spec[i]
-            if isinstance(entry, Part):
-                size = self.mesh.shape[entry.axis]
-                full = all_gather_axis(full, self.mesh.group(entry.axis),
-                                       size, i)
-                # each block came from size // parts ranks: keep one
-                n = full.shape[i] // size
-                rep = size // entry.parts
-                full = full.unflatten(i, (entry.parts, rep, n)).select(
-                    i + 1, 0).flatten(i, i + 1)
-                continue
-            for name in reversed(mesh_axes(entry)):
-                full = all_gather_axis(full, self.mesh.group(name),
-                                       self.mesh.shape[name], i)
+        for i, _, _, _ in reversed(self._cuts(local.dim())):
+            full = _gather_entry(full, self.mesh, self.spec[i], i)
         return full.contiguous()
+
+
+def _gather_entry(x: torch.Tensor, mesh: CardMesh, entry, i: int
+                  ) -> torch.Tensor:
+    """Axis ``i`` of every rank's block of one spec entry, gathered
+    (a collective)."""
+    outer = 1
+    if isinstance(entry, Strided):
+        outer, entry = entry.outer, entry.entry
+    n = x.shape[i] // outer                 # this rank's block of each
+    if isinstance(entry, Part):
+        size = mesh.shape[entry.axis]
+        full = all_gather_axis(x, mesh.group(entry.axis), size, i)
+        # each block came from size // parts ranks: keep one
+        full = full.unflatten(i, (entry.parts, size // entry.parts,
+                                  outer * n)).select(i + 1, 0)
+        parts = entry.parts
+    else:
+        parts = 1
+        full = x.unflatten(i, (1, outer * n))
+        for name in reversed(mesh_axes(entry)):
+            size = mesh.shape[name]
+            full = all_gather_axis(full.flatten(i, i + 1), mesh.group(name),
+                                   size, i).unflatten(
+                                       i, (size * parts, outer * n))
+            parts *= size
+    # [parts, outer * n] → [outer, parts, n] along axis i
+    full = full.unflatten(i + 1, (outer, n)).transpose(i, i + 1)
+    return full.flatten(i, i + 2)
 
 
 # --------------------------------------------------------- collectives
@@ -478,6 +524,46 @@ def reduce_sum(x: torch.Tensor, group) -> torch.Tensor:
 def copy_to(x: torch.Tensor, group) -> torch.Tensor:
     """``x`` as it is; its gradient is summed over ``group``."""
     return x if group is None else _CopyTo.apply(x, group)
+
+
+class _GatherTo(torch.autograd.Function):
+    """Axis ``i`` of every rank's block gathered (``entry``, one
+    spec entry); the gradient is summed over the entry's ranks and cut
+    to this rank's block, ``1 / k`` of it where ``k`` ranks hold the
+    block (a :class:`Part`)."""
+
+    @staticmethod
+    def forward(ctx, x, mesh, entry, i):
+        ctx.mesh, ctx.entry, ctx.i = mesh, entry, i
+        return _gather_entry(x.contiguous(), mesh, entry, i)
+
+    @staticmethod
+    def backward(ctx, g):
+        mesh, entry, i = ctx.mesh, ctx.entry, ctx.i
+        g = g.contiguous().clone()
+        for name in mesh_axes(entry):
+            all_reduce(g, mesh.group(name))
+        place = Placement(mesh, (None,) * i + (entry,))
+        for j, parts, index, outer in place._cuts(g.dim()):
+            n = g.shape[j] // (parts * outer)
+            g = g.unflatten(j, (outer, parts * n)).narrow(
+                j + 1, index * n, n).flatten(j, j + 1)
+        part = part_of(entry)
+        if part is not None:
+            g = g * (part.parts / mesh.shape[part.axis])
+        return g.contiguous(), None, None, None
+
+
+def gather_to(x: torch.Tensor, mesh: CardMesh | None, entry,
+              axis: int) -> torch.Tensor:
+    """Axis ``axis`` of ``x``, this rank's block of a tensor cut by the
+    spec entry ``entry`` (an axis name, a :class:`Part` or a
+    :class:`Strided`), gathered over ``mesh`` (a collective), with the
+    backward of :class:`_GatherTo`; ``x`` as it is where ``entry`` is
+    ``None`` or there is no mesh."""
+    if entry is None or mesh is None:
+        return x
+    return _GatherTo.apply(x, mesh, entry, axis)
 
 
 # ------------------------------------------------------ worlds of ranks

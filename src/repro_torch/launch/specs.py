@@ -16,8 +16,12 @@ parallelism over ``"model"``, the routed experts over ``"data"``), the
 moments by :func:`~repro_torch.train.optimizer.moment_placements` (ZeRO
 where the optimizer asks for it), batches, tokens and decode states
 over the batch axes where the batch divides by them (the reference's
-``_bshard``), and the KV caches over ``"model"`` by KV heads where
-:func:`~repro_torch.models.transformer.tp_plan` cuts them.  The modality
+``_bshard``), the KV caches over ``"model"`` by KV heads where
+:func:`~repro_torch.models.transformer.tp_plan` cuts them, or by
+sequence with every head under ``shard_kv_seq``
+(:func:`~repro_torch.models.transformer.seq_cut`: ``k``/``v`` and MLA's
+``ckv``/``krope``; whisper's cross cache keeps its cut), and the xLSTM
+states by heads where ``tp_plan`` cuts the mixers.  The modality
 frontends are stubs as in the reference: whisper gets precomputed frame
 embeddings, qwen2-vl M-RoPE position grids.
 """
@@ -160,21 +164,36 @@ def train_batch_specs(cfg: ModelConfig, cell: ShapeCell, mesh: CardMesh):
 def decode_state_specs(cfg: ModelConfig, cell: ShapeCell, mesh: CardMesh):
     """Decode state in :func:`~repro_torch.models.transformer.prefill`'s
     layout for a cache of ``cell.seq_len`` rows."""
-    state = _decode_state(cfg, cell)
+    state = _decode_state(cfg, cell, mesh)
     bs = _bshard(mesh, cell.global_batch)
-    kv = tf.tp_plan(cfg, tf.Runtime(mesh)).kv_entry()
+    rt = tf.Runtime(mesh)
+    plan = tf.tp_plan(cfg, rt)
+    kv = plan.kv_entry()
+    seq = tf.seq_cut(cfg, rt) is not None
 
     def spec_of(key):
+        if seq and key in ("k", "v", "ckv", "krope"):
+            return (None, bs, "model")
         if key in ("k", "v", "xk", "xv") and cfg.family != "hybrid":
             return (None, bs, None, kv)
-        return (bs,) if key in ("lengths", "layers") else (None, bs)
+        if key == "layers":
+            return (bs, plan.mix_entry())
+        return (bs,) if key == "lengths" else (None, bs)
 
     return _cut(mesh, state, spec_of)
 
 
-def _decode_state(cfg: ModelConfig, cell: ShapeCell) -> dict:
-    """The whole decode state of :func:`decode_state_specs`."""
+def _decode_state(cfg: ModelConfig, cell: ShapeCell,
+                  mesh: CardMesh) -> dict:
+    """The whole decode state of :func:`decode_state_specs`; raises
+    ``ValueError`` where ``shard_kv_seq`` cuts a cache whose length does
+    not divide by the ``"model"`` size (as ``prefill`` does)."""
     b, c = cell.global_batch, cell.seq_len
+    cut = tf.seq_cut(cfg, tf.Runtime(mesh))
+    if cut is not None and c % cut[0]:
+        raise ValueError(f"decode state: a cache of {c} rows does not "
+                         f"divide over the {cut[0]} ranks of \"model\" "
+                         "(shard_kv_seq cuts it by sequence)")
     l, kh, hd = cfg.n_layers, cfg.n_kv_heads, cfg.hd
     f32 = torch.float32
     dt = cfg.torch_dtype

@@ -97,9 +97,14 @@ def gated_linear_scan(
         qw = qb * w_prev[..., None]
         y_inter = torch.einsum("bchk,bhkv->bchv", qw, h)
         d_inter = torch.einsum("bchk,bhk->bch", qw, n)
-        # intra-chunk pairs: D[t,s] = exp(La_t + b_s − μ_t) for s ≤ t
+        # intra-chunk pairs: D[t,s] = exp(La_t + b_s − μ_t) for s ≤ t;
+        # the pairs s > t are masked before the exponential (LOG_EPS, so
+        # 0), which μ_t does not bound: exp of them can overflow, and
+        # the gradient of an inf masked after exp is 0·inf = NaN (the
+        # reference's jnp.where(tri, exp(expo), 0) gives NaN gradients
+        # there; the forward is the same)
         expo = lab[:, :, None, :] + bb[:, None, :, :] - mu[:, :, None, :]
-        dmat = torch.exp(expo).masked_fill(~tri[None, :, :, None], 0.0)
+        dmat = torch.exp(expo.masked_fill(~tri[None, :, :, None], LOG_EPS))
         scores = torch.einsum("bthk,bshk->btsh", qb, kb) * dmat
         y_intra = torch.einsum("btsh,bshv->bthv", scores, vb)
         d_intra = torch.sum(scores, dim=2)                   # [B,c,HD]

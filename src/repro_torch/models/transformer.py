@@ -59,14 +59,19 @@ returns this rank's vocab columns of the logits and
 :func:`chunked_softmax_xent` is vocab-parallel (a MAX all-reduce of the
 row maximum, a SUM of the exponentials, the target's logit from its
 owner), so the loss is the same on every ``"model"`` rank.  Each rank
-keeps the cache of its own KV heads (MLA's latent cache whole).  The
-hybrid and ssm families keep their mixers' leaves whole (hymba's
-attention and Mamba heads, the mLSTM and sLSTM projections: their cuts
-are Queue 1 item 5c) and cut their vocab and hymba's FFN.  The
-activations take their cut from the products around them, so the
-reference's five ``constrain`` markers have no counterpart here;
-:func:`constrain` is the gather that brings a block from one cut to
-another (the engine's logits, the tests).
+keeps the cache of its own KV heads (MLA's latent cache whole), or,
+under ``cfg.shard_kv_seq`` (:func:`seq_cut`), every KV head of its
+slice of the cache's positions: a decode step attends over the slice
+with the decode kernels' log-sum-exp and merges the ranks' partial
+softmaxes (a MAX and a SUM all-reduce).  The ssm family cuts xLSTM's
+mLSTM and sLSTM mixers by heads (each head held by a group of ranks
+where there are fewer heads than ranks); the hybrid family keeps its
+mixers' leaves whole (hymba's attention and Mamba heads: Queue 1 item
+5d) and cuts its vocab and FFN.  The activations take their cut from
+the products around them, so the reference's five ``constrain``
+markers have no counterpart here; :func:`constrain` is the gather that
+brings a block from one cut to another (the engine's logits, the
+tests).
 
 Deliberate differences from the reference's specs (``ROADMAP.md``):
 where ``n_kv_heads`` does not divide by the ``"model"`` size each rank
@@ -75,7 +80,15 @@ ranks (:class:`~repro_torch.launch.mesh.Part`), where the reference
 cuts the KV columns evenly, through heads; ``bk``/``bv`` follow their
 KV heads where the reference keeps them whole; where ``n_heads`` does
 not divide, the attention leaves stay whole; the decode caches are cut
-by KV heads where the reference's are whole over ``"model"``.
+by KV heads where the reference's are whole over ``"model"``; under
+``shard_kv_seq`` a capacity that does not divide by the ``"model"``
+size raises ``ValueError`` (the reference pads through GSPMD); xLSTM's
+``w_up`` is whole on every rank (its ``u`` feeds every head's q, k, v;
+the reference cuts its columns), ``wi``/``wf``, ``hnorm_g`` and
+``r_gates`` are cut by heads (the reference's are whole), ``w_gates``
+by the heads' columns of each gate kind (the reference cuts its
+columns evenly, one gate kind a rank at "model" = 4), and the mLSTM
+state by heads (the reference cuts ``h``'s Dk axis).
 
 Deliberate difference from the reference: where a slot's cache ends at
 ``cache_len`` (dense, moe, vlm and audio; not the encoder's cross
@@ -98,12 +111,15 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ModelConfig
 from repro_torch.kernels import ops
+from repro_torch.kernels.flash_decode import merge_partials
 from repro_torch.launch.mesh import (
     Part,
     Placement,
+    Strided,
     all_reduce,
     batch_axes,
     copy_to,
+    gather_to,
     mesh_axes,
     reduce_sum,
     spec_placements,
@@ -133,9 +149,10 @@ EXPERT_SPECS = {"ew1": ("data", None, "model"),
                 "ew3": ("data", None, "model"),
                 "ew2": ("data", "model", None)}
 
-#: the families whose mixers keep their "model" leaves whole (item 5c):
-#: only their vocab and FFN are cut
-WHOLE_FAMILIES = ("hybrid", "ssm")
+#: the families whose mixers keep their "model" leaves whole (hymba's
+#: attention and Mamba heads: ROADMAP.md Queue 1 item 5d): only their
+#: vocab and FFN are cut
+WHOLE_FAMILIES = ("hybrid",)
 #: leaves by their part of tensor parallelism (names of init_lm)
 _Q_LEAVES = frozenset({"wq", "bq", "wo", "xwq", "xbq", "xwo"})
 _KV_LEAVES = frozenset({"wk", "wv", "bk", "bv", "xwk", "xwv", "xbk", "xbv",
@@ -165,9 +182,11 @@ class TpPlan:
     rank's place on it: ``attn`` (attention by query heads),
     ``kv_parts`` (the KV heads' blocks: ``size``, or fewer, each held by
     ``size // kv_parts`` ranks), ``ffn``, ``shared`` (the shared
-    experts), ``vocab`` (embedding rows, head columns); ``group`` the
-    ``"model"`` process group (``None``: nothing to exchange) and
-    ``coord`` this rank's coordinate on it."""
+    experts), ``vocab`` (embedding rows, head columns), ``mix`` (the
+    ssm family's mLSTM and sLSTM mixers by heads) with ``mix_parts``
+    (their heads' blocks, each held by ``size // mix_parts`` ranks);
+    ``group`` the ``"model"`` process group (``None``: nothing to
+    exchange) and ``coord`` this rank's coordinate on it."""
 
     size: int = 1
     attn: bool = False
@@ -175,6 +194,8 @@ class TpPlan:
     ffn: bool = False
     shared: bool = False
     vocab: bool = False
+    mix: bool = False
+    mix_parts: int = 1
     group: Any = None
     coord: int = 0
 
@@ -196,6 +217,24 @@ class TpPlan:
         return "model" if self.kv_parts == self.size \
             else Part("model", self.kv_parts)
 
+    def mix_entry(self):
+        """The spec entry of the xLSTM mixers' head axis: ``"model"``,
+        a :class:`~repro_torch.launch.mesh.Part` where fewer blocks than
+        ranks, or ``None`` (whole)."""
+        if not self.mix:
+            return None
+        return "model" if self.mix_parts == self.size \
+            else Part("model", self.mix_parts)
+
+    def mix_heads(self, cfg: ModelConfig) -> int:
+        """This rank's heads of the xLSTM mixers."""
+        return cfg.n_heads // self.mix_parts
+
+    @property
+    def mix_rep(self) -> int:
+        """Ranks that hold one block of the mixers' heads."""
+        return self.size // self.mix_parts if self.mix else 1
+
 
 def tp_plan(cfg: ModelConfig, rt: "Runtime | None" = None) -> TpPlan:
     """The rule of tensor parallelism over ``rt``'s ``"model"`` axis
@@ -204,21 +243,41 @@ def tp_plan(cfg: ModelConfig, rt: "Runtime | None" = None) -> TpPlan:
     rank's KV heads, or the one KV head its query heads read where
     ``n_kv_heads`` is a divisor of the size), else whole; the dense
     FFN, the shared experts and the padded vocab where their widths
-    divide.  The hybrid and ssm families cut no mixer (attention whole)."""
+    divide.  The ssm family's mixers are cut by heads where ``n_heads``
+    and the size divide one another (even blocks, or each head held by
+    a group of ranks) and ``d_model`` divides by the size (sLSTM's
+    ``w_out`` columns); the hybrid family cuts no mixer (attention
+    whole)."""
     mesh = rt.mesh if rt is not None else None
     if mesh is None or "model" not in mesh.shape:
         return TpPlan()
     m = mesh.shape["model"]
     h, kh = cfg.n_heads, cfg.n_kv_heads
-    attn = (cfg.family not in WHOLE_FAMILIES and h % m == 0
+    attn = (cfg.family not in WHOLE_FAMILIES + ("ssm",) and h % m == 0
             and (kh % m == 0 or m % kh == 0))
+    mix = (cfg.family == "ssm" and (h % m == 0 or m % h == 0)
+           and cfg.d_model % m == 0)
     fs = cfg.n_shared_experts * cfg.d_ff_expert
     return TpPlan(
         size=m, attn=attn, kv_parts=(m if kh % m == 0 else kh) if attn else 1,
         ffn=bool(cfg.d_ff) and not cfg.is_moe and cfg.d_ff % m == 0,
         shared=fs > 0 and fs % m == 0,
         vocab=cfg.padded_vocab % m == 0,
+        mix=mix, mix_parts=(m if h % m == 0 else h) if mix else 1,
         group=mesh.group("model"), coord=mesh.coord("model"))
+
+
+def seq_cut(cfg: ModelConfig, rt: "Runtime | None") -> tuple[int, int] | None:
+    """``(ranks, this rank's coordinate)`` of ``"model"`` where
+    ``cfg.shard_kv_seq`` cuts the self-attention cache by sequence over
+    it (rank ``r`` holds positions ``[r·C/m, (r+1)·C/m)`` of every KV
+    head), else ``None``: no mesh, or a family whose state is no such
+    cache (hymba's rings and the ssm states keep their cut)."""
+    mesh = rt.mesh if rt is not None else None
+    if (not cfg.shard_kv_seq or cfg.family in ("hybrid", "ssm")
+            or mesh is None or "model" not in mesh.shape):
+        return None
+    return mesh.shape["model"], mesh.coord("model")
 
 
 def constrain(x: torch.Tensor, rt: "Runtime | None", *spec,
@@ -490,17 +549,44 @@ def _tp_spec(name: str, spec: tuple, plan: TpPlan, ep: bool) -> tuple:
     return tuple(spec)
 
 
+def _ssm_spec(name: str, spec: tuple, plan: TpPlan, slstm: bool) -> tuple:
+    """The port's spec of one leaf of an xLSTM block where
+    :func:`tp_plan` cuts its mixer by heads (entry ``e``): mLSTM's
+    ``w_gate``, ``wq``/``wk``/``wv`` and ``wi``/``wf`` by their heads'
+    columns, ``hnorm_g`` by its heads' dims and ``w_down`` by their rows,
+    ``w_up`` whole (its ``u`` feeds every head); sLSTM's ``w_gates`` by
+    its heads' columns of each of the four gate kinds
+    (:class:`~repro_torch.launch.mesh.Strided`), ``r_gates`` and
+    ``hnorm_g`` by heads, ``w_out``'s columns and ``w_down``'s rows
+    evenly over ``"model"`` (the reference's); the norms whole."""
+    e = plan.mix_entry()
+    whole = (None,) * len(spec)
+    if e is None:
+        return whole
+    if slstm:
+        table = {"w_gates": (None, Strided(4, e)),
+                 "r_gates": (None, e, None, None), "hnorm_g": (e,),
+                 "w_out": (None, "model"), "w_down": ("model", None)}
+    else:
+        table = {"w_gate": (None, e), "wq": (None, e), "wk": (None, e),
+                 "wv": (None, e), "wi": (None, e), "wf": (None, e),
+                 "hnorm_g": (e,), "w_down": (e, None)}
+    return table.get(name, whole)
+
+
 def tp_specs(cfg: ModelConfig, rt: Runtime) -> dict:
     """Every parameter's spec on ``rt``'s mesh (:func:`tp_plan`, the
     routed experts by :func:`uses_ep`), in the tree layout of
     :func:`init_lm`."""
     plan, ep = tp_plan(cfg, rt), uses_ep(cfg, rt)
 
-    def walk(tree, name=None):
-        if isinstance(tree, list):
-            return [walk(v) for v in tree]
+    def walk(tree, name=None, slstm=None):
+        if isinstance(tree, list):          # the ssm family's blocks
+            return [walk(v, slstm="w_gates" in v) for v in tree]
         if isinstance(tree, dict):
-            return {k: walk(v, k) for k, v in tree.items()}
+            return {k: walk(v, k, slstm) for k, v in tree.items()}
+        if slstm is not None:
+            return _ssm_spec(name, tree.spec, plan, slstm)
         return _tp_spec(name, tree.spec, plan, ep)
     return walk(init_lm(cfg))
 
@@ -784,18 +870,49 @@ def decoder_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     return x, extras
 
 
+def _head_norm(y: torch.Tensor, gamma: torch.Tensor, tp: TpPlan,
+               width: int) -> torch.Tensor:
+    """The xLSTM mixers' RMS norm over all ``width`` dims of ``y``, whose
+    last axis holds this rank's heads where ``tp`` cuts the mixers (and
+    ``gamma`` their gains): the sum of squares summed over ``"model"``
+    (a block held by k ranks weighs 1/k), forward and backward."""
+    if not tp.mix or tp.group is None:
+        return rms_norm(y, gamma)
+    dt = y.dtype
+    yf = y.float()
+    ss = torch.sum(torch.square(yf), dim=-1, keepdim=True)
+    if tp.mix_rep > 1:
+        ss = ss * (1.0 / tp.mix_rep)
+    ss = reduce_sum(copy_to(ss, tp.group), tp.group)
+    return (yf * torch.rsqrt(ss / width + 1e-6)).to(dt) * gamma
+
+
+def _share(x: torch.Tensor, tp: TpPlan) -> torch.Tensor:
+    """``x``, a partial sum that each of the ``mix_rep`` ranks holding
+    one block of heads computes alike, weighed ``1 / mix_rep``, so that
+    a sum over ``"model"`` counts the block once (and each of those
+    ranks' gradients is that share of the block's)."""
+    return x * (1.0 / tp.mix_rep) if tp.mix_rep > 1 else x
+
+
 def mlstm_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 state: ssm_lib.GlsState | None = None, *,
-                decode: bool = False):
+                decode: bool = False, rt: Runtime | None = None):
     """xLSTM mLSTM block: up-proj → heads → gated linear scan (matrix
-    memory, exponential gating) → head-norm → output gate → down-proj."""
+    memory, exponential gating) → head-norm → output gate → down-proj.
+    Where :func:`tp_plan` cuts the mixers, ``p`` and ``state`` hold this
+    rank's heads: ``u`` (whole ``w_up``) feeds them through
+    ``copy_to``, the head-norm sums over ``"model"`` and the down-proj
+    ends in ``reduce_sum``."""
     b, s, _ = x.shape
-    h = cfg.n_heads
+    tp = tp_plan(cfg, rt)
+    group = tp.over(tp.mix)
+    h = tp.mix_heads(cfg)
     di = cfg.d_model * cfg.proj_factor
-    dh = di // h
+    dh = di // cfg.n_heads
     hidden = _norm(p, "ln1", x, cfg)
-    u = hidden @ p["w_up"]
-    g = hidden @ p["w_gate"]
+    u = copy_to(hidden @ p["w_up"], group)
+    g = copy_to(hidden, group) @ p["w_gate"]
     # sqrt(dh) rounded to the model dtype, as the reference divides by it
     root = float(torch.sqrt(torch.tensor(float(dh), dtype=x.dtype)))
     q = (u @ p["wq"]).reshape(b, s, h, dh)
@@ -813,25 +930,36 @@ def mlstm_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
         y, new_state = ssm_lib.gated_linear_scan(
             q, k, v, log_f, log_i, chunk=cfg.gls_chunk,
             normalized=True, initial=state)
-    y = rms_norm(y.reshape(b, s, di), p["hnorm_g"])
+    y = _head_norm(y.reshape(b, s, h * dh), p["hnorm_g"], tp, di)
     y = y * F.silu(g)
-    return x + y @ p["w_down"], new_state
+    return x + reduce_sum(_share(y @ p["w_down"], tp), group), new_state
 
 
 def slstm_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
                 state: ssm_lib.SlstmState | None = None, *,
-                decode: bool = False):
+                decode: bool = False, rt: Runtime | None = None):
     """xLSTM sLSTM block: true recurrence (block-diagonal R), one step a
-    token; exponential gating with stabilizer."""
+    token; exponential gating with stabilizer.  Where :func:`tp_plan`
+    cuts the mixers, ``p`` and ``state`` hold this rank's heads (the
+    recurrence is block-diagonal by heads: no collective inside the
+    scan); the head-norm sums over ``"model"``, ``y`` is gathered over
+    the heads (:func:`~repro_torch.launch.mesh.gather_to`) for
+    ``w_out``'s columns and ``w_down``'s rows end in ``reduce_sum``."""
     b, s, d = x.shape
+    tp = tp_plan(cfg, rt)
+    group = tp.over(tp.mix)
+    h = tp.mix_heads(cfg)
+    width = d // cfg.n_heads * h
     hidden = _norm(p, "ln1", x, cfg)
-    gates = (hidden @ p["w_gates"]).reshape(b, s, 4, d)
-    y, new_state = ssm_lib.slstm_scan(gates, p["r_gates"],
-                                      n_heads=cfg.n_heads, initial=state)
-    y = rms_norm(y, p["hnorm_g"])
+    gates = (copy_to(hidden, group) @ p["w_gates"]).reshape(b, s, 4, width)
+    y, new_state = ssm_lib.slstm_scan(gates, p["r_gates"], n_heads=h,
+                                      initial=state)
+    y = _head_norm(y, p["hnorm_g"], tp, d)
+    if group is not None:
+        y = gather_to(y, rt.mesh, tp.mix_entry(), 2)
     y = y @ p["w_out"]
     out = F.gelu(y, approximate="tanh") @ p["w_down"]
-    return x + out, new_state
+    return x + reduce_sum(out, group), new_state
 
 
 # ======================================================================
@@ -1032,7 +1160,7 @@ def forward_train(params: dict, cfg: ModelConfig, batch: dict,
             block = slstm_block if _is_slstm(cfg, i) else mlstm_block
 
             def body(h, lp, block=block):
-                return block(lp, cfg, h)[0]
+                return block(lp, cfg, h, rt=rt)[0]
         else:
             body = decoder
         x = _remat(body, cfg.remat)(x, layer_params(params, i))
@@ -1050,9 +1178,11 @@ def state_fills(cfg: ModelConfig) -> bool:
     return cfg.family not in ("hybrid", "ssm")
 
 
-def _cache_len(state: dict) -> int:
-    """Rows of the self-attention cache (MLA's latent, or K)."""
-    return state["ckv" if "ckv" in state else "k"].shape[2]
+def _cache_len(state: dict, cut: tuple[int, int] | None = None) -> int:
+    """Rows of the self-attention cache (MLA's latent, or K): this
+    rank's times the ranks of ``cut`` (:func:`seq_cut`)."""
+    rows = state["ckv" if "ckv" in state else "k"].shape[2]
+    return rows * (cut[0] if cut else 1)
 
 
 def _write_prefix(rows: torch.Tensor, k: torch.Tensor, s: int) -> None:
@@ -1091,7 +1221,12 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict,
     the MoE layers expert-parallel (:func:`uses_ep`) and the cut leaves
     tensor-parallel (:func:`tp_plan`), each on its own ``batch``: the
     logits are then this rank's vocab columns where the vocab is cut,
-    and ``k``/``v`` (and ``xk``/``xv``) hold this rank's KV heads.
+    and ``k``/``v`` (and ``xk``/``xv``) hold this rank's KV heads; under
+    ``cfg.shard_kv_seq`` (:func:`seq_cut`) ``k``/``v`` (MLA's
+    ``ckv``/``krope``) hold every KV head of this rank's ``cache_len /
+    m`` positions (the new rows gathered over the heads where attention
+    is cut), and a ``cache_len`` that does not divide by the ``"model"``
+    size ``m`` raises ``ValueError``; ``xk``/``xv`` keep their cut.
     """
     check_supported(cfg, rt)
     tokens = batch["tokens"]
@@ -1111,18 +1246,31 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict,
         states = []
         for i in range(cfg.n_layers):
             block = slstm_block if _is_slstm(cfg, i) else mlstm_block
-            x, st = block(layer_params(params, i), cfg, x)
+            x, st = block(layer_params(params, i), cfg, x, rt=rt)
             states.append(st)
         state["layers"] = states
     else:
         hybrid = cfg.family == "hybrid"
         # rows a layer's self-attention state holds: the cache, or
         # hymba's ring; position t lives at row t % rows (t, since S <=
-        # rows, where the cache ends)
+        # rows, where the cache ends); cut by sequence, this rank's
+        # positions [start, start + rows)
         rows = cfg.window if hybrid else cache_len
         if not hybrid and s > cache_len:
             raise ValueError(f"prefill: {s} prompt tokens do not fit a "
                              f"cache of {cache_len}")
+        cut = seq_cut(cfg, rt)
+        heads = tp_plan(cfg, rt).kv_heads(cfg)
+        start = 0
+        if cut is not None:
+            m, coord = cut
+            if cache_len % m:
+                raise ValueError(
+                    f"prefill: a cache of {cache_len} rows does not divide "
+                    f"over the {m} ranks of \"model\" (shard_kv_seq cuts "
+                    "it by sequence)")
+            rows, heads = cache_len // m, cfg.n_kv_heads
+            start = coord * rows
         dt, nl = cfg.torch_dtype, cfg.n_layers
         if cfg.is_mla:
             names = ("ckv", "krope")
@@ -1130,8 +1278,7 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict,
                       (nl, b, rows, 1, cfg.rope_head_dim))
         else:
             names = ("k", "v")
-            shapes = ((nl, b, rows, tp_plan(cfg, rt).kv_heads(cfg),
-                       cfg.hd),) * 2
+            shapes = ((nl, b, rows, heads, cfg.hd),) * 2
         caches = [torch.zeros(shape, dtype=dt, device=dev)
                   for shape in shapes]
         cross, msts = [], []
@@ -1139,8 +1286,13 @@ def prefill(params: dict, cfg: ModelConfig, batch: dict,
             x, extras = decoder_block(layer_params(params, i), cfg, x, pos,
                                       enc_out=enc_out, return_kv=True,
                                       rt=rt)
-            for cache, t in zip(caches, extras["kv"]):
-                _write_prefix(cache[i], t, s)
+            kv = extras["kv"]
+            if cut is not None:
+                if not cfg.is_mla:
+                    kv = _all_kv_heads(kv, cfg, rt)
+                kv = tuple(t[:, start:start + rows] for t in kv)
+            for cache, t in zip(caches, kv):
+                _write_prefix(cache[i], t, t.shape[1])
             if hybrid:
                 msts.append(extras["mamba_state"])
             if enc_out is not None:
@@ -1160,14 +1312,93 @@ def _write_row(cache: torch.Tensor, new: torch.Tensor,
                lengths: torch.Tensor, room: torch.Tensor | None) -> None:
     """Write one new row a sequence into ``cache [B, C, ...]`` at
     ``lengths``, in place; with ``room`` ([B] bool), a row without room
-    keeps its cache as it is (its write goes to row C - 1 unchanged)."""
+    keeps its cache as it is (its write goes to a row in [0, C) that it
+    leaves unchanged)."""
     ar = torch.arange(cache.shape[0], device=cache.device)
     if room is None:
         cache[ar, lengths.long()] = new
         return
-    idx = lengths.long().clamp(max=cache.shape[1] - 1)
+    idx = lengths.long().clamp(0, cache.shape[1] - 1)
     keep = room.view(-1, *([1] * (new.dim() - 1)))
     cache[ar, idx] = torch.where(keep, new, cache[ar, idx])
+
+
+def _all_kv_heads(kv: tuple, cfg: ModelConfig, rt: Runtime | None
+                  ) -> tuple:
+    """K and V ``[B, S, KH', D]`` of this rank's KV heads → of every KV
+    head, gathered over ``"model"`` in one all-gather where attention is
+    cut by heads (as they are otherwise)."""
+    tp = tp_plan(cfg, rt)
+    if not tp.attn or tp.group is None:
+        return kv
+    k, v = kv
+    both = Placement(rt.mesh, (None, None, tp.kv_entry())).gather(
+        torch.cat([k, v], dim=-1))
+    return both[..., :k.shape[-1]], both[..., k.shape[-1]:]
+
+
+def _all_heads(q: torch.Tensor, tp: TpPlan, rt: Runtime | None
+               ) -> torch.Tensor:
+    """``q [B, H', ...]`` of this rank's query heads → of every head
+    where attention is cut by heads."""
+    if not tp.attn or tp.group is None:
+        return q
+    return Placement(rt.mesh, (None, "model")).gather(q)
+
+
+def _seq_merge(out: torch.Tensor, lse: torch.Tensor, tp: TpPlan
+               ) -> torch.Tensor:
+    """Every head's decode output ``[B, H, Dv]`` over the whole cache
+    from each rank's over its slice (:func:`~repro_torch.kernels.
+    flash_decode.merge_partials`: a MAX all-reduce of ``lse``, one SUM
+    all-reduce of the weighted outputs and weights over ``"model"``),
+    then this rank's query heads where attention is cut."""
+    out = merge_partials(out, lse, lambda t: all_reduce(t, tp.group, "max"),
+                         lambda t: all_reduce(t, tp.group))
+    if tp.attn:
+        n = out.shape[1] // tp.size
+        out = out[:, tp.coord * n:(tp.coord + 1) * n]
+    return out
+
+
+def _seq_lengths(lengths: torch.Tensor, cut: tuple[int, int],
+                 rows: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """(each sequence's new row's index in this rank's slice of
+    ``rows`` positions, and the valid rows of the slice after the
+    write), on the device: ``lengths − r·rows`` and ``clamp(lengths + 1
+    − r·rows, 0, rows)``."""
+    start = cut[1] * rows
+    local = lengths - start
+    return local, (local + 1).clamp(0, rows).to(torch.int32)
+
+
+def _decode_attn_seq(p: dict, cfg: ModelConfig, h: torch.Tensor,
+                     state_k: torch.Tensor, state_v: torch.Tensor,
+                     lengths: torch.Tensor, rt: Runtime,
+                     cut: tuple[int, int]):
+    """:func:`_decode_attn_dense` over a cache cut by sequence
+    (:func:`seq_cut`): this rank's slice ``[B, C/m, KH, D]`` of every KV
+    head.  The new K/V rows (gathered over the heads where attention is
+    cut) are written only by the rank whose slice holds position
+    ``lengths``; every query head (gathered likewise) attends over the
+    slice's valid rows through ``flash_decode`` with its log-sum-exp,
+    and the ranks' partial softmaxes merge (:func:`_seq_merge`)."""
+    tp = tp_plan(cfg, rt)
+    group = tp.over(tp.attn)
+    b = h.shape[0]
+    positions = _decode_positions(cfg, lengths)
+    q, k, v = _qkv(p, cfg, copy_to(h, group))
+    q = _rope(cfg, q, positions)
+    k, v = _all_kv_heads((_rope(cfg, k, positions), v), cfg, rt)
+    local, valid = _seq_lengths(lengths, cut, state_k.shape[1])
+    own = (local >= 0) & (local < state_k.shape[1])
+    _write_row(state_k, k[:, 0], local, own)
+    _write_row(state_v, v[:, 0], local, own)
+    out, lse = ops.decode_bshd(_all_heads(q[:, 0], tp, rt)[:, None],
+                               state_k, state_v, valid, with_lse=True)
+    out = _seq_merge(out[:, 0], lse, tp)
+    out = reduce_sum(out.reshape(b, 1, -1) @ p["wo"], group)
+    return out, state_k, state_v
 
 
 def _decode_positions(cfg: ModelConfig, lengths: torch.Tensor
@@ -1217,19 +1448,30 @@ def _decode_attn_dense(p: dict, cfg: ModelConfig, h: torch.Tensor,
 def _decode_attn_mla(p: dict, cfg: ModelConfig, h: torch.Tensor,
                      ckv_cache: torch.Tensor, krope_cache: torch.Tensor,
                      lengths: torch.Tensor, room: torch.Tensor | None,
-                     group=None):
+                     rt: Runtime | None = None,
+                     cut: tuple[int, int] | None = None):
     """Absorbed MLA decode: scores in latent space, no K/V expansion.
     Writes the new latent rows at ``lengths`` IN PLACE (``room`` as in
     :func:`_decode_attn_dense`).  W_uk is absorbed into q (each latent
     head repeated over its query group), and q is rescaled by
     ``sqrt((r + dr) / (hd + dr))`` rounded to q's dtype, in q's dtype,
     as the reference does before the decode attention's own
-    ``1/sqrt(r + dr)``.  ``group`` as in :func:`_attention_full`: this
-    rank's heads over the whole latent cache."""
+    ``1/sqrt(r + dr)``.  ``rt``: this rank's heads (where
+    :func:`tp_plan` cuts attention) over the whole latent cache, or,
+    cut by sequence (``cut``, :func:`seq_cut`), every head (gathered)
+    over this rank's slice, the new row written by the rank that holds
+    its position and the partial softmaxes merged (:func:`_seq_merge`)."""
+    tp = tp_plan(cfg, rt)
+    group = tp.over(tp.attn)
     b = h.shape[0]
     r, dr, hd = cfg.kv_lora_rank, cfg.rope_head_dim, cfg.hd
     q_nope, q_rope, c_kv, k_rope = _mla_qkv(p, cfg, h, lengths[:, None],
                                             group)
+    valid = lengths + 1
+    if cut is not None:
+        local, valid = _seq_lengths(lengths, cut, ckv_cache.shape[1])
+        room = (local >= 0) & (local < ckv_cache.shape[1])
+        lengths = local
     _write_row(ckv_cache, c_kv[:, 0], lengths, room)
     _write_row(krope_cache, k_rope[:, 0], lengths, room)
     kh = p["wuk"].shape[-1] // hd
@@ -1239,9 +1481,16 @@ def _decode_attn_mla(p: dict, cfg: ModelConfig, h: torch.Tensor,
     # rounded to q's dtype on the host; the product rounds in q's dtype
     scale = float(torch.sqrt(torch.tensor((r + dr) / (hd + dr),
                                           dtype=h.dtype)))
-    out_lat = ops.decode_mla((q_eff * scale)[:, 0], (q_rope * scale)[:, 0],
-                             ckv_cache, krope_cache[:, :, 0],
-                             lengths + 1)                  # [B,H,r]
+    q_lat, q_rope = (q_eff * scale)[:, 0], (q_rope * scale)[:, 0]
+    if cut is None:
+        out_lat = ops.decode_mla(q_lat, q_rope, ckv_cache,
+                                 krope_cache[:, :, 0], valid)   # [B,H,r]
+    else:
+        q_all = _all_heads(torch.cat([q_lat, q_rope], dim=-1), tp, rt)
+        out_lat, lse = ops.decode_mla(q_all[..., :r], q_all[..., r:],
+                                      ckv_cache, krope_cache[:, :, 0],
+                                      valid, with_lse=True)
+        out_lat = _seq_merge(out_lat, lse, tp)
     wuv = p["wuv"].reshape(r, kh, hd).repeat_interleave(g, dim=1)
     out = torch.einsum("bhr,rhe->bhe", out_lat, wuv)
     out = reduce_sum(out.reshape(b, 1, -1) @ p["wo"], group)
@@ -1270,6 +1519,7 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
     check_supported(cfg, rt)
     tp = tp_plan(cfg, rt)
     ag = tp.over(tp.attn)
+    cut = seq_cut(cfg, rt)
     lengths = state["lengths"]
     new_state = dict(state)
     x = embed_tokens(params, cfg, tokens.to(lengths.device)[:, None], rt)
@@ -1280,13 +1530,13 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
         for i, st in enumerate(state["layers"]):
             block = slstm_block if _is_slstm(cfg, i) else mlstm_block
             x, st2 = block(layer_params(params, i), cfg, x, state=st,
-                           decode=True)
+                           decode=True, rt=rt)
             new_layers.append(st2)
         new_state["layers"] = new_layers
     else:
         room = None
         if state_fills(cfg):
-            cache_len = _cache_len(state)
+            cache_len = _cache_len(state, cut)
             if live is None:
                 full = lengths >= cache_len
                 if bool(full.any()):
@@ -1307,7 +1557,11 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
             if cfg.is_mla:
                 attn, _, _ = _decode_attn_mla(
                     lp, cfg, h, state["ckv"][i], state["krope"][i],
-                    lengths, room, ag)
+                    lengths, room, rt, cut)
+            elif cut is not None:
+                attn, _, _ = _decode_attn_seq(
+                    lp, cfg, h, state["k"][i], state["v"][i], lengths, rt,
+                    cut)
             else:
                 attn, _, _ = _decode_attn_dense(
                     lp, cfg, h, state["k"][i], state["v"][i], lengths, room,

@@ -41,11 +41,11 @@ from typing import Any
 import torch
 
 from repro_torch.launch.mesh import (
-    Part,
     Placement,
     all_gather_axis,
     all_reduce,
     mesh_axes,
+    part_of,
 )
 from repro_torch.train._tree import leaves, tree_map, unflatten
 
@@ -153,8 +153,8 @@ def global_norm(tree: Any, placements: Any = None) -> torch.Tensor:
     whole, cut = [], {}
     for x, pl in zip(leaves(tree), leaves(placements)):
         s = torch.sum(torch.square(x.float()))
-        for e in pl.spec:
-            if isinstance(e, Part):
+        for e in map(part_of, pl.spec):
+            if e is not None:
                 s = s * (e.parts / pl.mesh.shape[e.axis])
         axes = tuple(a for e in pl.spec for a in mesh_axes(e)
                      if pl.mesh.shape[a] > 1)

@@ -39,11 +39,11 @@ import torch
 from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import batch_axis, make_global_batch
 from repro_torch.launch.mesh import (
-    Part,
     Placement,
     all_reduce,
     batch_axes,
     mesh_axes,
+    part_of,
 )
 from repro_torch.models.transformer import (
     Runtime,
@@ -111,8 +111,8 @@ def reduce_grads(grads: list, placements: Any) -> list:
             group = mesh.group(axis)
             if group is not None and axis not in cut:
                 all_reduce(g, group)
-        for e in pl.spec:
-            if isinstance(e, Part) and e.parts < mesh.shape[e.axis]:
+        for e in map(part_of, pl.spec):
+            if e is not None and e.parts < mesh.shape[e.axis]:
                 group = mesh.subgroup(e.axis, e.parts)
                 if group is not None:
                     all_reduce(g, group)

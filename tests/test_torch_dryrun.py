@@ -412,9 +412,17 @@ def test_variants_the_port_does_not_read_raise_by_name(tmp_path,
     assert dryrun.variant_overrides("noremat") == {"remat": False}
     assert dryrun.variant_overrides("cap10int8") == {
         "capacity_factor": 1.0, "moe_dispatch_dtype": "int8"}
-    for name in ("kvseq", "bigchunk", "donate", "kvseqdonate"):
+    for name in ("bigchunk", "donate"):
         with pytest.raises(ValueError, match=name):
             dryrun.run_cell("tinyllama-1.1b", "decode_32k", variant=name)
+    # ported (Queue 1 item 5c): on one card there is no "model" axis to
+    # cut the cache over, so the records equal the baseline's
+    base = dryrun.run_cell("tinyllama-1.1b", "decode_32k")
+    for name in ("kvseq", "kvseqdonate"):
+        assert dryrun.variant_overrides(name) == {"shard_kv_seq": True}
+        rec = dryrun.run_cell("tinyllama-1.1b", "decode_32k", variant=name)
+        assert rec["status"] == "OK" and rec["variant"] == name
+        assert rec["memory"] == base["memory"]
     with pytest.raises(ValueError, match="unknown"):
         dryrun.variant_overrides("nosuch")
     rec = dryrun.run_cell("tinyllama-1.1b", "decode_32k", variant="noremat")

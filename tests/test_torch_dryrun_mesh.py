@@ -278,9 +278,29 @@ def test_expert_parallel_variants_run(reduced, variant):
                                          ("bigchunk", "tile"),
                                          ("donate", "in place")])
 def test_dropped_variants_raise_naming_their_reason(reduced, variant, why):
-    with pytest.raises(ValueError, match=why):
-        dryrun.run_cell("tinyllama-1.1b", "decode_32k", mesh="pod2x2",
-                        variant=variant)
+    """``bigchunk`` and ``donate`` raise naming their reason; ``kvseq``
+    and ``kvseqdonate`` (Queue 1 item 5c, ported) run on pod2x2: the
+    cache cut by sequence over "model", the decode's merge of partial
+    softmaxes among the collectives, each record under its own name."""
+    arch = "tinyllama-1.1b"
+    if variant in dryrun.DROPPED_VARIANTS:
+        with pytest.raises(ValueError, match=why):
+            dryrun.run_cell(arch, "decode_32k", mesh="pod2x2",
+                            variant=variant)
+        return
+    base = dryrun.run_cell(arch, "decode_32k", mesh="pod2x2")
+    rec = dryrun.run_cell(arch, "decode_32k", mesh="pod2x2",
+                          variant=variant)
+    assert rec["status"] == "OK", rec.get("traceback")
+    assert rec["variant"] == variant
+    assert (reduced / f"{arch}_decode_32k_pod2x2_{variant}.json").exists()
+    counts = rec["collectives_raw"]["counts"]
+    assert counts["all-reduce"] > base["collectives_raw"]["counts"][
+        "all-reduce"]
+    # the reduced cache: every KV head of S / 2 positions a device, not
+    # one of the two KV heads of S positions: equal bytes, cut otherwise
+    assert rec["memory"]["argument_bytes"] == \
+        base["memory"]["argument_bytes"]
 
 
 def test_mesh_names():

@@ -2,9 +2,9 @@
 (``repro_torch.launch.mesh.run_world``): reduced tinyllama
 (``n_kv_heads = 2``), qwen2 (QKV bias), deepseek-v2-lite (MLA, shared
 experts, expert parallelism with tensor parallelism on (2,2)), qwen2-vl
-(M-RoPE), whisper (encoder and cross attention), and hymba and xlstm
-(their mixers whole, their vocab and FFN cut) on the (1,2), (1,4) and
-(2,2) meshes: ``forward_train``'s loss, the prefill logits and 4
+(M-RoPE), whisper (encoder and cross attention), hymba (its mixers
+whole, its vocab and FFN cut) and xlstm (its mLSTM mixers cut by heads,
+its vocab cut) on the (1,2), (1,4) and (2,2) meshes: ``forward_train``'s loss, the prefill logits and 4
 decode steps' logits against the port in one process and against the
 reference's single-device functions; two train steps with ZeRO-2
 against one process; a checkpoint saved on (2,2) restored onto (1,2)
@@ -56,7 +56,8 @@ ARCHS = {"tinyllama-1.1b": {}, "qwen2-7b": {},
          "deepseek-v2-lite-16b": {"moe_impl": "ep",
                                   "capacity_factor": 8.0},
          "qwen2-vl-72b": {}, "whisper-large-v3": {},
-         # mixers whole; vocab (and hymba's FFN) cut
+         # hymba: mixers whole, vocab and FFN cut; xlstm: mixers by
+         # heads, vocab cut
          "hymba-1.5b": {}, "xlstm-350m": {}}
 TRAIN_ARCHS = ("tinyllama-1.1b", "deepseek-v2-lite-16b")
 B, S, CACHE, STEPS = 4, 8, 16, 4
@@ -427,12 +428,18 @@ SHARD_SCRIPT = textwrap.dedent("""
 #: rank holds the head its query heads read; the reference cuts the
 #: columns through heads) and ``bk``/``bv`` (the reference keeps them
 #: whole); the routed experts of the dense MoE path (whole on each rank
-#: without expert parallelism); the mixers' leaves of the hybrid and
-#: ssm families that the reference cuts over "model" (whole: Queue 1
-#: item 5c), every one but those of FOLLOWED
+#: without expert parallelism); the mixers' leaves of the hybrid
+#: family that the reference cuts over "model" (whole: Queue 1 item
+#: 5d), every one but those of FOLLOWED; and the xLSTM leaves of
+#: SSM_DIFFER: ``w_up`` whole (its ``u`` feeds every head), ``wi``/``wf``,
+#: ``hnorm_g`` and ``r_gates`` cut by heads where the reference keeps
+#: them whole, ``w_gates`` by heads within each gate kind where the
+#: reference cuts its columns evenly (the other xLSTM leaves are
+#: head-aligned and follow the reference's shard)
 KV_DIFFER = {"wk", "wv", "bk", "bv", "xwk", "xwv", "wuk", "wuv"}
 EXPERTS_DIFFER = {"ew1", "ew2", "ew3"}
 FOLLOWED = {"embed", "head", "w1", "w2", "w3"}
+SSM_DIFFER = {"w_up", "wi", "wf", "hnorm_g", "w_gates", "r_gates"}
 
 
 @pytest.fixture(scope="module")
@@ -476,7 +483,15 @@ def test_block_shapes_on_2x4_follow_the_reference(ref_shards, arch):
         if cfg.family in tf.WHOLE_FAMILIES and path[-1] not in FOLLOWED:
             assert got == tuple(shape), path
             same += got == want
-        elif path[-1] in KV_DIFFER:
+        elif cfg.family == "ssm" and path[-1] in SSM_DIFFER:
+            # w_up whole; the rest hold this rank's one head of the 4
+            if path[-1] == "w_up":
+                assert got == tuple(shape), path
+            else:
+                axis = {"wi": 1, "wf": 1, "hnorm_g": 0, "w_gates": 1,
+                        "r_gates": 1}[path[-1]]
+                assert got[axis] == shape[axis] // cfg.n_heads, path
+        elif path[-1] in KV_DIFFER and cfg.family != "ssm":
             # whole KV heads: the rank's one head of the 2
             assert got[:-1] == tuple(shape)[:-1], path
             assert got[-1] == cfg.hd, path
@@ -510,6 +525,11 @@ def test_kv_heads_held_by_a_group_of_ranks():
         plan = tf.tp_plan(get_config(arch), rt)
         assert not plan.attn and plan.vocab
     assert tf.tp_plan(get_config("hymba-1.5b"), rt).ffn
+    # xlstm's 4 heads on 16 ranks: each head held by 4 (item 5c); hymba's
+    # 25 stay whole (item 5d)
+    plan = tf.tp_plan(get_config("xlstm-350m"), rt)
+    assert plan.mix and plan.mix_entry() == Part("model", 4)
+    assert not tf.tp_plan(get_config("hymba-1.5b"), rt).mix
 
 
 def test_constrain_is_the_identity_off_a_mesh():
