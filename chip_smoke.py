@@ -288,10 +288,17 @@ NVIDIA GPU:
      logged, every rank's log and held bytes equal to the dry-run
      counter's on an abstract (2,2) mesh; (a) runs EP with tensor
      parallelism (MLA's 8 heads a rank); (c) 4 ranks crash after step 7
-     and 2 ranks resume, against the clean 4-rank run.  Launch counts are set to 0 just before the
-     EP runs and read just after: the prefill, backward and MLA-decode
-     kernels must launch.  gloo stages CUDA tensors through host memory:
-     its times are no performance figure;
+     and 2 ranks resume, against the clean 4-rank run.  A second world
+     of four runs (e) the KV cache cut by sequence, (f) xLSTM's mixers
+     cut by heads and (g) hymba-1.5b's attention and Mamba heads cut in
+     blocks of whole heads of unequal size (``MESH_HYBRID_*``, 4 layers
+     at full width: prefill past the window, decode, the engine and a
+     train step against one process on (1,4) and (2,2); a planted fault
+     in the uneven gather; exact counts, each rank against the counter
+     at its own "model" coordinate).  Launch counts are set to 0 just
+     before the EP runs and read just after: the prefill, backward and
+     MLA-decode kernels must launch.  gloo stages CUDA tensors through
+     host memory: its times are no performance figure;
  15. prints the card's name and power limit again, the ``kernels`` JSON
      line (the families' configurations of #4 and #5 as rows of their
      own, with the launches of their launcher or, where it has none or
@@ -1428,6 +1435,12 @@ WINDOW_SHAPES = (
     (1, 25, 5, 257, 1100, 32, 100, "float32"),
     (1, 10, 2, 200, 150, 64, 77, "bfloat16"),
     (1, 10, 2, 200, 150, 64, 77, "float32"),
+    # tensor parallelism's local heads: hymba-1.5b on "model" = 4, rank
+    # 0 (10 query heads over 2 KV heads) and ranks 1-3 (5 over 1)
+    (2, 10, 2, 2048, 2048, 64, 1024, "bfloat16"),
+    (2, 10, 2, 2048, 2048, 64, 1024, "float32"),
+    (2, 5, 1, 2048, 2048, 64, 1024, "bfloat16"),
+    (2, 5, 1, 2048, 2048, 64, 1024, "float32"),
 )
 # the JSON rows of the families' configurations, and the count each
 # carries, as (run, counter): the hymba rows (hybrid_phase) the hymba
@@ -1466,6 +1479,11 @@ RING_SHAPES = (
     (8, 25, 5, 64, "float32", (2049,) * 8),
     (8, 25, 5, 64, "bfloat16", (1, 17, 500, 1022, 1023, 1024, 1500, 3000)),
     (8, 25, 5, 64, "float32", (1, 17, 500, 1022, 1023, 1024, 1500, 3000)),
+    # tensor parallelism's local heads: hymba-1.5b on "model" = 4
+    (8, 10, 2, 64, "bfloat16", (2049,) * 8),
+    (8, 10, 2, 64, "float32", (2049,) * 8),
+    (8, 5, 1, 64, "bfloat16", (2049,) * 8),
+    (8, 5, 1, 64, "float32", (2049,) * 8),
 )
 
 
@@ -3573,6 +3591,11 @@ BWD_SHAPES = (
     ("tp tinyllama", (8, 8, 1, 2048, 2048, 64, True, 0, 0, "bfloat16")),
     ("tp tinyllama", (8, 8, 1, 2048, 2048, 64, True, 0, 0, "float32")),
     ("tp mla", (2, 8, 8, 1024, 1024, 192, True, 0, 0, "bfloat16")),
+    # hymba-1.5b on "model" = 4, rank 0: 10 query heads over 2 KV heads
+    ("tp hymba window", (2, 10, 2, 2048, 2048, 64, True, 0, 1024,
+                         "bfloat16")),
+    ("tp hymba window", (2, 10, 2, 2048, 2048, 64, True, 0, 1024,
+                         "float32")),
 )
 # float32: within 1e-4 x the largest |gradient| of the three (sums in
 # another order); bf16: the kernel's error against the float32 plain
@@ -6465,10 +6488,11 @@ def _tp_exact(rank: int, mesh, models: dict = MESH_TP_CONFIGS,
 
 
 def tp_counted(models: dict = MESH_TP_CONFIGS,
-               kinds: tuple = ("train", "prefill", "decode")) -> dict:
+               kinds: tuple = ("train", "prefill", "decode"),
+               coords: tuple | None = None) -> dict:
     """The dry-run counter's collectives and argument bytes of the
     ``_tp_exact`` cells on an abstract (2,2) mesh (``meta``, this
-    process)."""
+    process), as its rank 0 or the rank at ``coords``."""
     from repro_torch.configs import ShapeCell
     from repro_torch.launch import dryrun
 
@@ -6477,7 +6501,7 @@ def tp_counted(models: dict = MESH_TP_CONFIGS,
     for arch, overrides in models.items():
         for kind in kinds:
             res = dryrun.count_cell(arch, ShapeCell(kind, seq, rows, kind),
-                                    overrides, "pod2x2")
+                                    overrides, "pod2x2", coords)
             out[arch, kind] = (res["collective_log"],
                                res["memory"]["argument_bytes"])
     return out
@@ -6778,6 +6802,32 @@ MESH_SSM_TRAIN = (4, 256)
 # layers: floor 4.66e-4, (1,4) 1.56e-3, (2,2) 8.4e-4 (PERF.md section 2)
 MESH_SSM_WEIGHT_NOISE = 1e-7
 MESH_SSM_FLOOR_FACTOR = 8
+# (g) hymba's attention and Mamba heads cut over "model" in blocks of
+# whole heads of unequal size: hymba-1.5b at full width (25 query heads
+# over 5 KV heads, 25 Mamba heads, window 1024) cut to
+# MESH_HYBRID_LAYERS, float32, on each mesh of MESH_TP_MESHES against
+# one process: a prefill of (rows, tokens) past the window (the rings
+# wrap) and decode steps (logits within MESH_LOGIT_TOL), the serving
+# engine's tokens (identical), a train batch of (rows, tokens) past the
+# window (loss within MESH_LOSS_TOL, the reduced gradients, gathered,
+# within the limit below); on (1,4) a planted fault the logits limit
+# must fail (the uneven gather keeps the Mamba blocks in reverse order);
+# on (2,2) a train, a prefill and a decode step counted exactly, each
+# rank against the counter at its own "model" coordinate (its blocks)
+MESH_HYBRID_LAYERS = 4
+MESH_HYBRID_CONFIGS = {HYMBA: {"dtype": "float32",
+                               "n_layers": MESH_HYBRID_LAYERS}}
+MESH_HYBRID_PARITY = (2, 1536, 8)
+MESH_HYBRID_TRAIN = (2, 1280)
+# the gradients' limit, fixed before the first run: MESH_GRAD_TOL, or
+# MESH_HYBRID_FLOOR_FACTOR x the floor (one process's gradients under
+# weights x (1 + MESH_SSM_WEIGHT_NOISE N(0, 1)), measured in the same
+# run) where that is larger (``repro_torch.launch.grad_floor``).  On
+# the CPU, this config in one process (``python -m
+# repro_torch.launch.grad_floor --arch hymba-1.5b --layers 4 --rows 2
+# --seq 1280 --device cpu``): floor 2.709e-05 at ma_log, so the limit is
+# expected at 2.2e-4 (PERF.md section 6)
+MESH_HYBRID_FLOOR_FACTOR = 8
 
 
 def _seq_path(cfg, params, toks, lengths, feed, rt) -> list:
@@ -6874,9 +6924,10 @@ def _ssm_rank(rank: int) -> dict:
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.launch.grad_floor import grad_floor
     from repro_torch.launch.mesh import gather_tree, make_mesh, shard_tree
     from repro_torch.models import transformer as tf
-    from repro_torch.train._tree import leaves, tree_map, unflatten
+    from repro_torch.train._tree import leaves, unflatten
     from repro_torch.train.trainer import reduce_grads, value_and_grad
 
     _card_rank()
@@ -6892,12 +6943,8 @@ def _ssm_rank(rank: int) -> dict:
         want, _ = _path(cfg, full, {"tokens": toks}, length + steps, steps,
                         [], feed=feed)
         one = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
-        loss_1, grads_1 = value_and_grad(full, cfg, one)
-        gen = torch.Generator(device=DEVICE).manual_seed(5)
-        noisy = tree_map(lambda t: t * (1 + MESH_SSM_WEIGHT_NOISE * torch.randn(
-            t.shape, generator=gen, device=DEVICE)), full)
-        floor = _grad_err(value_and_grad(noisy, cfg, one)[1], grads_1)
-        del noisy
+        loss_1, grads_1, floor, _ = grad_floor(full, cfg, one,
+                                               MESH_SSM_WEIGHT_NOISE)
     out = {"floor": floor}
     for shape in MESH_TP_MESHES:
         tic = time.perf_counter()
@@ -6933,16 +6980,195 @@ def _ssm_rank(rank: int) -> dict:
     return out
 
 
+@contextlib.contextmanager
+def uneven_order_fault():
+    """The planted fault of (g): the uneven gather keeps the distinct
+    blocks in reverse order, so each Mamba head's columns come from
+    another rank's heads."""
+    import torch
+
+    from repro_torch.launch import mesh
+
+    inner = mesh._keep_blocks
+
+    def reversed_blocks(full, entry, i):
+        pieces = []
+        for c in entry.firsts:
+            a, b = entry.bounds[c]
+            pieces.insert(0, full.select(i, c).narrow(i, 0, b - a))
+        return torch.cat(pieces, dim=i)
+
+    mesh._keep_blocks = reversed_blocks
+    try:
+        yield
+    finally:
+        mesh._keep_blocks = inner
+
+
+def _hybrid_rank(rank: int) -> dict:
+    """(g) on one rank: hymba-1.5b on each mesh of MESH_TP_MESHES
+    against rank 0's one process, the planted fault on (1,4), then the
+    exact counts."""
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import make_global_batch
+    from repro_torch.launch.grad_floor import grad_floor
+    from repro_torch.launch.mesh import gather_tree, make_mesh, shard_tree
+    from repro_torch.models import transformer as tf
+    from repro_torch.train._tree import leaves, unflatten
+    from repro_torch.train.trainer import reduce_grads, value_and_grad
+
+    _card_rank()
+    cfg = dataclasses.replace(get_config(HYMBA),
+                              **MESH_HYBRID_CONFIGS[HYMBA])
+    full = tf.init_params(cfg, torch.Generator(device=DEVICE).manual_seed(0),
+                          DEVICE)
+    n, length, steps = MESH_HYBRID_PARITY
+    toks = _tokens(cfg, n, length)
+    feed = _tokens(cfg, steps, n, seed=3)
+    host = _lm_batch(cfg.vocab_size, *MESH_HYBRID_TRAIN, 4)
+    floor = None
+    if rank == 0:
+        want, _ = _path(cfg, full, {"tokens": toks}, length + steps, steps,
+                        [], feed=feed)
+        one = {k: torch.from_numpy(v).to(DEVICE) for k, v in host.items()}
+        loss_1, grads_1, floor, _ = grad_floor(full, cfg, one,
+                                               MESH_SSM_WEIGHT_NOISE)
+        engine_1 = _engine_rank(cfg, full, tf.Runtime())["tokens"]
+    out = {"floor": floor}
+    for shape in MESH_TP_MESHES:
+        tic = time.perf_counter()
+        mesh = make_mesh(shape, device=DEVICE)
+        rt = tf.Runtime(mesh)
+        pl = tf.param_placements(cfg, rt)
+        params = shard_tree(full, pl)
+        plan = tf.tp_plan(cfg, rt)
+
+        def rows(t):
+            return make_global_batch({"t": t}, mesh)["t"]
+
+        _reset_counts()
+        got, _ = _path(cfg, params, {"tokens": rows(toks)}, length + steps,
+                       steps, [], feed=[rows(t) for t in feed], rt=rt)
+        got = _full_logits(cfg, rt, got)
+        loss, grads = value_and_grad(params, cfg,
+                                     make_global_batch(host, mesh), rt)
+        grads = reduce_grads(grads, pl)
+        g_full = leaves(gather_tree(unflatten(params, grads), pl))
+        c = plan.coord
+        res = {"counts": _counts(),
+               "heads": tuple(b - a for a, b in (
+                   plan.q_blocks[c], plan.kv_blocks[c],
+                   plan.mamba_blocks[c])),
+               "engine": _engine_rank(cfg, params, rt)}
+        del grads
+        if shape == (1, 4):
+            wrong, _ = _path(cfg, params, {"tokens": rows(toks)},
+                             length + steps, steps, [uneven_order_fault()],
+                             feed=[rows(t) for t in feed], rt=rt)
+            wrong = _full_logits(cfg, rt, wrong)
+        if rank == 0:
+            res["logits"] = _rel(want, got)
+            res["loss"] = abs(float(loss) - float(loss_1)) \
+                / abs(float(loss_1))
+            res["grads"] = _grad_err(g_full, grads_1)
+            res["engine_one"] = engine_1
+            if shape == (1, 4):
+                res["fault"] = _rel(want, wrong)
+        if shape == (1, 4):
+            del wrong
+        del got, g_full, params
+        _free()
+        res["s"] = time.perf_counter() - tic
+        out[shape] = res
+        if shape == (2, 2):
+            del full
+            _free()
+            out["exact"] = _tp_exact(rank, mesh, MESH_HYBRID_CONFIGS)
+            out["coords"] = mesh.coords
+    return out
+
+
+def hybrid_check(main: list) -> None:
+    """(g)'s lines and checks: parity with one process, the engine, the
+    planted fault, the local heads' launches, and the exact counts."""
+    first = main[0]["hybrid"]
+    n, length, steps = MESH_HYBRID_PARITY
+    floor = first["floor"]
+    grad_tol = max(MESH_GRAD_TOL, MESH_HYBRID_FLOOR_FACTOR * floor)
+    print(f"mesh gloo (g): one process's gradients under weights x (1 + "
+          f"{MESH_SSM_WEIGHT_NOISE} N(0, 1)): max |dg| / max |g| {floor!r} "
+          f"(the floor); gradient limit {grad_tol!r}", flush=True)
+    for shape in MESH_TP_MESHES:
+        res = first[shape]
+        engines = [r["hybrid"][shape]["engine"] for r in main]
+        tokens = engines[0]["tokens"]
+        heads = [r["hybrid"][shape]["heads"] for r in main]
+        print(f"mesh gloo (g): {HYMBA} {MESH_HYBRID_LAYERS} layers float32 "
+              f"on {shape}, (query, KV, Mamba) heads by rank "
+              f"{json.dumps(heads)}: prefill {n} x {length} (window "
+              f"1024: the rings wrap) + {steps} decode steps, max |dlogits| "
+              f"/ max |logits| {res['logits']!r} (limit {MESH_LOGIT_TOL}); "
+              f"train {MESH_HYBRID_TRAIN[0]} x {MESH_HYBRID_TRAIN[1]}: loss "
+              f"rel err {res['loss']!r} (limit {MESH_LOSS_TOL}); gradients "
+              f"max |dg| / max |g| {res['grads']!r} (limit {grad_tol!r}); "
+              f"engine tokens {json.dumps(tokens)}, the same on every rank "
+              f"{all(e['tokens'] == tokens for e in engines)} and as one "
+              f"process {tokens == res['engine_one']}; launches by rank "
+              f"{json.dumps([r['hybrid'][shape]['counts'] for r in main])};"
+              f" {res['s']:.3f} s (gloo: no performance figure)", flush=True)
+        check(res["logits"] <= MESH_LOGIT_TOL
+              and res["loss"] <= MESH_LOSS_TOL
+              and res["grads"] <= grad_tol,
+              f"hymba's mixers cut on {shape} differ from one process")
+        check(all(e["tokens"] == tokens and not e["truncated"]
+                  for e in engines) and tokens == res["engine_one"],
+              f"hymba's tensor-parallel engine on {shape} served other "
+              "tokens")
+        check(all(r["hybrid"][shape]["counts"][name] > 0 for r in main
+                  for name in ("flash_attention", "flash_decode",
+                               "flash_attention_bwd")),
+              f"a rank of {shape} launched no attention kernel at hymba's "
+              "local head counts")
+        if "fault" in res:
+            print(f"mesh gloo (g): planted fault on {shape} (the uneven "
+                  f"gather keeps the Mamba blocks in reverse order): max "
+                  f"|dlogits| / max |logits| {res['fault']!r} against the "
+                  f"limit {MESH_LOGIT_TOL}", flush=True)
+            check(res["fault"] > MESH_LOGIT_TOL,
+                  "the logits limit passes an uneven gather whose blocks "
+                  "are out of order")
+    # each rank against the counter at its own "model" coordinate: its
+    # held bytes are its blocks'; the forward's collectives are the same
+    # on every rank (the uneven gather pads each block to the largest),
+    # the train step's gradient sums over "data" carry its own blocks
+    by_coord = {c: tp_counted(MESH_HYBRID_CONFIGS, coords=(0, c))
+                for c in (0, 1)}
+    check(all(by_coord[0][key][0] == by_coord[1][key][0]
+              for key in by_coord[0] if key[1] != "train"),
+          "the counter's forward collectives differ between \"model\" "
+          "coordinates")
+    for c, want in by_coord.items():
+        exact_check(f"(g) \"model\" {c}", want,
+                    [r["hybrid"]["exact"] for r in main
+                     if r["hybrid"]["coords"][1] == c])
+
+
 def _seq_ssm_rank(rank: int) -> dict:
-    """The second four-rank world: (e), then (f)."""
+    """The second four-rank world: (e), (f), then (g)."""
     out = {"seq": _seq_rank(rank)}
     _free()
     out["ssm"] = _ssm_rank(rank)
+    _free()
+    tic = time.perf_counter()
+    out["hybrid"] = _hybrid_rank(rank)
+    out["hybrid_s"] = time.perf_counter() - tic
     return out
 
 
 def seq_ssm_gloo(root: pathlib.Path) -> dict:
-    """(e) and (f) in a world of four gloo ranks sharing the card;
+    """(e), (f) and (g) in a world of four gloo ranks sharing the card;
     returns rank 0's launches of the kernels (e) runs, by kernel."""
     tic = time.perf_counter()
     main = spawn_world(_seq_ssm_rank, 4, root / "seq_ssm")
@@ -7003,14 +7229,17 @@ def seq_ssm_gloo(root: pathlib.Path) -> dict:
               f"xLSTM's mixers cut on {shape} differ from one process")
     exact_check("(f)", tp_counted(MESH_SSM_CONFIGS),
                 [r["ssm"]["exact"] for r in main])
-    print(f"phase mesh gloo (e, f): {time.perf_counter() - tic:.3f} s",
+    hybrid_check(main)
+    print(f"phase mesh gloo (g): {first['hybrid_s']:.3f} s of the world",
+          flush=True)
+    print(f"phase mesh gloo (e, f, g): {time.perf_counter() - tic:.3f} s",
           flush=True)
     return dict(launches)
 
 
 def mesh_phase() -> dict:
     """The world of one on NCCL, then four gloo ranks sharing the card,
-    then (e) and (f) in a second world of four; the main path's kernels
+    then (e), (f) and (g) in a second world of four; the main path's kernels
     must launch in each.  Returns (e)'s launches of the decode kernels
     with their lse, by kernel (rank 0)."""
     with tempfile.TemporaryDirectory() as tmp:

@@ -107,10 +107,11 @@ DROPPED_VARIANTS: dict[str, str] = {
 MESHES = ("card1x1", "pod16x16", "pod2x16x16")
 
 
-def mesh_named(name: str):
+def mesh_named(name: str, coords: tuple[int, ...] | None = None):
     """The mesh of a record's name: ``card1x1`` the one card; ``pod``
     and sizes joined by ``x`` an abstract mesh (two sizes over
-    ``("data", "model")``, three over ``("pod", "data", "model")``)."""
+    ``("data", "model")``, three over ``("pod", "data", "model")``), as
+    its rank 0, or the rank at ``coords``."""
     from repro_torch.launch.mesh import abstract_mesh, make_host_mesh
 
     if name == "card1x1":
@@ -119,7 +120,7 @@ def mesh_named(name: str):
         sizes = tuple(int(n) for n in name[3:].split("x"))
         names = {2: ("data", "model"), 3: ("pod", "data", "model")}
         if len(sizes) in names:
-            return abstract_mesh(sizes, names[len(sizes)])
+            return abstract_mesh(sizes, names[len(sizes)], coords)
     raise ValueError(f"unknown dry-run mesh {name!r}; one of {MESHES} or "
                      "pod<sizes>")
 
@@ -150,7 +151,8 @@ def train_optimizer(cfg, mesh):
 
 
 def _build_cell(arch: str, cell, cfg_overrides: dict | None = None,
-                mesh_name: str = "card1x1"):
+                mesh_name: str = "card1x1",
+                coords: tuple[int, ...] | None = None):
     """(mesh, cfg, step, arguments): ``step(*arguments)`` runs the step
     of ``cell`` (a :class:`~repro_torch.configs.ShapeCell`) on ``meta``
     stand-ins: on an abstract mesh rank 0's step on its blocks (a train
@@ -164,7 +166,7 @@ def _build_cell(arch: str, cell, cfg_overrides: dict | None = None,
     cfg = get_config(arch)
     if cfg_overrides:
         cfg = dataclasses.replace(cfg, **cfg_overrides)
-    mesh = mesh_named(mesh_name)
+    mesh = mesh_named(mesh_name, coords)
     rt = tf.Runtime(mesh) if mesh.abstract else None
     params, params_pl = sp.abstract_model(cfg, mesh)
 
@@ -226,15 +228,18 @@ def _run(step, args):
 
 
 def count_cell(arch: str, cell, overrides: dict | None = None,
-               mesh: str = "card1x1") -> dict:
+               mesh: str = "card1x1",
+               coords: tuple[int, ...] | None = None) -> dict:
     """One ``meta`` run of ``arch``'s step (config ``overrides``) at
     ``cell``, any :class:`~repro_torch.configs.ShapeCell`, on the mesh
-    named ``mesh``: its FLOPs, bytes, memory, the kernels' ``[calls,
-    flops, bytes]``, the collectives' log (``(kind, group size,
-    operand bytes)`` in call order) and their totals."""
+    named ``mesh`` (rank 0's step, or, on an abstract mesh, the rank's
+    at ``coords``: blocks of unequal size differ between ranks): its
+    FLOPs, bytes, memory, the kernels' ``[calls, flops, bytes]``, the
+    collectives' log (``(kind, group size, operand bytes)`` in call
+    order) and their totals."""
     from repro_torch.launch._count import collective_totals
 
-    _, _, step, args = _build_cell(arch, cell, overrides, mesh)
+    _, _, step, args = _build_cell(arch, cell, overrides, mesh, coords)
     counter, memory = _run(step, args)
     return {"flops": counter.flops, "bytes": counter.bytes,
             "memory": memory, "kernels": dict(counter.kernels),

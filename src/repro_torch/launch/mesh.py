@@ -27,7 +27,11 @@ blocks than its mesh axis has ranks, each block held by a group of
 consecutive ranks (the KV heads that several ranks' query heads read);
 :meth:`CardMesh.subgroup` is that group.  A :class:`Strided` entry views
 a tensor axis as ``[outer, n]`` and cuts ``n`` (sLSTM's gate columns,
-four gate kinds × d, cut by heads).
+four gate kinds × d, cut by heads).  An :class:`Uneven` entry gives
+each coordinate its own range of the tensor axis: blocks of whole
+heads of unequal size, a block held by a run of consecutive ranks
+where there are fewer blocks than ranks (hymba's 25 heads on a
+``"model"`` axis of 2, 4 or 16).
 
 Every collective of the port goes through :func:`all_reduce`,
 :func:`all_gather_axis` or :func:`all_to_all`.  Each call is appended
@@ -128,27 +132,41 @@ class CardMesh:
             return AbstractGroup(axis, self.shape[axis])
         return self.groups.get(axis)
 
-    def subgroup(self, axis: str, parts: int):
+    def subgroup(self, axis: str, parts):
         """The group of the ranks that hold the same block of a tensor
-        axis cut into ``parts`` blocks over ``axis`` (:class:`Part`):
-        ``size // parts`` ranks of consecutive coordinates on ``axis``,
-        alike on every other axis (``parts`` 1: the axis's group).  The
-        groups of ``(axis, parts)`` are made at its first call, which is
-        collective: every rank makes the same first calls, in the same
-        order."""
+        axis cut over ``axis``: with ``parts`` an int, the blocks of a
+        :class:`Part` (``size // parts`` ranks of consecutive
+        coordinates on ``axis``, alike on every other axis; ``parts`` 1:
+        the axis's group); with ``parts`` a tuple, the lengths of the
+        runs of consecutive coordinates that share a block
+        (:attr:`Uneven.runs`), this rank's run, or ``None`` where it is
+        a run of one (nothing to exchange).  The groups of ``(axis,
+        parts)`` are made at its first call, which is collective: every
+        rank makes the same first calls, in the same order, whatever its
+        own run."""
         size = self.shape[axis]
-        if parts < 1 or size % parts:
-            raise ValueError(f"subgroup: {parts} blocks do not divide axis "
-                             f"{axis!r} of size {size}")
-        if parts == 1:
-            return self.group(axis)
-        if self.abstract:
-            return AbstractGroup(axis, size // parts)
+        if isinstance(parts, tuple):
+            runs = tuple(int(n) for n in parts)
+            if sum(runs) != size or min(runs) < 1:
+                raise ValueError(f"subgroup: runs {runs} do not cover axis "
+                                 f"{axis!r} of size {size}")
+            mine = _run_of(runs, self.coord(axis))
+            if self.abstract:
+                return AbstractGroup(axis, mine) if mine > 1 else None
+        else:
+            if parts < 1 or size % parts:
+                raise ValueError(f"subgroup: {parts} blocks do not divide "
+                                 f"axis {axis!r} of size {size}")
+            if parts == 1:
+                return self.group(axis)
+            if self.abstract:
+                return AbstractGroup(axis, size // parts)
+            runs = (size // parts,) * parts
         if not self.groups:
             return None
         if (axis, parts) not in self.groups:
             self.groups[axis, parts] = _subgroup(
-                self.axis_sizes, self.axis_names, axis, parts)
+                self.axis_sizes, self.axis_names, axis, runs)
         return self.groups[axis, parts]
 
     @property
@@ -158,21 +176,38 @@ class CardMesh:
         return not self.coords or all(c == 0 for c in self.coords)
 
 
+def _run_of(runs: tuple[int, ...], coord: int) -> int:
+    """The length of the run of ``runs`` that holds ``coord``."""
+    start = 0
+    for n in runs:
+        if coord < start + n:
+            return n
+        start += n
+    raise ValueError(f"coordinate {coord} past the runs {runs}")
+
+
 def _subgroup(sizes: tuple[int, ...], names: tuple[str, ...], axis: str,
-              parts: int):
-    """This rank's process group of :meth:`CardMesh.subgroup`.
-    ``new_group`` is collective: every rank makes every group of
-    ``(axis, parts)``, in this order."""
+              runs: tuple[int, ...]):
+    """This rank's process group of :meth:`CardMesh.subgroup`: each
+    line of ranks along ``axis`` cut into ``runs`` of consecutive
+    coordinates, a group of each run of more than one rank.
+    ``new_group`` is collective: every rank makes every group, in this
+    order."""
     i = names.index(axis)
-    size = sizes[i]
     grid = torch.arange(math.prod(sizes)).reshape(sizes)
-    # axis i last, then blocks of size // parts consecutive ranks
-    lines = torch.movedim(grid, i, -1).reshape(-1, size // parts)
+    # axis i last, one line of ranks a row
+    lines = torch.movedim(grid, i, -1).reshape(-1, sizes[i])
     mine = None
-    for ranks in lines.tolist():
-        group = dist.new_group(ranks)
-        if dist.get_rank() in ranks:
-            mine = group
+    for line in lines.tolist():
+        start = 0
+        for n in runs:
+            ranks = line[start:start + n]
+            start += n
+            if n == 1:
+                continue
+            group = dist.new_group(ranks)
+            if dist.get_rank() in ranks:
+                mine = group
     return mine
 
 
@@ -217,17 +252,23 @@ def make_host_mesh(device: str | torch.device = "cuda") -> CardMesh:
 
 
 def abstract_mesh(axis_sizes: tuple[int, ...],
-                  axis_names: tuple[str, ...] = ("data", "model")
-                  ) -> CardMesh:
+                  axis_names: tuple[str, ...] = ("data", "model"),
+                  coords: tuple[int, ...] | None = None) -> CardMesh:
     """An abstract mesh of ``axis_sizes`` over ``axis_names``: rank 0 of
-    it (coordinate 0 on every axis) on ``meta``, with no process group;
-    its collectives are logged, never made."""
+    it (coordinate 0 on every axis; or the rank at ``coords``) on
+    ``meta``, with no process group; its collectives are logged, never
+    made."""
     sizes = tuple(int(s) for s in axis_sizes)
     if len(sizes) != len(axis_names):
         raise ValueError(f"abstract_mesh: {len(sizes)} sizes for axes "
                          f"{axis_names}")
+    coords = (0,) * len(sizes) if coords is None else tuple(coords)
+    if len(coords) != len(sizes) or not all(
+            0 <= c < n for c, n in zip(coords, sizes)):
+        raise ValueError(f"abstract_mesh: coordinates {coords} outside "
+                         f"{sizes}")
     return CardMesh(torch.device("meta"), tuple(axis_names), sizes,
-                    coords=(0,) * len(sizes), abstract=True)
+                    coords=coords, abstract=True)
 
 
 def make_production_mesh(*, multi_pod: bool = False) -> CardMesh:
@@ -269,13 +310,72 @@ class Strided:
     entry: Any
 
 
+@dataclasses.dataclass(frozen=True)
+class Uneven:
+    """A spec entry: the tensor axis cut over the mesh axis ``axis``,
+    the rank at coordinate ``c`` holding the half-open range
+    ``bounds[c]`` of it (one pair a coordinate).  The blocks follow one
+    another from 0 and may differ in size; consecutive coordinates with
+    equal bounds share a block (a run).  Where every block has the same
+    size it places a tensor as the entry ``axis`` or a :class:`Part`
+    does.  Not inside a :class:`Strided`."""
+
+    axis: str
+    bounds: tuple
+
+    def __post_init__(self):
+        bounds = tuple((int(a), int(b)) for a, b in self.bounds)
+        object.__setattr__(self, "bounds", bounds)
+        end = 0
+        for c, (a, b) in enumerate(bounds):
+            if c and (a, b) == bounds[c - 1]:
+                continue
+            if a != end or b <= a:
+                raise ValueError(f"Uneven: {bounds} are not consecutive, "
+                                 "non-empty blocks from 0")
+            end = b
+
+    @property
+    def size(self) -> int:
+        """The tensor axis's full length."""
+        return self.bounds[-1][1]
+
+    @property
+    def runs(self) -> tuple[int, ...]:
+        """The lengths of the runs of coordinates that share a block, in
+        order."""
+        out = [1]
+        for c in range(1, len(self.bounds)):
+            if self.bounds[c] == self.bounds[c - 1]:
+                out[-1] += 1
+            else:
+                out.append(1)
+        return tuple(out)
+
+    @property
+    def firsts(self) -> tuple[int, ...]:
+        """The first coordinate of each run."""
+        return tuple(c for c in range(len(self.bounds))
+                     if c == 0 or self.bounds[c] != self.bounds[c - 1])
+
+    def share(self, coord: int) -> int:
+        """How many ranks hold the block of ``coord``."""
+        return self.bounds.count(self.bounds[coord])
+
+    def scaled(self, width: int) -> "Uneven":
+        """The same cut of an axis of ``width`` elements an item (a
+        head's columns)."""
+        return Uneven(self.axis, tuple((a * width, b * width)
+                                       for a, b in self.bounds))
+
+
 def mesh_axes(entry) -> tuple[str, ...]:
     """A spec entry's axis names (``None`` → none)."""
     if entry is None:
         return ()
     if isinstance(entry, Strided):
         return mesh_axes(entry.entry)
-    if isinstance(entry, Part):
+    if isinstance(entry, (Part, Uneven)):
         return (entry.axis,)
     return (entry,) if isinstance(entry, str) else tuple(entry)
 
@@ -292,21 +392,34 @@ def part_of(entry) -> Part | None:
 class Placement:
     """A full tensor's block on this rank of ``mesh``: tensor axis i is
     cut over the mesh axes of ``spec[i]`` (row-major over several; a
-    :class:`Part` into fewer blocks than its axis has ranks), each rank
-    holding the block at its coordinates; axes past the spec's end and
-    ``None`` entries stay whole."""
+    :class:`Part` into fewer blocks than its axis has ranks; an
+    :class:`Uneven` into blocks of its own bounds), each rank holding
+    the block at its coordinates; axes past the spec's end and ``None``
+    entries stay whole."""
 
     mesh: CardMesh
     spec: tuple
 
     def _cuts(self, ndim: int):
-        """(tensor axis, parts, this rank's part, outer blocks) for each
-        cut axis."""
+        """(tensor axis, parts, this rank's part, outer blocks, the
+        :class:`Uneven` entry or ``None``) for each cut axis."""
         out = []
         for i, entry in enumerate(tuple(self.spec)[:ndim]):
             outer = 1
             if isinstance(entry, Strided):
                 outer, entry = entry.outer, entry.entry
+            if isinstance(entry, Uneven):
+                if outer != 1:
+                    raise ValueError(f"placement {self.spec}: an Uneven "
+                                     "entry inside a Strided one")
+                if len(entry.bounds) != self.mesh.shape[entry.axis]:
+                    raise ValueError(
+                        f"placement {self.spec}: {len(entry.bounds)} "
+                        f"bounds for axis {entry.axis!r} of "
+                        f"{self.mesh.shape[entry.axis]} ranks")
+                if len(entry.runs) > 1:
+                    out.append((i, len(entry.runs), None, 1, entry))
+                continue
             if isinstance(entry, Part):
                 size = self.mesh.shape[entry.axis]
                 if size % entry.parts:
@@ -321,52 +434,95 @@ class Placement:
                     parts *= size
                     index = index * size + self.mesh.coord(name)
             if parts > 1:
-                out.append((i, parts, index, outer))
+                out.append((i, parts, index, outer, None))
         return out
+
+    def _range(self, i: int, parts: int, index, outer: int, uneven,
+               length: int) -> tuple[int, int]:
+        """(start, length) of this rank's block of each of the ``outer``
+        blocks of a full axis ``i`` of ``length``; raises
+        ``ValueError`` where it does not divide."""
+        if uneven is not None:
+            if length != uneven.size:
+                raise ValueError(f"placement {self.spec}: axis {i} of "
+                                 f"length {length} is not the {uneven.size} "
+                                 "its bounds cover")
+            a, b = uneven.bounds[self.mesh.coord(uneven.axis)]
+            return a, b - a
+        if length % (parts * outer):
+            raise ValueError(f"placement {self.spec}: axis {i} of length "
+                             f"{length} does not divide into "
+                             f"{parts * outer}")
+        n = length // (parts * outer)
+        return index * n, n
 
     def local_shape(self, shape: tuple[int, ...]) -> tuple[int, ...]:
         """The block's shape of a full tensor of ``shape``; raises
-        ``ValueError`` where a cut axis does not divide."""
+        ``ValueError`` where a cut axis does not divide (or an
+        :class:`Uneven` axis is not the length its bounds cover)."""
         out = list(shape)
-        for i, parts, _, outer in self._cuts(len(shape)):
-            if shape[i] % (parts * outer):
-                raise ValueError(f"placement {self.spec}: axis {i} of "
-                                 f"{tuple(shape)} does not divide into "
-                                 f"{parts * outer}")
-            out[i] = shape[i] // parts
+        for i, parts, index, outer, uneven in self._cuts(len(shape)):
+            out[i] = self._range(i, parts, index, outer, uneven,
+                                 shape[i])[1] * outer
         return tuple(out)
 
     def global_shape(self, shape: tuple[int, ...]) -> tuple[int, ...]:
         """The full tensor's shape of a block of ``shape``."""
         out = list(shape)
-        for i, parts, _, _ in self._cuts(len(shape)):
-            out[i] = shape[i] * parts
+        for i, parts, _, _, uneven in self._cuts(len(shape)):
+            out[i] = uneven.size if uneven is not None else shape[i] * parts
         return tuple(out)
+
+    def block(self, full: torch.Tensor) -> torch.Tensor:
+        """This rank's block of ``full``, a view."""
+        block = full
+        for i, parts, index, outer, uneven in self._cuts(full.dim()):
+            start, n = self._range(i, parts, index, outer, uneven,
+                                   full.shape[i])
+            block = block.unflatten(i, (outer, -1)).narrow(
+                i + 1, start, n).flatten(i, i + 1)
+        return block
 
     def shard(self, full: torch.Tensor) -> torch.Tensor:
         """This rank's block of ``full`` (a copy on the mesh's
         device)."""
-        self.local_shape(tuple(full.shape))
-        block = full
-        for i, parts, index, outer in self._cuts(full.dim()):
-            n = full.shape[i] // (parts * outer)
-            block = block.unflatten(i, (outer, parts * n)).narrow(
-                i + 1, index * n, n).flatten(i, i + 1)
-        return block.to(self.mesh.device, copy=True).contiguous()
+        return self.block(full).to(self.mesh.device, copy=True).contiguous()
 
     def gather(self, local: torch.Tensor) -> torch.Tensor:
         """The full tensor from every rank's block (a collective: every
         rank of the mesh calls it with its block)."""
         full = local
-        for i, _, _, _ in reversed(self._cuts(local.dim())):
+        for i, *_ in reversed(self._cuts(local.dim())):
             full = _gather_entry(full, self.mesh, self.spec[i], i)
         return full.contiguous()
+
+
+def _keep_blocks(full: torch.Tensor, entry: Uneven, i: int) -> torch.Tensor:
+    """Axis ``i`` of ``full`` ``[..., ranks, width, ...]`` (every rank's
+    block padded to ``width``) → each distinct block once, unpadded, in
+    order."""
+    pieces = []
+    for c in entry.firsts:
+        a, b = entry.bounds[c]
+        pieces.append(full.select(i, c).narrow(i, 0, b - a))
+    return torch.cat(pieces, dim=i)
 
 
 def _gather_entry(x: torch.Tensor, mesh: CardMesh, entry, i: int
                   ) -> torch.Tensor:
     """Axis ``i`` of every rank's block of one spec entry, gathered
-    (a collective)."""
+    (a collective).  An :class:`Uneven` block is padded to the largest
+    block, so that every rank sends (and logs) the same bytes in one
+    all-gather."""
+    if isinstance(entry, Uneven):
+        size = mesh.shape[entry.axis]
+        width = max(b - a for a, b in entry.bounds)
+        if x.shape[i] < width:
+            pad = list(x.shape)
+            pad[i] = width - x.shape[i]
+            x = torch.cat([x, x.new_zeros(pad)], dim=i)
+        full = all_gather_axis(x, mesh.group(entry.axis), size, i)
+        return _keep_blocks(full.unflatten(i, (size, width)), entry, i)
     outer = 1
     if isinstance(entry, Strided):
         outer, entry = entry.outer, entry.entry
@@ -528,42 +684,47 @@ def copy_to(x: torch.Tensor, group) -> torch.Tensor:
 
 class _GatherTo(torch.autograd.Function):
     """Axis ``i`` of every rank's block gathered (``entry``, one
-    spec entry); the gradient is summed over the entry's ranks and cut
-    to this rank's block, ``1 / k`` of it where ``k`` ranks hold the
-    block (a :class:`Part`)."""
+    spec entry); the gradient is summed over the entry's ranks (where
+    ``reduce``) and cut to this rank's block, ``1 / k`` of it where
+    ``k`` ranks hold the block (a :class:`Part`, or a run of an
+    :class:`Uneven`)."""
 
     @staticmethod
-    def forward(ctx, x, mesh, entry, i):
-        ctx.mesh, ctx.entry, ctx.i = mesh, entry, i
+    def forward(ctx, x, mesh, entry, i, reduce):
+        ctx.mesh, ctx.entry, ctx.i, ctx.reduce = mesh, entry, i, reduce
         return _gather_entry(x.contiguous(), mesh, entry, i)
 
     @staticmethod
     def backward(ctx, g):
         mesh, entry, i = ctx.mesh, ctx.entry, ctx.i
         g = g.contiguous().clone()
-        for name in mesh_axes(entry):
-            all_reduce(g, mesh.group(name))
-        place = Placement(mesh, (None,) * i + (entry,))
-        for j, parts, index, outer in place._cuts(g.dim()):
-            n = g.shape[j] // (parts * outer)
-            g = g.unflatten(j, (outer, parts * n)).narrow(
-                j + 1, index * n, n).flatten(j, j + 1)
+        if ctx.reduce:
+            for name in mesh_axes(entry):
+                all_reduce(g, mesh.group(name))
+        g = Placement(mesh, (None,) * i + (entry,)).block(g)
         part = part_of(entry)
         if part is not None:
             g = g * (part.parts / mesh.shape[part.axis])
-        return g.contiguous(), None, None, None
+        elif isinstance(entry, Uneven) and entry.share(
+                mesh.coord(entry.axis)) > 1:
+            g = g * (1.0 / entry.share(mesh.coord(entry.axis)))
+        return g.contiguous(), None, None, None, None
 
 
 def gather_to(x: torch.Tensor, mesh: CardMesh | None, entry,
-              axis: int) -> torch.Tensor:
+              axis: int, reduce: bool = True) -> torch.Tensor:
     """Axis ``axis`` of ``x``, this rank's block of a tensor cut by the
-    spec entry ``entry`` (an axis name, a :class:`Part` or a
-    :class:`Strided`), gathered over ``mesh`` (a collective), with the
-    backward of :class:`_GatherTo`; ``x`` as it is where ``entry`` is
-    ``None`` or there is no mesh."""
+    spec entry ``entry`` (an axis name, a :class:`Part`, a
+    :class:`Strided` or an :class:`Uneven`), gathered over ``mesh`` (a
+    collective), with the backward of :class:`_GatherTo`; ``x`` as it
+    is where ``entry`` is ``None`` or there is no mesh.  ``reduce``:
+    whether the gradient that reaches the gathered tensor is each rank's
+    part of it, to be summed (a product that each rank makes with its
+    own columns), or, ``False``, already the whole gradient on every
+    rank (a use that every rank makes alike), which is only cut."""
     if entry is None or mesh is None:
         return x
-    return _GatherTo.apply(x, mesh, entry, axis)
+    return _GatherTo.apply(x, mesh, entry, axis, reduce)
 
 
 # ------------------------------------------------------ worlds of ranks

@@ -20,8 +20,10 @@ over the batch axes where the batch divides by them (the reference's
 :func:`~repro_torch.models.transformer.tp_plan` cuts them, or by
 sequence with every head under ``shard_kv_seq``
 (:func:`~repro_torch.models.transformer.seq_cut`: ``k``/``v`` and MLA's
-``ckv``/``krope``; whisper's cross cache keeps its cut), and the xLSTM
-states by heads where ``tp_plan`` cuts the mixers.  The modality
+``ckv``/``krope``; whisper's cross cache keeps its cut), hymba's rings
+by its KV heads' blocks and its Mamba states by its Mamba heads'
+(:class:`~repro_torch.launch.mesh.Uneven`), and the xLSTM states by
+heads where ``tp_plan`` cuts the mixers.  The modality
 frontends are stubs as in the reference: whisper gets precomputed frame
 embeddings, qwen2-vl M-RoPE position grids.
 """
@@ -174,10 +176,12 @@ def decode_state_specs(cfg: ModelConfig, cell: ShapeCell, mesh: CardMesh):
     def spec_of(key):
         if seq and key in ("k", "v", "ckv", "krope"):
             return (None, bs, "model")
-        if key in ("k", "v", "xk", "xv") and cfg.family != "hybrid":
+        if key in ("k", "v", "xk", "xv"):
             return (None, bs, None, kv)
         if key == "layers":
             return (bs, plan.mix_entry())
+        if key == "mamba":
+            return (None, bs, plan.mamba_entry())
         return (bs,) if key == "lengths" else (None, bs)
 
     return _cut(mesh, state, spec_of)

@@ -65,13 +65,17 @@ slice of the cache's positions: a decode step attends over the slice
 with the decode kernels' log-sum-exp and merges the ranks' partial
 softmaxes (a MAX and a SUM all-reduce).  The ssm family cuts xLSTM's
 mLSTM and sLSTM mixers by heads (each head held by a group of ranks
-where there are fewer heads than ranks); the hybrid family keeps its
-mixers' leaves whole (hymba's attention and Mamba heads: Queue 1 item
-5d) and cuts its vocab and FFN.  The activations take their cut from
-the products around them, so the reference's five ``constrain``
-markers have no counterpart here; :func:`constrain` is the gather that
-brings a block from one cut to another (the engine's logits, the
-tests).
+where there are fewer heads than ranks); the hybrid family cuts hymba's
+attention by KV groups and its Mamba heads on their own, in blocks of
+whole heads of unequal size where the heads do not divide
+(:class:`~repro_torch.launch.mesh.Uneven`; hymba-1.5b's 25 / 5 heads on
+2, 4 or 16 ranks: :func:`hybrid_blocks`), and gathers the Mamba output,
+which has no projection of its own, over ``"model"`` before the
+fusion, so that the fusion's norms stay whole.  The activations take
+their cut from the products around them, so the reference's five
+``constrain`` markers have no counterpart here; :func:`constrain` is
+the gather that brings a block from one cut to another (the engine's
+logits, the tests).
 
 Deliberate differences from the reference's specs (``ROADMAP.md``):
 where ``n_kv_heads`` does not divide by the ``"model"`` size each rank
@@ -88,7 +92,13 @@ the reference cuts its columns), ``wi``/``wf``, ``hnorm_g`` and
 ``r_gates`` are cut by heads (the reference's are whole), ``w_gates``
 by the heads' columns of each gate kind (the reference cuts its
 columns evenly, one gate kind a rank at "model" = 4), and the mLSTM
-state by heads (the reference cuts ``h``'s Dk axis).
+state by heads (the reference cuts ``h``'s Dk axis); hymba's ``wq``,
+``wk``/``wv``, ``mB``/``mC`` and ``mX`` are cut by whole heads in blocks
+of unequal size, where the reference cuts their columns evenly, through
+heads; ``mdt``'s columns, ``ma_log`` and ``mdt_bias`` are cut by Mamba
+head, where the reference keeps them whole; and hymba's rings and
+Mamba states are cut by heads, where the reference keeps them whole
+over ``"model"``.
 
 Deliberate difference from the reference: where a slot's cache ends at
 ``cache_len`` (dense, moe, vlm and audio; not the encoder's cross
@@ -116,6 +126,7 @@ from repro_torch.launch.mesh import (
     Part,
     Placement,
     Strided,
+    Uneven,
     all_reduce,
     batch_axes,
     copy_to,
@@ -149,10 +160,10 @@ EXPERT_SPECS = {"ew1": ("data", None, "model"),
                 "ew3": ("data", None, "model"),
                 "ew2": ("data", "model", None)}
 
-#: the families whose mixers keep their "model" leaves whole (hymba's
-#: attention and Mamba heads: ROADMAP.md Queue 1 item 5d): only their
-#: vocab and FFN are cut
-WHOLE_FAMILIES = ("hybrid",)
+#: the families whose mixers keep their "model" leaves whole: none
+#: since hymba's attention and Mamba heads are cut in blocks of whole
+#: heads (:func:`hybrid_blocks`)
+WHOLE_FAMILIES = ()
 #: leaves by their part of tensor parallelism (names of init_lm)
 _Q_LEAVES = frozenset({"wq", "bq", "wo", "xwq", "xbq", "xwo"})
 _KV_LEAVES = frozenset({"wk", "wv", "bk", "bv", "xwk", "xwv", "xbk", "xbv",
@@ -186,7 +197,11 @@ class TpPlan:
     ssm family's mLSTM and sLSTM mixers by heads) with ``mix_parts``
     (their heads' blocks, each held by ``size // mix_parts`` ranks);
     ``group`` the ``"model"`` process group (``None``: nothing to
-    exchange) and ``coord`` this rank's coordinate on it."""
+    exchange) and ``coord`` this rank's coordinate on it.  The hybrid
+    family's cut is by blocks of whole heads, one ``(start, stop)`` a
+    coordinate (:func:`hybrid_blocks`): ``q_blocks`` and ``kv_blocks``
+    (its attention, where ``attn``) and ``mamba_blocks`` (its Mamba
+    heads; empty: whole)."""
 
     size: int = 1
     attn: bool = False
@@ -198,6 +213,9 @@ class TpPlan:
     mix_parts: int = 1
     group: Any = None
     coord: int = 0
+    q_blocks: tuple = ()
+    kv_blocks: tuple = ()
+    mamba_blocks: tuple = ()
 
     def over(self, cut: bool):
         """The ``"model"`` group where ``cut``, else ``None``."""
@@ -205,17 +223,40 @@ class TpPlan:
 
     def kv_heads(self, cfg: ModelConfig) -> int:
         """This rank's KV heads (MLA's ``wuk``/``wuv`` heads)."""
-        return cfg.n_kv_heads // self.kv_parts if self.attn \
-            else cfg.n_kv_heads
+        if not self.attn:
+            return cfg.n_kv_heads
+        if self.kv_blocks:
+            a, b = self.kv_blocks[self.coord]
+            return b - a
+        return cfg.n_kv_heads // self.kv_parts
 
-    def kv_entry(self):
-        """The spec entry of a KV-head axis: ``"model"``, a
-        :class:`~repro_torch.launch.mesh.Part` where fewer blocks than
-        ranks, or ``None`` (whole) where attention is not cut."""
+    def kv_entry(self, width: int = 1):
+        """The spec entry of a KV-head axis of ``width`` elements a head:
+        ``"model"``, a :class:`~repro_torch.launch.mesh.Part` where fewer
+        blocks than ranks, the hybrid family's
+        :class:`~repro_torch.launch.mesh.Uneven` blocks, or ``None``
+        (whole) where attention is not cut."""
         if not self.attn:
             return None
+        if self.kv_blocks:
+            return Uneven("model", self.kv_blocks).scaled(width)
         return "model" if self.kv_parts == self.size \
             else Part("model", self.kv_parts)
+
+    def q_entry(self, width: int):
+        """The hybrid family's entry of a query-head axis of ``width``
+        elements a head (its :class:`~repro_torch.launch.mesh.Uneven`
+        blocks), or ``None`` (whole)."""
+        if not self.attn or not self.q_blocks:
+            return None
+        return Uneven("model", self.q_blocks).scaled(width)
+
+    def mamba_entry(self, width: int = 1):
+        """The entry of a Mamba-head axis of ``width`` elements a head,
+        or ``None`` (whole)."""
+        if not self.mamba_blocks:
+            return None
+        return Uneven("model", self.mamba_blocks).scaled(width)
 
     def mix_entry(self):
         """The spec entry of the xLSTM mixers' head axis: ``"model"``,
@@ -236,6 +277,54 @@ class TpPlan:
         return self.size // self.mix_parts if self.mix else 1
 
 
+def _even_blocks(n: int, m: int) -> tuple:
+    """``m`` consecutive blocks of ``n`` items (``m <= n``) as ``(start,
+    stop)``, their sizes differing by at most one, the first ones the
+    larger."""
+    q, r = divmod(n, m)
+    out, start = [], 0
+    for c in range(m):
+        stop = start + q + (c < r)
+        out.append((start, stop))
+        start = stop
+    return tuple(out)
+
+
+def head_blocks(n: int, m: int) -> tuple:
+    """Each of ``m`` ranks' ``(start, stop)`` of ``n`` whole heads: as
+    even as whole heads allow (the first ranks hold one more), or, where
+    ``m > n``, each head held by a run of consecutive ranks (the runs'
+    lengths differing by at most one, the first ones the longer)."""
+    if m <= n:
+        return _even_blocks(n, m)
+    return tuple((j, j + 1) for j, (a, b) in enumerate(_even_blocks(m, n))
+                 for _ in range(b - a))
+
+
+def hybrid_blocks(n_heads: int, n_kv_heads: int, m: int):
+    """The hybrid family's attention over ``m`` ranks by KV groups (each
+    KV head with its ``g = n_heads / n_kv_heads`` query heads): ``(query
+    blocks, KV blocks)``, one ``(start, stop)`` of heads a rank.  Where
+    ``m <= n_kv_heads`` each rank holds whole KV groups
+    (:func:`head_blocks`); else the ranks form ``n_kv_heads`` runs, each
+    holding one KV head and cutting its ``g`` query heads among its
+    ranks as evenly as whole heads allow; ``None`` (attention whole)
+    where a run would have more ranks than ``g``."""
+    g = n_heads // n_kv_heads
+    if m <= n_kv_heads:
+        kv = head_blocks(n_kv_heads, m)
+        return tuple((a * g, b * g) for a, b in kv), kv
+    runs = _even_blocks(m, n_kv_heads)
+    if max(b - a for a, b in runs) > g:
+        return None
+    q, kv = [], []
+    for j, (a, b) in enumerate(runs):
+        for qa, qb in _even_blocks(g, b - a):
+            q.append((j * g + qa, j * g + qb))
+            kv.append((j, j + 1))
+    return tuple(q), tuple(kv)
+
+
 def tp_plan(cfg: ModelConfig, rt: "Runtime | None" = None) -> TpPlan:
     """The rule of tensor parallelism over ``rt``'s ``"model"`` axis
     (none without a mesh): attention is cut by whole query heads where
@@ -246,25 +335,32 @@ def tp_plan(cfg: ModelConfig, rt: "Runtime | None" = None) -> TpPlan:
     divide.  The ssm family's mixers are cut by heads where ``n_heads``
     and the size divide one another (even blocks, or each head held by
     a group of ranks) and ``d_model`` divides by the size (sLSTM's
-    ``w_out`` columns); the hybrid family cuts no mixer (attention
-    whole)."""
+    ``w_out`` columns).  The hybrid family cuts its attention by KV
+    groups and its Mamba heads on their own, in blocks of whole heads
+    of unequal size where the heads do not divide
+    (:func:`hybrid_blocks`, :func:`head_blocks`)."""
     mesh = rt.mesh if rt is not None else None
     if mesh is None or "model" not in mesh.shape:
         return TpPlan()
     m = mesh.shape["model"]
     h, kh = cfg.n_heads, cfg.n_kv_heads
+    fs = cfg.n_shared_experts * cfg.d_ff_expert
+    common = dict(
+        size=m, ffn=bool(cfg.d_ff) and not cfg.is_moe and cfg.d_ff % m == 0,
+        shared=fs > 0 and fs % m == 0, vocab=cfg.padded_vocab % m == 0,
+        group=mesh.group("model"), coord=mesh.coord("model"))
+    if cfg.family == "hybrid":
+        cut = hybrid_blocks(h, kh, m)
+        q, kv = cut or ((), ())
+        return TpPlan(attn=cut is not None, q_blocks=q, kv_blocks=kv,
+                      mamba_blocks=head_blocks(h, m), **common)
     attn = (cfg.family not in WHOLE_FAMILIES + ("ssm",) and h % m == 0
             and (kh % m == 0 or m % kh == 0))
     mix = (cfg.family == "ssm" and (h % m == 0 or m % h == 0)
            and cfg.d_model % m == 0)
-    fs = cfg.n_shared_experts * cfg.d_ff_expert
     return TpPlan(
-        size=m, attn=attn, kv_parts=(m if kh % m == 0 else kh) if attn else 1,
-        ffn=bool(cfg.d_ff) and not cfg.is_moe and cfg.d_ff % m == 0,
-        shared=fs > 0 and fs % m == 0,
-        vocab=cfg.padded_vocab % m == 0,
-        mix=mix, mix_parts=(m if h % m == 0 else h) if mix else 1,
-        group=mesh.group("model"), coord=mesh.coord("model"))
+        attn=attn, kv_parts=(m if kh % m == 0 else kh) if attn else 1,
+        mix=mix, mix_parts=(m if h % m == 0 else h) if mix else 1, **common)
 
 
 def seq_cut(cfg: ModelConfig, rt: "Runtime | None") -> tuple[int, int] | None:
@@ -574,11 +670,39 @@ def _ssm_spec(name: str, spec: tuple, plan: TpPlan, slstm: bool) -> tuple:
     return table.get(name, whole)
 
 
+def _hybrid_spec(name: str, spec: tuple, plan: TpPlan,
+                 cfg: ModelConfig) -> tuple | None:
+    """The port's spec of one of hymba's mixer leaves (stacked on the
+    layer axis), cut by blocks of whole heads
+    (:class:`~repro_torch.launch.mesh.Uneven`): ``wq``'s columns and
+    ``wo``'s rows by query heads, ``wk``/``wv``'s columns by KV heads
+    (where :func:`tp_plan` cuts attention); ``mX``'s columns by the
+    Mamba heads' ``hd``, ``mB``/``mC``'s by their ``ssm_state``,
+    ``mdt``'s columns, ``ma_log`` and ``mdt_bias`` by head.  ``None``
+    for any other leaf (the norms' gains stay whole)."""
+    hd, ss = cfg.hd, cfg.ssm_state
+    table = {"wq": (-1, plan.q_entry(hd)), "wo": (-2, plan.q_entry(hd)),
+             "wk": (-1, plan.kv_entry(hd)), "wv": (-1, plan.kv_entry(hd)),
+             "mX": (-1, plan.mamba_entry(hd)),
+             "mB": (-1, plan.mamba_entry(ss)),
+             "mC": (-1, plan.mamba_entry(ss)),
+             "mdt": (-1, plan.mamba_entry()),
+             "ma_log": (-1, plan.mamba_entry()),
+             "mdt_bias": (-1, plan.mamba_entry())}
+    if name not in table:
+        return None
+    axis, entry = table[name]
+    out = [None] * len(spec)
+    out[axis] = entry
+    return tuple(out)
+
+
 def tp_specs(cfg: ModelConfig, rt: Runtime) -> dict:
     """Every parameter's spec on ``rt``'s mesh (:func:`tp_plan`, the
     routed experts by :func:`uses_ep`), in the tree layout of
     :func:`init_lm`."""
     plan, ep = tp_plan(cfg, rt), uses_ep(cfg, rt)
+    hybrid = cfg.family == "hybrid"
 
     def walk(tree, name=None, slstm=None):
         if isinstance(tree, list):          # the ssm family's blocks
@@ -587,6 +711,10 @@ def tp_specs(cfg: ModelConfig, rt: Runtime) -> dict:
             return {k: walk(v, k, slstm) for k, v in tree.items()}
         if slstm is not None:
             return _ssm_spec(name, tree.spec, plan, slstm)
+        if hybrid:
+            spec = _hybrid_spec(name, tree.spec, plan, cfg)
+            if spec is not None:
+                return spec
         return _tp_spec(name, tree.spec, plan, ep)
     return walk(init_lm(cfg))
 
@@ -806,10 +934,19 @@ def _mlp(p: dict, cfg: ModelConfig, x: torch.Tensor,
 
 def _mamba_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
                state: ssm_lib.GlsState | None = None, *,
-               decode: bool = False):
-    """Mamba-2/SSD head mix (hybrid): returns (y [B,S,H·hd], new_state)."""
+               decode: bool = False, rt: Runtime | None = None):
+    """Mamba-2/SSD head mix (hybrid): returns (y [B,S,H·hd], new_state).
+    Where :func:`tp_plan` cuts the Mamba heads, ``p`` and ``state`` hold
+    this rank's heads: ``x`` goes through ``copy_to``, and ``y`` (which
+    has no projection of its own) is gathered over ``"model"`` into
+    every head's columns (:func:`~repro_torch.launch.mesh.gather_to`,
+    whose backward only cuts: the fusion after it runs alike on every
+    rank); the state stays this rank's heads."""
     b = x.shape[0]
-    h, hd, ss = cfg.n_heads, cfg.hd, cfg.ssm_state
+    tp = tp_plan(cfg, rt)
+    group = tp.over(bool(tp.mamba_blocks))
+    x = copy_to(x, group)
+    h, hd, ss = p["ma_log"].shape[-1], cfg.hd, cfg.ssm_state
     s = x.shape[1] if not decode else 1
     xB = (x @ p["mB"]).reshape(b, s, h, ss)
     xC = (x @ p["mC"]).reshape(b, s, h, ss)
@@ -827,7 +964,10 @@ def _mamba_mix(p: dict, cfg: ModelConfig, x: torch.Tensor,
         y, new_state = ssm_lib.gated_linear_scan(
             xC, xB, xV, log_a, log_i, chunk=cfg.gls_chunk,
             normalized=False, initial=state)
-    return y.reshape(b, s, h * hd), new_state
+    y = y.reshape(b, s, h * hd)
+    if group is not None:
+        y = gather_to(y, rt.mesh, tp.mamba_entry(hd), 2, reduce=False)
+    return y, new_state
 
 
 def _fuse_hybrid(p: dict, attn: torch.Tensor,
@@ -855,7 +995,7 @@ def decoder_block(p: dict, cfg: ModelConfig, x: torch.Tensor,
     if cfg.family == "hybrid":
         # Hymba: parallel attention + mamba heads in the same block;
         # H·hd == d_model, so both branches live in residual space
-        my, mstate = _mamba_mix(p, cfg, h, mamba_state)
+        my, mstate = _mamba_mix(p, cfg, h, mamba_state, rt=rt)
         extras["mamba_state"] = mstate
         x = x + _fuse_hybrid(p, attn, my)
     else:
@@ -1568,7 +1708,7 @@ def decode_step(params: dict, cfg: ModelConfig, state: dict,
                     ag)
             if mamba is not None:
                 mst = ssm_lib.GlsState(*(leaf[i] for leaf in mamba))
-                my, mst2 = _mamba_mix(lp, cfg, h, mst, decode=True)
+                my, mst2 = _mamba_mix(lp, cfg, h, mst, decode=True, rt=rt)
                 for leaf, new in zip(mst, mst2):
                     leaf.copy_(new)
                 attn = _fuse_hybrid(lp, attn, my)

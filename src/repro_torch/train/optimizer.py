@@ -14,7 +14,8 @@ On a mesh of ranks (``placements``: each parameter leaf's
 reduced ones, each rank holding the leaves' blocks as the parameters
 do; the clip's norm sums every block's squares over the axes the leaf
 is cut on (a block that a group of ranks holds, a
-:class:`~repro_torch.launch.mesh.Part`, once).  ``zero_shard``
+:class:`~repro_torch.launch.mesh.Part` or a run of an
+:class:`~repro_torch.launch.mesh.Uneven`, once).  ``zero_shard``
 (ZeRO-2): each moment is cut over ``"data"`` along the axis the
 reference's ``_zero_spec`` picks from the parameter's placement (the
 first axis it leaves whole that divides by the ``"data"`` size; a leaf
@@ -42,6 +43,7 @@ import torch
 
 from repro_torch.launch.mesh import (
     Placement,
+    Uneven,
     all_gather_axis,
     all_reduce,
     mesh_axes,
@@ -146,16 +148,21 @@ def global_norm(tree: Any, placements: Any = None) -> torch.Tensor:
     flatten order; on a mesh (``placements``), the squares of the leaves
     cut over mesh axes are summed over those axes' ranks first (each
     set of axes as one sum; a block held by ``k`` ranks of an axis, a
-    :class:`~repro_torch.launch.mesh.Part`, weighted ``1 / k``)."""
+    :class:`~repro_torch.launch.mesh.Part` or a run of an
+    :class:`~repro_torch.launch.mesh.Uneven`, weighted ``1 / k``, so
+    that each block counts once where ``k`` differs between blocks)."""
     if placements is None:
         sq = sum(torch.sum(torch.square(x.float())) for x in leaves(tree))
         return torch.sqrt(sq)
     whole, cut = [], {}
     for x, pl in zip(leaves(tree), leaves(placements)):
         s = torch.sum(torch.square(x.float()))
-        for e in map(part_of, pl.spec):
-            if e is not None:
-                s = s * (e.parts / pl.mesh.shape[e.axis])
+        for e in pl.spec:
+            part = part_of(e)
+            if part is not None:
+                s = s * (part.parts / pl.mesh.shape[part.axis])
+            elif isinstance(e, Uneven):
+                s = s * (1.0 / e.share(pl.mesh.coord(e.axis)))
         axes = tuple(a for e in pl.spec for a in mesh_axes(e)
                      if pl.mesh.shape[a] > 1)
         (cut.setdefault(axes, []) if axes else whole).append(s)

@@ -22,8 +22,10 @@ not), and AdamW updates each rank's blocks (``zero_shard``: ZeRO-2).
 The leaves cut over ``"model"`` (tensor parallelism) are summed over
 the batch axes only: the loss is the same on every ``"model"`` rank
 and is not summed there; a KV block that a group of ``"model"`` ranks
-holds (a :class:`~repro_torch.launch.mesh.Part`) sums its gradient over
-that group (:meth:`~repro_torch.launch.mesh.CardMesh.subgroup`).  The
+holds (a :class:`~repro_torch.launch.mesh.Part`, or a run of ranks
+sharing a block of an :class:`~repro_torch.launch.mesh.Uneven`) sums
+its gradient over that group
+(:meth:`~repro_torch.launch.mesh.CardMesh.subgroup`).  The
 parameters and moments on a mesh are this rank's blocks
 (:func:`train_placements`).
 """
@@ -40,6 +42,7 @@ from repro_torch.configs.base import ModelConfig
 from repro_torch.data.pipeline import batch_axis, make_global_batch
 from repro_torch.launch.mesh import (
     Placement,
+    Uneven,
     all_reduce,
     batch_axes,
     mesh_axes,
@@ -102,7 +105,8 @@ def reduce_grads(grads: list, placements: Any) -> list:
     """Each gradient (flatten order) of a leaf not cut over a batch axis
     summed over the batch axes' ranks of the placements' mesh, and a
     block that a group of ranks holds (a
-    :class:`~repro_torch.launch.mesh.Part`) over that group (in
+    :class:`~repro_torch.launch.mesh.Part`, or a run of an
+    :class:`~repro_torch.launch.mesh.Uneven`) over that group (in
     place)."""
     mesh = leaves(placements)[0].mesh
     for g, pl in zip(grads, leaves(placements)):
@@ -111,11 +115,17 @@ def reduce_grads(grads: list, placements: Any) -> list:
             group = mesh.group(axis)
             if group is not None and axis not in cut:
                 all_reduce(g, group)
-        for e in map(part_of, pl.spec):
-            if e is not None and e.parts < mesh.shape[e.axis]:
-                group = mesh.subgroup(e.axis, e.parts)
-                if group is not None:
-                    all_reduce(g, group)
+        for e in pl.spec:
+            part = part_of(e)
+            if part is not None and part.parts < mesh.shape[part.axis]:
+                group = mesh.subgroup(part.axis, part.parts)
+            elif isinstance(e, Uneven) and max(e.runs) > 1:
+                # made on every rank, held only by runs of several
+                group = mesh.subgroup(e.axis, e.runs)
+            else:
+                continue
+            if group is not None:
+                all_reduce(g, group)
     return grads
 
 

@@ -2,9 +2,10 @@
 (``repro_torch.launch.mesh.run_world``): reduced tinyllama
 (``n_kv_heads = 2``), qwen2 (QKV bias), deepseek-v2-lite (MLA, shared
 experts, expert parallelism with tensor parallelism on (2,2)), qwen2-vl
-(M-RoPE), whisper (encoder and cross attention), hymba (its mixers
-whole, its vocab and FFN cut) and xlstm (its mLSTM mixers cut by heads,
-its vocab cut) on the (1,2), (1,4) and (2,2) meshes: ``forward_train``'s loss, the prefill logits and 4
+(M-RoPE), whisper (encoder and cross attention), hymba (its attention
+and Mamba heads cut in blocks of whole heads, its vocab and FFN cut) and
+xlstm (its mLSTM mixers cut by heads, its vocab cut) on the (1,2), (1,4)
+and (2,2) meshes: ``forward_train``'s loss, the prefill logits and 4
 decode steps' logits against the port in one process and against the
 reference's single-device functions; two train steps with ZeRO-2
 against one process; a checkpoint saved on (2,2) restored onto (1,2)
@@ -56,8 +57,8 @@ ARCHS = {"tinyllama-1.1b": {}, "qwen2-7b": {},
          "deepseek-v2-lite-16b": {"moe_impl": "ep",
                                   "capacity_factor": 8.0},
          "qwen2-vl-72b": {}, "whisper-large-v3": {},
-         # hymba: mixers whole, vocab and FFN cut; xlstm: mixers by
-         # heads, vocab cut
+         # hymba: attention and Mamba heads by blocks of whole heads,
+         # vocab and FFN cut; xlstm: mixers by heads, vocab cut
          "hymba-1.5b": {}, "xlstm-350m": {}}
 TRAIN_ARCHS = ("tinyllama-1.1b", "deepseek-v2-lite-16b")
 B, S, CACHE, STEPS = 4, 8, 16, 4
@@ -428,9 +429,12 @@ SHARD_SCRIPT = textwrap.dedent("""
 #: rank holds the head its query heads read; the reference cuts the
 #: columns through heads) and ``bk``/``bv`` (the reference keeps them
 #: whole); the routed experts of the dense MoE path (whole on each rank
-#: without expert parallelism); the mixers' leaves of the hybrid
-#: family that the reference cuts over "model" (whole: Queue 1 item
-#: 5d), every one but those of FOLLOWED; and the xLSTM leaves of
+#: without expert parallelism); the hybrid family's leaves of
+#: HYBRID_DIFFER: ``wk``/``wv`` by whole KV heads (2 KV heads on 4
+#: ranks: one a rank, each held by a run of two) and ``mdt``, ``ma_log``
+#: and ``mdt_bias`` by Mamba heads (one of the 4 a rank) where the
+#: reference keeps them whole (its other mixer leaves are head-aligned
+#: on (2,4) and follow the reference's shard); and the xLSTM leaves of
 #: SSM_DIFFER: ``w_up`` whole (its ``u`` feeds every head), ``wi``/``wf``,
 #: ``hnorm_g`` and ``r_gates`` cut by heads where the reference keeps
 #: them whole, ``w_gates`` by heads within each gate kind where the
@@ -440,6 +444,7 @@ KV_DIFFER = {"wk", "wv", "bk", "bv", "xwk", "xwv", "wuk", "wuv"}
 EXPERTS_DIFFER = {"ew1", "ew2", "ew3"}
 FOLLOWED = {"embed", "head", "w1", "w2", "w3"}
 SSM_DIFFER = {"w_up", "wi", "wf", "hnorm_g", "w_gates", "r_gates"}
+HYBRID_DIFFER = {"wk", "wv", "mdt", "ma_log", "mdt_bias"}
 
 
 @pytest.fixture(scope="module")
@@ -483,6 +488,12 @@ def test_block_shapes_on_2x4_follow_the_reference(ref_shards, arch):
         if cfg.family in tf.WHOLE_FAMILIES and path[-1] not in FOLLOWED:
             assert got == tuple(shape), path
             same += got == want
+        elif cfg.family == "hybrid" and path[-1] in HYBRID_DIFFER:
+            # the rank's one KV head of the 2, its one Mamba head of the 4
+            width = cfg.hd if path[-1] in ("wk", "wv") else 1
+            assert got[:-1] == tuple(shape)[:-1], path
+            assert got[-1] == width, path
+            assert got != want, path
         elif cfg.family == "ssm" and path[-1] in SSM_DIFFER:
             # w_up whole; the rest hold this rank's one head of the 4
             if path[-1] == "w_up":
@@ -507,7 +518,8 @@ def test_kv_heads_held_by_a_group_of_ranks():
     """tinyllama at full width on "model" = 16: 2 query heads and the
     one KV head they read a rank, each KV head's block held by 4
     consecutive ranks; qwen2-7b's 28 heads and whisper's 20 do not
-    divide by 16, so their attention leaves stay whole."""
+    divide by 16, so their attention leaves stay whole; hymba's heads
+    are cut in blocks of whole heads of unequal size."""
     from repro_torch.launch.mesh import Part, make_production_mesh
 
     rt = tf.Runtime(make_production_mesh())
@@ -521,15 +533,23 @@ def test_kv_heads_held_by_a_group_of_ranks():
     for arch in ("qwen2-7b", "whisper-large-v3"):
         plan = tf.tp_plan(get_config(arch), rt)
         assert not plan.attn and plan.ffn and plan.vocab
-    for arch in ("hymba-1.5b", "xlstm-350m"):
-        plan = tf.tp_plan(get_config(arch), rt)
-        assert not plan.attn and plan.vocab
-    assert tf.tp_plan(get_config("hymba-1.5b"), rt).ffn
-    # xlstm's 4 heads on 16 ranks: each head held by 4 (item 5c); hymba's
-    # 25 stay whole (item 5d)
     plan = tf.tp_plan(get_config("xlstm-350m"), rt)
+    assert not plan.attn and plan.vocab
+    # xlstm's 4 heads on 16 ranks: each head held by 4 (item 5c)
     assert plan.mix and plan.mix_entry() == Part("model", 4)
-    assert not tf.tp_plan(get_config("hymba-1.5b"), rt).mix
+    # hymba's 25 query heads over 5 KV heads on 16 ranks: runs of 4, 3,
+    # 3, 3, 3 ranks share a KV head and cut its 5 query heads; its 25
+    # Mamba heads 2 a rank on nine ranks, 1 on seven (item 5d)
+    plan = tf.tp_plan(get_config("hymba-1.5b"), rt)
+    assert plan.attn and plan.vocab and plan.ffn and not plan.mix
+    assert [b - a for a, b in plan.q_blocks] == [2, 1, 1, 1] + [2, 2, 1] * 4
+    assert [a for a, _ in plan.kv_blocks] == sum(
+        ([j] * n for j, n in enumerate((4, 3, 3, 3, 3))), [])
+    assert [b - a for a, b in plan.mamba_blocks] == [2] * 9 + [1] * 7
+    pl = tf.param_placements(get_config("hymba-1.5b"), rt)["layers"]
+    assert pl["wq"].local_shape((32, 1600, 1600)) == (32, 1600, 128)
+    assert pl["wk"].local_shape((32, 1600, 320)) == (32, 1600, 64)
+    assert pl["mX"].local_shape((32, 1600, 1600)) == (32, 1600, 128)
 
 
 def test_constrain_is_the_identity_off_a_mesh():
